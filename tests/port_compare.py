@@ -1,0 +1,61 @@
+"""Helpers for the tests that hold tpu_splatting_torch against tpu_splatting.
+
+Data crosses between the two packages as numpy arrays only: a JAX pytree
+goes through ``jax.device_get`` into plain dicts, which the port's
+``convert`` module turns into tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from tpu_splatting_torch import convert
+
+
+def fields(obj) -> dict:
+  """Dataclass (pytree) -> {field: numpy array or plain value}."""
+  out = {}
+  for f in dataclasses.fields(obj):
+    v = getattr(obj, f.name)
+    out[f.name] = np.asarray(jax.device_get(v)) if hasattr(v, "shape") else v
+  return out
+
+
+def t(x, dtype=None) -> torch.Tensor:
+  """numpy / JAX array -> CPU tensor (copy), optionally cast."""
+  out = torch.from_numpy(np.array(jax.device_get(x), copy=True))
+  return out if dtype is None else out.to(dtype)
+
+
+def config(cfg):
+  return convert.raster_config_from_dict(dataclasses.asdict(cfg))
+
+
+def gaussians(g):
+  return convert.gaussians3d_from_numpy(fields(g))
+
+
+def camera(c):
+  return convert.camera_from_numpy(fields(c))
+
+
+def mapping(m):
+  return convert.stream_mapping_from_numpy(fields(m))
+
+
+def assert_mappings_equal(mj, mt):
+  """Every integer field exactly, the table to 1e-7, static metadata."""
+  for name in convert.MAPPING_INT_FIELDS:
+    a = np.asarray(getattr(mj, name)).astype(np.int64)
+    b = getattr(mt, name).numpy().astype(np.int64)
+    assert a.shape == b.shape, (name, a.shape, b.shape)
+    np.testing.assert_array_equal(b, a, err_msg=name)
+  np.testing.assert_allclose(mt.table.numpy(), np.asarray(mj.table),
+                             rtol=0, atol=1e-7)
+  for f in dataclasses.fields(mt):
+    if not isinstance(getattr(mt, f.name), torch.Tensor):
+      assert getattr(mt, f.name) == getattr(mj, f.name), f.name

@@ -1,0 +1,31 @@
+"""tpu_splatting_torch — the PyTorch + CUDA port of tpu_splatting.
+
+The JAX package ``tpu_splatting`` is the reference; this package grows
+beside it, module for module (``tpu_splatting_torch/rasterizer/stream.py``
+is the counterpart of ``tpu_splatting/rasterizer/stream.py``), and holds
+the same public names for the parts ported so far: the forward render
+path through the tile-stream pipeline.  Plain code is torch; the TPU's
+Pallas kernels become hand-written CUDA kernels for Hopper (``csrc/``),
+built at first use.  The package imports torch and numpy only.
+"""
+
+from . import perspective
+from .data_types import Gaussians2D, Gaussians3D, RasterConfig
+from .mapper.tile_mapper import pad_to_tile
+from .perspective import CameraParams
+from .rasterizer.stream import StreamMapping, calibrate_stream, stream_map
+from .rasterizer.stream_function import stream_rasterize_with_mapping
+from .renderer import (render_gaussians, render_projected,
+                       render_with_heuristics)
+from .rendering import RenderedPoints, Rendering
+from .spherical_harmonics import evaluate_sh_at
+
+__all__ = [
+    "Gaussians2D", "Gaussians3D", "RasterConfig", "CameraParams",
+    "pad_to_tile",
+    "StreamMapping", "calibrate_stream", "stream_map",
+    "stream_rasterize_with_mapping",
+    "render_gaussians", "render_projected", "render_with_heuristics",
+    "RenderedPoints", "Rendering", "evaluate_sh_at",
+    "perspective",
+]

@@ -1,0 +1,160 @@
+"""Top-level 3D renderer: projection -> (SH shading) -> NDC depth ->
+stream mapping -> rasterization -> (median-depth second pass).
+
+Counterpart of the stream branch of ``tpu_splatting/renderer.py``.  The
+sorted-overlap pipeline (``pipeline="sorted"``, images of 65,536 tiles or
+more) is ROADMAP item P9; per-point visibility and heuristics, which the
+stream pipeline gets from its backward, are P6/P7.  Both raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .data_types import Gaussians3D, RasterConfig
+from .perspective.params import CameraParams
+from .perspective.projection import ndc_depth, project_to_image
+from .rasterizer.stream_function import (stream_eligible,
+                                         stream_map_with_config,
+                                         stream_rasterize_with_mapping)
+from .rendering import RenderedPoints, Rendering
+from .spherical_harmonics import evaluate_sh_at
+
+
+def render_gaussians(
+    gaussians: Gaussians3D,
+    camera_params: CameraParams,
+    config: RasterConfig = RasterConfig(),
+    use_sh: bool = False,
+    render_depth: bool = False,
+    use_depth16: bool = False,
+    render_median_depth: bool = False,
+    max_overlaps: Optional[int] = None,
+    heuristic_probe: Optional[torch.Tensor] = None,
+    probe: Optional[torch.Tensor] = None,
+    tiled: bool = False,
+) -> Rendering:
+  """Complete 3D gaussian renderer (arguments as the reference's;
+  ``use_depth16`` and ``max_overlaps`` only concern the sorted pipeline)."""
+  gaussians2d, depths, in_view = project_to_image(
+      gaussians, camera_params, config)
+
+  if use_sh:
+    features = evaluate_sh_at(
+        gaussians.feature, gaussians.position.detach(),
+        camera_params.camera_position)
+  else:
+    features = gaussians.feature
+    assert features.dim() == 2, (
+        f"Features must be (N, C) if use_sh=False, got "
+        f"{tuple(features.shape)}")
+
+  return render_projected(
+      in_view, gaussians2d, features, depths, camera_params, config,
+      use_depth16=use_depth16, render_median_depth=render_median_depth,
+      render_depth=render_depth, max_overlaps=max_overlaps,
+      heuristic_probe=heuristic_probe, probe=probe, tiled=tiled)
+
+
+def render_projected(
+    in_view: torch.Tensor,
+    gaussians2d: torch.Tensor,
+    features: torch.Tensor,
+    depths: torch.Tensor,
+    camera_params: CameraParams,
+    config: RasterConfig,
+    use_depth16: bool = False,
+    render_median_depth: bool = False,
+    render_depth: bool = False,
+    max_overlaps: Optional[int] = None,
+    heuristic_probe: Optional[torch.Tensor] = None,
+    probe: Optional[torch.Tensor] = None,
+    tiled: bool = False,
+) -> Rendering:
+  """Rasterize already-projected gaussians through the stream pipeline."""
+  image_size = camera_params.image_size
+  if not stream_eligible(config, image_size):
+    raise NotImplementedError(
+        "sorted-overlap pipeline (pipeline='sorted' or >= 65,536 tiles): "
+        "ROADMAP P9")
+  if heuristic_probe is not None or (config.compute_visibility
+                                     and probe is None):
+    raise NotImplementedError(
+        "per-point visibility / heuristics come from the stream backward: "
+        "ROADMAP P6/P7")
+  ndc_depths = ndc_depth(depths, camera_params.near_plane,
+                         camera_params.far_plane)
+  # culled points have depth 0: keep the mapper's invalid mask
+  ndc_depths = torch.where(depths > 0, ndc_depths, 0.0)
+
+  if render_depth:
+    # composite (feature, depth, depth^2) in one pass -> expectation depth
+    feats_all = torch.cat([features, depths, depths ** 2], -1)
+  elif render_median_depth:
+    # the median pass reuses the mapping's table: depth rides it as a
+    # feature channel
+    feats_all = torch.cat([features, depths], -1)
+  else:
+    feats_all = features
+  f = features.shape[1]
+  f_all = feats_all.shape[1]
+
+  # the mapping is built from detached inputs; gradients flow through the
+  # rasterize op's own inputs
+  mapping = stream_map_with_config(
+      gaussians2d.detach(), ndc_depths.detach(), feats_all.detach(),
+      image_size, config)
+  out = stream_rasterize_with_mapping(
+      gaussians2d, feats_all, mapping, image_size, config, probe=probe,
+      tiled=tiled)
+  if tiled:
+    image = out[:, :f, :]
+    image_weight = out[:, f_all, :]
+    depth_image = (out[:, f, :] / torch.clamp(image_weight, min=1e-10)
+                   if render_depth else None)
+  else:
+    img_full, image_weight = out
+    depth_image = (img_full[..., f] / torch.clamp(image_weight, min=1e-10)
+                   if render_depth else None)
+    image = img_full[..., :f]
+
+  median_depth = None
+  if render_median_depth:
+    median_cfg = dataclasses.replace(
+        config, use_alpha_blending=False,
+        saturate_threshold=config.median_threshold)
+    med = stream_rasterize_with_mapping(
+        gaussians2d.detach(), feats_all.detach(), mapping, image_size,
+        median_cfg, tiled=tiled)
+    median_depth = med[:, f, :] if tiled else med[0][..., f]
+
+  points = RenderedPoints(
+      in_view=in_view,
+      depths=depths,
+      gaussians2d=gaussians2d,
+      features=features,
+  )
+  return Rendering(
+      image=image,
+      image_weight=image_weight,
+      depth_image=depth_image,
+      median_depth_image=median_depth,
+      points=points,
+      camera=camera_params,
+      config=config,
+      num_overflow=mapping.num_overflow,
+      overflow_by_cause=mapping.overflow,
+      tiled=tiled,
+  )
+
+
+def render_with_heuristics(loss_fn, gaussians: Gaussians3D,
+                           camera_params: CameraParams,
+                           config: RasterConfig = RasterConfig(),
+                           **render_kwargs):
+  """Render + loss + backward with per-point heuristics: needs the stream
+  backward (ROADMAP P6/P7)."""
+  raise NotImplementedError("render_with_heuristics: ROADMAP P6/P7")

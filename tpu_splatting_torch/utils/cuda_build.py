@@ -1,0 +1,70 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each kernel source under ``tpu_splatting_torch/csrc/`` has a plain C entry
+point.  At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into ``tpu_splatting_torch/_build/`` (named by a hash of the source, so an
+edited source rebuilds) and loaded with ``ctypes``.  Nothing is built at
+import time, and nothing here runs unless a CUDA tensor reaches a kernel
+wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+# -fmad=false: no mul+add contraction, so the kernels round like their
+# plain-torch twins (threshold decisions then agree bit for bit)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs = {}
+# per source: {"seconds": build time (0.0 when already built), "log": ptxas}
+build_info = {}
+
+
+def _nvcc() -> str:
+  for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+               "/usr/local/cuda/bin/nvcc"):
+    if cand and os.path.exists(cand):
+      return cand
+  raise RuntimeError("nvcc not found: the CUDA kernels of tpu_splatting_torch "
+                     "are built at first use and need the CUDA toolkit")
+
+
+def load_kernel_library(source: str) -> ctypes.CDLL:
+  """Compile ``csrc/<source>`` (once per source content) and load it."""
+  with _lock:
+    lib = _libs.get(source)
+    if lib is not None:
+      return lib
+    path = os.path.join(CSRC, source)
+    with open(path, "rb") as fh:
+      digest = hashlib.sha1(fh.read() + repr(NVCC_FLAGS).encode()).hexdigest()
+    stem = os.path.splitext(source)[0]
+    so = os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
+    t0 = time.perf_counter()
+    log = ""
+    if not os.path.exists(so):
+      os.makedirs(BUILD_DIR, exist_ok=True)
+      tmp = f"{so}.{os.getpid()}.tmp"
+      proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, path],
+                            capture_output=True, text=True)
+      if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+      os.replace(tmp, so)
+      log = proc.stderr
+    build_info[source] = {"seconds": time.perf_counter() - t0, "log": log}
+    lib = ctypes.CDLL(so)
+    _libs[source] = lib
+    return lib
