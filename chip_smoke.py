@@ -6,23 +6,37 @@
 Phases (any failure raises and exits non-zero):
 
 1. Device and build: needs CUDA, prints the card's name and power limit,
-   builds the stream forward kernel (K1) from ``tpu_splatting_torch/csrc``.
-2. Kernel against its plain twin on the card: 200k splats at 1024x768
-   (``bench.uniform_scene``; blending, antialias and quantile modes) and
-   200k splats with ``bench.heavy_scene`` statistics (calibrated from
-   slab_cap 1024 and from 128: many slabs), each mapped by the
-   port's own ``calibrate_stream`` + ``stream_map``; plus one small 3D
-   scene mapped on the card and on the CPU (identical mapping) and
-   composited by the kernel and by the twin on the CPU.
+   builds the stream forward (K1) and backward (K2) kernels from
+   ``tpu_splatting_torch/csrc`` (one ``nvcc`` each, in parallel) and
+   prints their registers and spills.
+2. Kernels against their plain twins on the card: 200k splats at
+   1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
+   quantile modes, K2 in blending, antialias and heuristics + visibility
+   modes) and 200k splats with ``scenes.heavy_scene`` statistics
+   (calibrated from slab_cap 1024 and from 128: many slabs, duplicate
+   rows), each mapped by the port's own ``calibrate_stream`` +
+   ``stream_map``; plus one small 3D scene mapped on the card and on the
+   CPU (identical mapping), composited by the kernel and by the twin on
+   the CPU, and trained one ``render_with_heuristics`` step on each
+   (loss, gradients and heuristics agree).  K2's home-major buffer is compared column by column:
+   max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6 (its atomics sum
+   in a varying order).
 3. The forward render at full size: 2M splats at 2048x1536, SH degree 3
-   (``bench.uniform_scene`` lifted to 3D), five ``render_gaussians``
+   (``scenes.uniform_scene`` lifted to 3D), five ``render_gaussians``
    requests under ``torch.no_grad()`` (the last with the median-depth
    pass), checked for zero overflow, finite images and weights in [0, 1],
    with the K1 launch count of that run; then a staged timing of one
    render, and K1 against its twin at the full-size shapes.
+4. Five training steps at full size, one pose each:
+   ``render_with_heuristics`` (SH 3, tiled masked L2 loss, visibility and
+   point heuristics) and a ``VisibilityAwareAdam`` step on the SH
+   features, checked for zero overflow, finite loss and gradients,
+   visibility >= 0, and K2 launches; then a staged timing of one step and
+   K2 against its twin at the full-size shapes.
 
 The last two lines of standard output are one JSON object with the
-kernels' launches, errors and times, and ``{"ok": true, "device": ...}``.
+kernels' launches, errors, times and bounds, and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -42,6 +56,22 @@ N_SMALL, SIZE_SMALL = 200_000, (1024, 768)
 N_FULL, SIZE_FULL = 2_000_000, (2048, 1536)
 CAP_KEYS = ("num_slabs", "strip_cap", "slab_cap", "w_max", "run_cap",
             "wide_cap", "dup_cap", "big_tile_window")
+HEUR = dict(compute_point_heuristic=True, compute_visibility=True)
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# f32 operations per (row, pixel) pair in blending mode with F = 3, one per
+# add, multiply, compare or transcendental.  K1: alpha (6-term quadratic
+# form + exp) 11, threshold + clamp 2, exp(lt) 1, weight 1, features 2F,
+# weight sum 1, log1p + add 2.  K2 adds to that the gradient chain: g.f
+# 2F+1, remaining sum 4, alpha_grad 4, z0 2, u, v and their products 12,
+# the six geometry gradients 24, features F, prune 1, split 3, and the
+# pixel reduction of the slabw columns.
+K1_OPS_PER_PAIR = 18 + 2 * 3
+
+
+def k2_ops_per_pair(slabw):
+  return K1_OPS_PER_PAIR + (2 * 3 + 1) + 4 + 4 + 2 + 12 + 24 + 3 + 4 + slabw
 
 
 def log(msg):
@@ -62,6 +92,24 @@ def cuda_ms(fn, reps=3):
   return start.elapsed_time(end) / reps
 
 
+def bound_ms(ops, nbytes):
+  """(least time in ms, "operations" or "bytes"): the larger of the
+  operations over the f32 peak and the bytes over the memory rate."""
+  t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+  return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def pairs_of(mapping, config):
+  """(row, pixel) pairs the mapping's descriptors ask for: the valid
+  window rows of every (tile, slab), times the pixels of a tile."""
+  from tpu_splatting_torch.rasterizer.stream_kernels import _window_slots
+  return int(_window_slots(mapping)[1].sum()) * config.tile_area
+
+
+def nbytes(*tensors):
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def kernel_vs_twin(mapping, config, label, reps=3):
   """Max abs error of K1 against stream_forward_reference, and both times."""
   from tpu_splatting_torch.rasterizer.stream_kernels import (
@@ -79,6 +127,34 @@ def kernel_vs_twin(mapping, config, label, reps=3):
   return err, k_ms, t_ms
 
 
+def backward_vs_twin(mapping, config, label, reps=3):
+  """K2 against stream_backward_reference on one cotangent, column by
+  column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6), and
+  both times.  Returns (max abs error, kernel ms, twin ms)."""
+  from tpu_splatting_torch.rasterizer.stream_kernels import (
+      stream_backward, stream_backward_reference, stream_forward)
+  img = stream_forward(mapping, config)
+  gen = torch.Generator(device=img.device).manual_seed(5)
+  gimg = torch.randn(img.shape, generator=gen, device=img.device)
+  got = stream_backward(mapping, img, gimg, config)
+  want = stream_backward_reference(mapping, img, gimg, config)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all(), f"{label}: non-finite kernel output"
+  err_col = (got - want).abs().amax(0)
+  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+  err = float(err_col.max())
+  k_ms = cuda_ms(lambda: stream_backward(mapping, img, gimg, config), reps)
+  t_ms = cuda_ms(lambda: stream_backward_reference(mapping, img, gimg,
+                                                   config), 1)
+  log(f"  {label} K2: max_abs_err {err:.3e}, worst column at "
+      f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
+      f"{k_ms:.3f} ms  twin {t_ms:.3f} ms")
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K2 disagrees with its twin", err_col.tolist(),
+      tol_col.tolist())
+  return err, k_ms, t_ms
+
+
 def phase_device():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: CUDA is not available")
@@ -90,13 +166,17 @@ def phase_device():
   log(f"torch {torch.__version__} cuda {torch.version.cuda} "
       f"device {torch.cuda.get_device_name(0)}")
   from tpu_splatting_torch.utils.cuda_build import (build_info,
-                                                    load_kernel_library)
-  load_kernel_library("stream_forward.cu")
-  info = build_info["stream_forward.cu"]
-  log(f"K1 build: {info['seconds']:.2f} s")
-  for line in info["log"].splitlines():
-    if "registers" in line or "spill" in line:
-      log(f"  ptxas: {line.strip()}")
+                                                    load_kernel_libraries)
+  t0 = time.perf_counter()
+  sources = ("stream_forward.cu", "stream_backward.cu")
+  load_kernel_libraries(sources)
+  log(f"build of {sources} in parallel: {time.perf_counter() - t0:.2f} s")
+  for name, src in zip(("K1", "K2"), sources):
+    info = build_info[src]
+    log(f"{name} build ({src}): {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+      if "registers" in line or "spill" in line:
+        log(f"  ptxas: {line.strip()}")
   return card
 
 
@@ -124,10 +204,11 @@ def mapped_scene(packed, depth, feats, image_size, config, dev,
 
 
 def phase_twin(dev):
-  from bench import heavy_scene, uniform_scene
+  """Phases 2 and 2b: (K1 max error, K2 max error)."""
   from tpu_splatting_torch import RasterConfig
-  errs = []
-  log(f"phase 2: K1 vs twin, uniform {N_SMALL} splats {SIZE_SMALL}")
+  from tpu_splatting_torch.scenes import heavy_scene, uniform_scene
+  errs, errs2 = [], []
+  log(f"phase 2: K1 and K2 vs twins, uniform {N_SMALL} splats {SIZE_SMALL}")
   scene = uniform_scene(np.random.default_rng(0), N_SMALL, SIZE_SMALL)
   cfg, build, feats, depth = mapped_scene(*scene, SIZE_SMALL,
                                           RasterConfig(), dev)
@@ -139,12 +220,16 @@ def phase_twin(dev):
   errs.append(kernel_vs_twin(
       mq, dataclasses.replace(cfg, use_alpha_blending=False,
                               saturate_threshold=0.25), "quantile")[0])
+  for label, extra in (("blending", {}), ("antialias", dict(antialias=True)),
+                       ("heuristics + visibility", HEUR)):
+    errs2.append(backward_vs_twin(
+        m, dataclasses.replace(cfg, **extra), label)[0])
 
   # heavy statistics twice: slab_cap > 512, and many thin slabs (the
   # carry across slabs); both with wide-splat duplication
   scene = heavy_scene(np.random.default_rng(1), N_SMALL, SIZE_SMALL)
   for slab_cap in (1024, 128):
-    log(f"phase 2: K1 vs twin, heavy statistics {N_SMALL} splats, "
+    log(f"phase 2: K1 and K2 vs twins, heavy statistics {N_SMALL} splats, "
         f"calibrated from slab_cap {slab_cap}")
     cfg, build, feats, _ = mapped_scene(*scene, SIZE_SMALL, RasterConfig(),
                                         dev, slab_cap=slab_cap)
@@ -152,7 +237,9 @@ def phase_twin(dev):
     log(f"  heavy mapping: slab_cap {m.slab_cap} num_slabs {m.num_slabs} "
         f"w_max {m.w_max} dup_cap {m.dup_cap}")
     errs.append(kernel_vs_twin(m, cfg, "heavy blending", reps=1)[0])
-  return max(errs)
+    errs2.append(backward_vs_twin(
+        m, dataclasses.replace(cfg, **HEUR), "heavy heuristics", reps=1)[0])
+  return max(errs), max(errs2)
 
 
 def cross_device_check(dev):
@@ -161,14 +248,13 @@ def cross_device_check(dev):
   must be identical; the images agree to TOL except where an a_raw lies
   within an ulp of alpha_threshold (CPU and CUDA exp differ by an ulp),
   which moves a pixel by at most alpha_threshold."""
-  from bench import uniform_scene
   from tpu_splatting_torch import RasterConfig, render_gaussians
   from tpu_splatting_torch.perspective.projection import (ndc_depth,
                                                           project_to_image)
   from tpu_splatting_torch.rasterizer.stream_function import (
       stream_map_with_config)
   from tpu_splatting_torch.renderer import render_projected
-  from tpu_splatting_torch.scenes import lift_to_3d
+  from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
   from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
   size = (256, 192)
   packed, depth, feats = uniform_scene(np.random.default_rng(2), 20_000,
@@ -202,6 +288,37 @@ def cross_device_check(dev):
       f"max_abs_err {float(err.max()):.3e}, share above {TOL:g}: {frac:.2e}")
   assert float(err.max()) <= cfg.alpha_threshold + TOL, float(err.max())
   assert frac <= 1e-3, frac
+
+  # one training step of the same scene on the card (kernels) and on the
+  # CPU (twins): the loss, every leaf's gradient and the heuristics agree
+  # but for the few points an exp ulp flips at alpha_threshold
+  from tpu_splatting_torch import render_with_heuristics
+  hcfg = dataclasses.replace(cfg, **HEUR)
+  tgt = torch.from_numpy(np.random.default_rng(7).random(
+      (size[1], size[0], 3)).astype(np.float32))
+  steps = []
+  for d in (dev, "cpu"):
+    t = tgt.to(d)
+    g_d = g3d.replace(**{f.name: getattr(g3d, f.name).to(d)
+                         for f in dataclasses.fields(g3d)})
+    steps.append(render_with_heuristics(
+        lambda r, t=t: ((r.image - t) ** 2).sum(), g_d, cam.to(d), hcfg,
+        use_sh=True))
+  (l_gpu, r_gpu, g_gpu), (l_cpu, r_cpu, g_cpu) = steps
+  assert abs(float(l_gpu) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+  shares = {}
+  for name in ("position", "log_scaling", "rotation", "alpha_logit",
+               "feature", "visibility", "prune_cost", "split_score"):
+    src = (g_gpu, g_cpu) if hasattr(g_cpu, name) else (r_gpu.points,
+                                                       r_cpu.points)
+    a, b = getattr(src[0], name).cpu(), getattr(src[1], name)
+    assert torch.isfinite(a).all(), name
+    off = (a - b).abs() > 1e-3 * b.abs().max() + 1e-6
+    shares[name] = float(off.float().mean())
+    assert shares[name] <= 1e-3, (name, shares[name])
+  log(f"  small training step {size}: loss card {float(l_gpu):.6f} CPU "
+      f"{float(l_cpu):.6f}; share of entries off by > 1e-3 of the "
+      f"largest: {max(shares.values()):.2e}")
   return float(err.max())
 
 
@@ -216,7 +333,6 @@ def poses(dev):
 
 
 def phase_full(dev):
-  from bench import uniform_scene
   from tpu_splatting_torch import RasterConfig, calibrate_stream
   from tpu_splatting_torch.perspective.projection import (ndc_depth,
                                                           project_to_image)
@@ -224,7 +340,7 @@ def phase_full(dev):
   from tpu_splatting_torch.rasterizer.stream_function import (
       detile, stream_map_with_config)
   from tpu_splatting_torch.renderer import render_gaussians
-  from tpu_splatting_torch.scenes import lift_to_3d
+  from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
   from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
 
   log(f"phase 3: {N_FULL} splats {SIZE_FULL} SH degree 3")
@@ -333,8 +449,151 @@ def phase_full(dev):
     mq = stream_map_with_config(
         g2d, nd, torch.cat([feats, depths], -1), SIZE_FULL, cfg)
     err_q, _, _ = kernel_vs_twin(mq, median_cfg, "full quantile", reps=1)
-  return {"launches": launches, "max_abs_err": max(err_b, err_q),
-          "ms": k_ms, "plain_ms": t_ms}
+  b_ms, b_by = bound_ms(pairs_of(m, cfg) * K1_OPS_PER_PAIR,
+                        nbytes(m.table, m.desc, m.strip_blk, it))
+  log(f"  K1 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; "
+      f"{pairs_of(m, cfg)} (row, pixel) pairs)")
+  k1 = {"launches": launches, "max_abs_err": max(err_b, err_q),
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
+  return k1, g3d, cams, cfg
+
+
+def phase_train(dev, g3d, cams, cfg_caps):
+  """Five full-size training steps, a staged step, K2 at full shapes."""
+  from tpu_splatting_torch import render_with_heuristics
+  from tpu_splatting_torch.mapper.tile_mapper import tile_shape
+  from tpu_splatting_torch.optim import GroupConfig, VisibilityAwareAdam
+  from tpu_splatting_torch.perspective.projection import (ndc_depth,
+                                                          project_to_image)
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.rasterizer.stream_function import (
+      entile, reduce_stage2, stream_map_with_config,
+      stream_rasterize_with_mapping, tile_mask)
+  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+
+  cfg = dataclasses.replace(cfg_caps, **HEUR)
+  log(f"phase 4: {len(cams)} training steps, {N_FULL} splats {SIZE_FULL} "
+      f"SH degree 3, heuristics + visibility")
+  tw, th = tile_shape(SIZE_FULL, cfg.tile_size)
+  tgt_full = np.random.default_rng(7).random(
+      (SIZE_FULL[1], SIZE_FULL[0], 3)).astype(np.float32)
+  tgt = entile(torch.from_numpy(tgt_full).to(dev), tw, th, cfg.tile_size)
+  mask = tile_mask(SIZE_FULL, tw, th, cfg.tile_size, device=dev)
+  del tgt_full
+
+  def loss_fn(rendering):
+    err = rendering.image - tgt                  # (T, 3, PIX)
+    return (mask * (err * err)).sum()
+
+  # the SH features only: positions, scales and opacities keep their
+  # values, so the calibrated capacities stay valid
+  opt = VisibilityAwareAdam({"feature": GroupConfig(lr=1e-3)})
+  state = opt.init({"feature": g3d.feature})
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  sk.reset_launch_counts()
+  times, losses = [], []
+  for i, cam in enumerate(cams):
+    k2_before = sk.launch_counts["stream_backward"]
+    t0 = time.perf_counter()
+    loss, r, grads = render_with_heuristics(loss_fn, g3d, cam, cfg,
+                                            use_sh=True, tiled=True)
+    vis = r.points.visibility
+    params, state = opt.step({"feature": g3d.feature},
+                             {"feature": grads.feature}, state, vis)
+    g3d = g3d.replace(feature=params["feature"])
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+    assert int(r.num_overflow) == 0, (i, r.overflow_by_cause.tolist())
+    assert np.isfinite(losses[-1]), (i, losses[-1])
+    for name in ("position", "log_scaling", "rotation", "alpha_logit",
+                 "feature"):
+      assert torch.isfinite(getattr(grads, name)).all(), (i, name)
+    for name in ("prune_cost", "split_score"):
+      assert torch.isfinite(getattr(r.points, name)).all(), (i, name)
+    assert float(vis.min()) >= 0.0, (i, float(vis.min()))
+    assert sk.launch_counts["stream_backward"] > k2_before, i
+    log(f"  step {i}: {times[-1]:.2f} ms  loss {losses[-1]:.4f}  visible "
+        f"{int((vis > 0).sum())}  |grad position| max "
+        f"{float(grads.position.abs().max()):.4e}")
+  launches = dict(sk.launch_counts)
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"  launches in the {len(cams)} steps: {launches}")
+  assert launches["stream_backward"] >= len(cams), launches
+  assert launches["stream_forward"] >= len(cams), launches
+  log(f"  end-to-end ms per training step: {[round(t, 3) for t in times]}")
+  log(f"  peak device memory: {peak:.3f} GiB")
+
+  # staged timing of one step: the same public functions, the backward
+  # taken apart (K2, stage 2, autograd tail through SH and projection)
+  cam = cams[0]
+  names = ("forward", "K2", "reduce stage 2", "autograd tail", "optimizer")
+  for _ in range(2):                          # warm once, time the second
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    leaves = [getattr(g3d, f.name).detach().requires_grad_(True)
+              for f in dataclasses.fields(g3d)]
+    g = g3d.replace(**{f.name: x for f, x in
+                       zip(dataclasses.fields(g3d), leaves)})
+    g2d, depths, _ = project_to_image(g, cam, cfg)
+    feats = evaluate_sh_at(g.feature, g.position.detach(),
+                           cam.camera_position)
+    nd = torch.where(depths > 0,
+                     ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+    m = stream_map_with_config(g2d.detach(), nd.detach(), feats.detach(),
+                               SIZE_FULL, cfg)
+    it = stream_rasterize_with_mapping(g2d, feats, m, SIZE_FULL, cfg,
+                                       tiled=True)
+    loss = (mask * (it[:, :3] - tgt) ** 2).sum()
+    (g_it,) = torch.autograd.grad(loss, it, retain_graph=True)
+    ev[1].record()
+    buf = sk.stream_backward(m, it.detach(), g_it, cfg)
+    ev[2].record()
+    gcols = reduce_stage2(buf, m)
+    ev[3].record()
+    tail = torch.autograd.grad([g2d, feats], leaves,
+                               [gcols[:, :7], gcols[:, 7:10]])
+    ev[4].record()
+    opt.step({"feature": g3d.feature}, {"feature": tail[4]}, state,
+             gcols[:, 10])
+    ev[5].record()
+    torch.cuda.synchronize()
+  stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+  log("  step stages (ms): " + "  ".join(f"{n} {t:.3f}"
+                                         for n, t in stages.items()))
+
+  log("  K2 vs twin at the full-size shapes")
+  err, k_ms, t_ms = backward_vs_twin(m, cfg, "full heuristics", reps=5)
+  slabw = sk.slab_width(cfg, m.feature_size)
+  pairs = pairs_of(m, cfg)
+  b_ms, b_by = bound_ms(
+      pairs * k2_ops_per_pair(slabw),
+      nbytes(m.table, m.desc, m.strip_blk, it, g_it, buf))
+  log(f"  K2 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; {pairs} "
+      f"(row, pixel) pairs, {k2_ops_per_pair(slabw)} operations each)")
+  k2 = {"launches": launches["stream_backward"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+  # K3's function on its own: sum every (tile, slab) window row's
+  # gradient row into its home-major row.  Its plain version and its one
+  # library call are the same index_add_ (the twin's merge step).
+  _, lnc, _ = sk._window_slots(m)
+  used = lnc > 0
+  lens, starts = lnc[used], sk.window_grad_rows(m)[used]
+  rows = (torch.repeat_interleave(starts - (torch.cumsum(lens, 0) - lens),
+                                  lens)
+          + torch.arange(int(lens.sum()), device=dev))
+  vals = torch.randn((rows.numel(), slabw), device=dev)
+  acc = torch.zeros_like(buf)
+  merge_ms = cuda_ms(lambda: acc.index_add_(0, rows, vals), 5)
+  b3_ms, b3_by = bound_ms(vals.numel(), nbytes(rows, vals, buf))
+  log(f"  K3 (fused into K2): index_add_ of {rows.numel()} gradient rows "
+      f"{merge_ms:.3f} ms, bound {b3_ms:.4f} ms ({b3_by})")
+  k3 = {"launches": launches["stream_backward"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": merge_ms, "bound_ms": b3_ms,
+        "bound_by": b3_by, "library_ms": merge_ms}
+  return k2, k3
 
 
 def main():
@@ -344,20 +603,24 @@ def main():
   dev = torch.device("cuda", 0)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  err2 = phase_twin(dev)
+  err2, err2b = phase_twin(dev)
   cross_device_check(dev)
-  k1 = phase_full(dev)
-  log(f"phase 2 max_abs_err {err2:.3e}")
+  k1, g3d, cams, cfg = phase_full(dev)
+  k2, k3 = phase_train(dev, g3d, cams, cfg)
+  log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}")
   log(card)                    # name, power limit as nvidia-smi prints them
-  log(json.dumps({"kernels": [{
-      "name": "stream_forward",
-      "route": "cuda",
-      "source": "tpu_splatting_torch/csrc/stream_forward.cu",
-      "replaces": "tpu_splatting/rasterizer/stream_kernels.py:412",
-      "launches": k1["launches"],
-      "max_abs_err": k1["max_abs_err"],
-      "ms": k1["ms"],
-      "plain_ms": k1["plain_ms"]}]}))
+  src = "tpu_splatting_torch/csrc/"
+  ref = "tpu_splatting/rasterizer/stream_kernels.py:"
+  log(json.dumps({"kernels": [
+      dict(name="stream_forward", route="cuda",
+           source=src + "stream_forward.cu", replaces=ref + "412",
+           library_ms=None, **k1),
+      dict(name="stream_backward", route="cuda",
+           source=src + "stream_backward.cu", replaces=ref + "697",
+           library_ms=None, **k2),
+      dict(name="merge_grad_slabs", route="cuda",
+           source=src + "stream_backward.cu", replaces=ref + "996",
+           fused_into="stream_backward", **k3)]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -36,15 +36,15 @@ def config(cfg):
 
 
 def gaussians(g):
-  return convert.gaussians3d_from_numpy(fields(g))
+  return convert.gaussians3d_from_numpy(fields(g), device="cpu")
 
 
 def camera(c):
-  return convert.camera_from_numpy(fields(c))
+  return convert.camera_from_numpy(fields(c), device="cpu")
 
 
 def mapping(m):
-  return convert.stream_mapping_from_numpy(fields(m))
+  return convert.stream_mapping_from_numpy(fields(m), device="cpu")
 
 
 def assert_mappings_equal(mj, mt):

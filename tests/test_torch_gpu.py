@@ -12,6 +12,7 @@ import torch
 
 from tpu_splatting_torch import RasterConfig, calibrate_stream, stream_map
 from tpu_splatting_torch.rasterizer import stream_kernels as sk
+from tpu_splatting_torch.scenes import uniform_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -31,26 +32,18 @@ def cuda():
   return torch.device("cuda")
 
 
-def splats(n, size, seed=0):
-  """Uniform random 2D splats (packed 7-float rows), NDC depth, colours."""
-  rng = np.random.default_rng(seed)
-  w, h = size
-  scale = 1.2 * w / (1 + np.sqrt(n))
-  packed = np.zeros((n, 7), np.float32)
-  packed[:, 0] = rng.uniform(0, w, n)
-  packed[:, 1] = rng.uniform(0, h, n)
-  theta = rng.uniform(0, np.pi, n)
-  packed[:, 2], packed[:, 3] = np.cos(theta), np.sin(theta)
-  packed[:, 4:6] = (rng.random((n, 2)) + 0.2) * scale
-  packed[:, 6] = rng.uniform(0.1, 0.9, n)
-  depth = rng.uniform(0.05, 0.95, n).astype(np.float32)
-  feats = rng.random((n, 3)).astype(np.float32)
-  return packed, depth, feats
+BWD_MODES = {
+    "blend": dict(),
+    "antialias": dict(antialias=True),
+    "heuristics": dict(compute_point_heuristic=True,
+                       compute_visibility=True),
+}
 
 
 def mapping_for(dev, config, n=4000, size=(128, 96), depth_features=False):
-  packed, depth, feats = (torch.from_numpy(x).to(dev)
-                          for x in splats(n, size))
+  packed, depth, feats = (
+      torch.from_numpy(x).to(dev)
+      for x in uniform_scene(np.random.default_rng(0), n, size))
   if depth_features:
     feats = depth[:, None]
   cal = calibrate_stream(packed, depth, feats, size, config, group_width=8)
@@ -85,3 +78,69 @@ def test_kernel_rejects_bad_inputs(cuda):
   with pytest.raises(ValueError):
     sk.stream_forward(dataclasses.replace(m, strip_blk=m.strip_blk[:1]),
                       config)
+
+
+def columns_close(got, want):
+  """Per column: max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6
+  (the kernel's atomics sum in a varying order)."""
+  tol = 1e-4 * want.abs().amax(0) + 1e-6
+  err = (got - want).abs().amax(0)
+  assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
+
+
+@pytest.mark.parametrize("mode", sorted(BWD_MODES))
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_backward_kernel_matches_twin(cuda, mode, tile_size):
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  gimg = torch.randn(img.shape, generator=gen, device=cuda)
+  sk.reset_launch_counts()
+  got = sk.stream_backward(m, img, gimg, config)
+  torch.cuda.synchronize()
+  assert sk.launch_counts["stream_backward"] == 1
+  want = sk.stream_backward_reference(m, img, gimg, config)
+  assert got.shape == want.shape == (m.num_tiles * m.run_cap + 1,
+                                     sk.slab_width(config, 3))
+  assert float(want.abs().max()) > 0.1
+  assert not bool(got[-1].any())
+  columns_close(got, want)
+
+
+def test_backward_kernel_rejects_bad_inputs(cuda):
+  config = RasterConfig()
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  with pytest.raises(TypeError):
+    sk.stream_backward(m, img, img.double(), config)
+  with pytest.raises(ValueError):
+    sk.stream_backward(m, img[:-1], img, config)
+  with pytest.raises(ValueError):
+    sk.stream_backward(m, img, img, dataclasses.replace(
+        config, use_alpha_blending=False))
+
+
+def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
+  """Forward and backward of a CUDA render run the kernels only."""
+  from tpu_splatting_torch.rasterizer.stream_function import (
+      stream_rasterize_with_mapping)
+
+  def refuse(*args, **kw):
+    raise AssertionError("a CUDA tensor reached a plain twin")
+  monkeypatch.setattr(sk, "stream_forward_reference", refuse)
+  monkeypatch.setattr(sk, "stream_backward_reference", refuse)
+  config = RasterConfig(compute_point_heuristic=True,
+                        compute_visibility=True)
+  m = mapping_for(cuda, config)
+  n = m.num_points
+  g2d = torch.zeros((n, 7), device=cuda, requires_grad=True)
+  feats = torch.zeros((n, 3), device=cuda, requires_grad=True)
+  probe = torch.zeros((n, 3), device=cuda, requires_grad=True)
+  sk.reset_launch_counts()
+  img, w = stream_rasterize_with_mapping(g2d, feats, m, (128, 96), config,
+                                         probe=probe)
+  (img.square().sum() + w.sum()).backward()
+  assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1}
+  assert float(probe.grad[:, 0].max()) > 0.0
+  assert bool(torch.isfinite(g2d.grad).all())

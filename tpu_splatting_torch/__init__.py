@@ -3,8 +3,10 @@
 The JAX package ``tpu_splatting`` is the reference; this package grows
 beside it, module for module (``tpu_splatting_torch/rasterizer/stream.py``
 is the counterpart of ``tpu_splatting/rasterizer/stream.py``), and holds
-the same public names for the parts ported so far: the forward render
-path through the tile-stream pipeline.  Plain code is torch; the TPU's
+the same public names for the parts ported so far: the render and
+training path through the tile-stream pipeline (``render_gaussians``,
+``render_with_heuristics``) and the fractional optimizers
+(``tpu_splatting_torch.optim``).  Plain code is torch; the TPU's
 Pallas kernels become hand-written CUDA kernels for Hopper (``csrc/``),
 built at first use.  The package imports torch and numpy only.
 """
@@ -16,7 +18,7 @@ from .perspective import CameraParams
 from .rasterizer.stream import StreamMapping, calibrate_stream, stream_map
 from .rasterizer.stream_function import stream_rasterize_with_mapping
 from .renderer import (render_gaussians, render_projected,
-                       render_with_heuristics)
+                       render_with_heuristics, viewspace_gradient)
 from .rendering import RenderedPoints, Rendering
 from .spherical_harmonics import evaluate_sh_at
 
@@ -26,6 +28,6 @@ __all__ = [
     "StreamMapping", "calibrate_stream", "stream_map",
     "stream_rasterize_with_mapping",
     "render_gaussians", "render_projected", "render_with_heuristics",
-    "RenderedPoints", "Rendering", "evaluate_sh_at",
+    "viewspace_gradient", "RenderedPoints", "Rendering", "evaluate_sh_at",
     "perspective",
 ]

@@ -3,7 +3,8 @@
 Inputs are plain numpy arrays and dicts (for example ``jax.device_get``
 of a pytree, or ``dataclasses.asdict`` of a config), so this module needs
 no JAX: a mapping, a scene or a config built by the reference can be fed
-to the port as it is.
+to the port as it is.  Tensors land on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -18,17 +19,17 @@ from .perspective.params import CameraParams
 from .rasterizer.stream import StreamMapping
 
 
-def _tensor(x, device=None, dtype=None):
+def _tensor(x, device, dtype=None):
   return torch.as_tensor(np.array(x, copy=True), device=device, dtype=dtype)
 
 
-def gaussians3d_from_numpy(d: dict, device=None) -> Gaussians3D:
+def gaussians3d_from_numpy(d: dict, device="cuda") -> Gaussians3D:
   """{position, log_scaling, rotation, alpha_logit, feature} arrays."""
   return Gaussians3D(**{f.name: _tensor(d[f.name], device)
                         for f in dataclasses.fields(Gaussians3D)})
 
 
-def camera_from_numpy(d: dict, device=None) -> CameraParams:
+def camera_from_numpy(d: dict, device="cuda") -> CameraParams:
   """{projection, T_camera_world, near_plane, far_plane, image_size[, id]}."""
   return CameraParams(
       projection=_tensor(d["projection"], device),
@@ -54,7 +55,7 @@ MAPPING_INT_FIELDS = ("pid_order", "desc", "strip_blk", "run_starts",
                       "dup_pid")
 
 
-def stream_mapping_from_numpy(d: dict, device=None) -> StreamMapping:
+def stream_mapping_from_numpy(d: dict, device="cuda") -> StreamMapping:
   """A StreamMapping from the reference's fields (arrays + static ints)."""
   kw = {}
   for f in dataclasses.fields(StreamMapping):

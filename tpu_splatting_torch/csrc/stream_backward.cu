@@ -1,0 +1,454 @@
+// Stream backward rasterization kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces: tpu_splatting/rasterizer/stream_kernels.py:_bwd_kernel (:697,
+// the Pallas TPU kernel behind stream_backward) and, fused into it,
+// :_merge_kernel (:996, behind merge_grad_slabs).  Per tile, per depth
+// slab it recomputes the forward compositing exactly as
+// stream_forward.cu does (same window assembly, rank-key sort, alpha
+// formula, log transmittance and freeze), then walks the rows front to
+// back once more carrying the backward's state — the remaining-feature
+// sum s_i = s_total - (prefix of w * g_f + carry) — and forms each
+// (row, pixel)'s gradient terms: the 7 packed-gaussian gradients (through
+// the rotated coordinates u, v, or the antialias closed forms), the F
+// feature gradients, and optionally visibility (sum of w), prune cost
+// (pa^2 * sum alpha_grad^2) and split score.
+//
+// The TPU writes each row's gradient into one of 9 per-class slab
+// buffers and sums them in a second kernel only because it has no
+// atomics.  Here each block adds its rows' gradients with atomicAdd
+// straight into the home-major (T * run_cap + 1, slabw) buffer that
+// merge_grad_slabs returns column by column: sorted table row j lands at
+// row home(j) * run_cap + (j - run_starts[home(j)]), derived per window
+// from the descriptor's gbuf_dst and class.  The last row is the zero
+// row that grad_src's sentinel points at.
+//
+// What bounds it on this card: the per-(row, pixel) arithmetic (one exp
+// for alpha, one for the transmittance, one log1p, the gradient chain)
+// and, per row and warp, the shuffle reduction of slabw gradient terms
+// over the warp's 32 pixels.  Bytes are few (the table rows, the image
+// and its cotangent, the buffer).  The design keeps every per-row
+// gradient out of device memory: a warp reduces its pixels' terms with
+// __shfl_xor_sync, adds them to a per-slab shared accumulator
+// (slab_cap x slabw), and the slab's rows are flushed to the buffer with
+// one global atomicAdd per nonzero value.  Warps with no live pixel for a
+// row skip the reduction.
+//
+// Design: one block per tile, one thread per pixel (K1's shape).  The log
+// transmittance and the remaining-feature carry stay in registers across
+// slabs; a block stops once every pixel is frozen and skips the
+// remaining slabs, as the forward does.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStripSlack = 512;        // rasterizer/stream.py STRIP_SLACK
+constexpr int kKeyInvalid = 0x7fffffff;  // invalid slots sort last
+constexpr int kGeo = 12;                 // per-row coefficients in smem
+constexpr float kTau = 6.283185307179586f;
+
+struct Params {
+  const float* table;      // (n_pad, w_pad) row-major
+  const int* desc;         // (T, S, w_max, 4) [lo_flat, len, dst, class]
+  const int* strip_blk;    // (G, 3)
+  const float* img;        // (T, F+1, tile_area) forward image
+  const float* gimg;       // (T, F+1, tile_area) its cotangent
+  float* out;              // (T * run_cap + 1, slabw) zero-initialised
+  int num_tiles, tiles_wide, group_width, num_slabs, w_max, strip_cap;
+  int slab_cap, sort_cap, rpb, w_pad, f, tile_size, antialias, run_cap;
+  int slabw, with_vis, heur;
+  float alpha_threshold, clamp_max_alpha, lcut;
+};
+
+__device__ __forceinline__ float s_sig(float x, float s) {
+  float z = x / s;
+  return 1.0f / (1.0f + expf(-1.6f * z - 0.07f * z * z * z));
+}
+
+// s_sig(x, sig), d s / dx and d s / dx * -z (reference _antialias_grads)
+__device__ __forceinline__ void s_grads(float x, float sig, float& s_val,
+                                        float& d_dx, float& d_dxs) {
+  const float z = x / sig;
+  s_val = 1.0f / (1.0f + expf(-1.6f * z - 0.07f * z * z * z));
+  const float ds_dx = (1.6f + 0.21f * z * z) * s_val * (1.0f - s_val);
+  d_dx = ds_dx / sig;
+  d_dxs = d_dx * -z;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int MAXF>
+__global__ void stream_backward_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_key = reinterpret_cast<int*>(smem);
+  float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);
+  float* s_feat = s_geo + kGeo * p.slab_cap;
+  float* s_acc = s_feat + p.f * p.slab_cap;     // [column][slot]
+  int* s_desc = reinterpret_cast<int*>(s_acc + p.slabw * p.slab_cap);
+  int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0, grad row0]
+  int* s_cnt = s_win + 4 * p.w_max;      // [slots used, valid rows]
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int ts = p.tile_size;
+  const int pix = ts * ts;
+  const int sc = p.slab_cap;
+  const int g = tile / p.group_width;
+  const int ti = tile % p.group_width;
+  const int tx = tile % p.tiles_wide, ty = tile / p.tiles_wide;
+  const float half = ts * 0.5f;
+  const float ox = static_cast<float>(tx * ts) + half;
+  const float oy = static_cast<float>(ty * ts) + half;
+  const float px = static_cast<float>(tid % ts) + 0.5f - half;
+  const float py = static_cast<float>(tid / ts) + 0.5f - half;
+  const float px2 = px * px, pxy = px * py, py2 = py * py;
+  const int band_stride = 2 * p.strip_cap + kStripSlack;
+  const int r_rows = p.num_tiles * p.run_cap;
+  const int c_vis = 7 + p.f;             // visibility, prune, split columns
+
+  // this pixel's image cotangent, and s_total = sum_c g_image * image over
+  // all F+1 channels (the weight channel included)
+  const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
+  float gi[MAXF];
+  float s_total = 0.0f;
+#pragma unroll
+  for (int c = 0; c < MAXF; ++c) {
+    gi[c] = 0.0f;
+    if (c < p.f) {
+      gi[c] = p.gimg[ib + static_cast<size_t>(c) * pix];
+      s_total += gi[c] * p.img[ib + static_cast<size_t>(c) * pix];
+    }
+  }
+  const float gi_w = p.gimg[ib + static_cast<size_t>(p.f) * pix];
+  s_total += gi_w * p.img[ib + static_cast<size_t>(p.f) * pix];
+
+  float lt = 0.0f;        // log transmittance, carried across slabs
+  float s_prev = 0.0f;    // sum of w * g_f over earlier slabs
+
+  for (int s = 0; s < p.num_slabs; ++s) {
+    const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
+                                * p.w_max * 4;
+    if (s > 0) {
+      if (__syncthreads_and(lt <= p.lcut)) break;
+      if (d[1] <= 0) continue;
+    }
+    for (int i = tid; i < 4 * p.w_max; i += nthr) s_desc[i] = d[i];
+    __syncthreads();
+    if (tid == 0) {
+      int cur = 0, valid = 0;
+      for (int w = 0; w < p.w_max; ++w) {
+        const int lo = s_desc[4 * w], len = s_desc[4 * w + 1];
+        const int dst = s_desc[4 * w + 2], cls = s_desc[4 * w + 3];
+        const int b = cls / 3, k = cls % 3;
+        const int head = lo % p.rpb;
+        const int ln = max(min(len, p.slab_cap - (cur + head)), 0);
+        s_win[4 * w] = cur + head;
+        s_win[4 * w + 1] = ln;
+        s_win[4 * w + 2] = p.strip_blk[g * 3 + b] * p.strip_cap
+                           + (lo - b * band_stride);
+        // home (band y+b-1, column x+k-1); dst = run offset + (i+k)*run_cap
+        const int home = (ty + b - 1) * p.tiles_wide + tx + k - 1;
+        s_win[4 * w + 3] = (home - ti - k) * p.run_cap + dst;
+        if (ln > 0) cur += ((head + ln + p.rpb - 1) / p.rpb) * p.rpb;
+        valid += ln;
+      }
+      s_cnt[0] = cur;
+      s_cnt[1] = valid;
+    }
+    __syncthreads();
+    const int n_slots = s_cnt[0];
+    const int n_valid = s_cnt[1];
+    int n_sort = 1;
+    while (n_sort < n_slots) n_sort <<= 1;
+    for (int i = tid; i < n_sort; i += nthr) s_key[i] = kKeyInvalid;
+    for (int i = tid; i < p.slabw * n_slots; i += nthr)
+      s_acc[(i / n_slots) * sc + i % n_slots] = 0.0f;
+    __syncthreads();
+
+    // rows -> per-slot coefficients, features and rank keys
+    for (int w = 0; w < p.w_max; ++w) {
+      const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
+      const int row0 = s_win[4 * w + 2];
+      for (int r = tid; r < ln; r += nthr) {
+        const int slot = slot0 + r;
+        const float* row = p.table + static_cast<size_t>(row0 + r) * p.w_pad;
+        const float mlx = row[0] - ox, mly = row[1] - oy;
+        const float ax = row[2], ay = row[3];
+        const float sx = row[4], sy = row[5], pa = row[6];
+        float* geo = s_geo + slot;
+        if (p.antialias) {
+          geo[0] = ax;
+          geo[1 * sc] = ay;
+          geo[2 * sc] = -(mlx * ax + mly * ay);
+          geo[3 * sc] = mlx * ay - mly * ax;
+          geo[4 * sc] = fmaxf(sx, 1e-12f);
+          geo[5 * sc] = fmaxf(sy, 1e-12f);
+          geo[6 * sc] = pa;
+        } else {
+          // stream_forward.cu's alpha coefficients, bit for bit
+          const float isx2 = 1.0f / fmaxf(sx * sx, 1e-24f);
+          const float isy2 = 1.0f / fmaxf(sy * sy, 1e-24f);
+          const float a2 = ax * ax, b2 = ay * ay;
+          const float cxx = -0.5f * (a2 * isx2 + b2 * isy2);
+          const float cyy = -0.5f * (b2 * isx2 + a2 * isy2);
+          const float cxy = -(ax * ay * (isx2 - isy2));
+          geo[0] = cxx;
+          geo[1 * sc] = cxy;
+          geo[2 * sc] = cyy;
+          geo[3 * sc] = -(2.0f * cxx * mlx + cxy * mly);
+          geo[4 * sc] = -(2.0f * cyy * mly + cxy * mlx);
+          geo[5 * sc] = cxx * mlx * mlx + cxy * mlx * mly
+                        + cyy * mly * mly + logf(fmaxf(pa, 1e-30f));
+          geo[6 * sc] = ax;
+          geo[7 * sc] = ay;
+          geo[8 * sc] = 1.0f / fmaxf(sx, 1e-12f);
+          geo[9 * sc] = 1.0f / fmaxf(sy, 1e-12f);
+        }
+        geo[10 * sc] = mlx;
+        geo[11 * sc] = mly;
+        for (int c = 0; c < p.f; ++c)
+          s_feat[c * sc + slot] = row[7 + c];
+        s_key[slot] = (static_cast<int>(row[7 + p.f]) << 11) | slot;
+      }
+    }
+    __syncthreads();
+
+    // bitonic sort of the rank keys (ascending; invalid slots last)
+    for (int k = 2; k <= n_sort; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < n_sort; i += nthr) {
+          const int ixj = i ^ j;
+          if (ixj > i) {
+            const int a = s_key[i], b = s_key[ixj];
+            if ((a > b) == ((i & k) == 0)) {
+              s_key[i] = b;
+              s_key[ixj] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    // front-to-back walk in rank order, the forward's association of the
+    // log transmittance (carry + sequential slab sum)
+    const float lt_in = lt;
+    float acc_l = 0.0f, acc_wgf = 0.0f;
+    bool done = lt <= p.lcut;
+    for (int j = 0; j < n_valid; ++j) {
+      if ((j & 31) == 0 && __syncthreads_and(done)) break;
+      const int slot = s_key[j] & 2047;
+      const float* geo = s_geo + slot;
+      float a_raw;
+      if (p.antialias) {
+        const float ax = geo[0], ay = geo[1 * sc];
+        const float sx = geo[4 * sc], sy = geo[5 * sc];
+        const float tu = ax * px + ay * py + geo[2 * sc];
+        const float tv = -ay * px + ax * py + geo[3 * sc];
+        const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
+        const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
+        a_raw = geo[6 * sc] * (kTau * ix * iy);
+      } else {
+        a_raw = expf(geo[0] * px2 + geo[1 * sc] * pxy + geo[2 * sc] * py2
+                     + geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc]);
+      }
+      const float a = a_raw > p.alpha_threshold
+                          ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
+      const float lt_j = acc_l + lt_in;
+      const bool live = lt_j > p.lcut && a > 0.0f;
+
+      float g7[7], gfeat[MAXF];
+      float g_vis = 0.0f, g_prune = 0.0f, g_split = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 7; ++c) g7[c] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MAXF; ++c) gfeat[c] = 0.0f;
+      if (live) {
+        const float t = expf(lt_j);
+        const float w = a * t;
+        float gf = 0.0f;
+#pragma unroll
+        for (int c = 0; c < MAXF; ++c)
+          if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
+        gf += gi_w;
+        const float wgf = w * gf;
+        acc_wgf += wgf;
+        const float s_i = s_total - (acc_wgf + s_prev);
+        const float ag = t * gf - s_i / (1.0f - a);
+        acc_l += log1pf(-a);
+        const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
+        const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
+        if (p.antialias) {
+          const float ax = geo[0], ay = geo[1 * sc];
+          const float sx = geo[4 * sc], sy = geo[5 * sc];
+          const float pa = geo[6 * sc];
+          const float tu = ax * px + ay * py + geo[2 * sc];
+          const float tv = -ay * px + ax * py + geo[3 * sc];
+          float sx1, dx1, dx1s, sx2, dx2, dx2s;
+          float sy1, dy1, dy1s, sy2, dy2, dy2s;
+          s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
+          s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
+          s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
+          s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
+          const float ix = sx * (sx1 - sx2);
+          const float iy = sy * (sy1 - sy2);
+          const float dsx_t = iy * sx * (dx1 - dx2);
+          const float dsy_t = ix * sy * (dy1 - dy2);
+          const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
+          g7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
+          g7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
+          g7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
+          g7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
+          g7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
+          g7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+        } else {
+          const float ax = geo[6 * sc], ay = geo[7 * sc];
+          const float isx = geo[8 * sc], isy = geo[9 * sc];
+          const float u = (ax * dx + ay * dy) * isx;
+          const float v = (-ay * dx + ax * dy) * isy;
+          const float zu = z0 * u, zv = z0 * v;
+          g7[0] = ax * isx * zu - ay * isy * zv;
+          g7[1] = ay * isx * zu + ax * isy * zv;
+          g7[2] = -isx * zu * dx - isy * zv * dy;
+          g7[3] = -isx * zu * dy + isy * zv * dx;
+          g7[4] = isx * zu * u;
+          g7[5] = isy * zv * v;
+        }
+        g7[6] = z0;                            // / pa at the flush
+#pragma unroll
+        for (int c = 0; c < MAXF; ++c) gfeat[c] = w * gi[c];
+        g_vis = w;
+        g_prune = ag * ag;                     // * pa^2 at the flush
+        g_split = fabsf(g7[0]) + fabsf(g7[1]);
+      }
+      done = acc_l + lt_in <= p.lcut;
+
+      if (__any_sync(0xffffffffu, live)) {
+        float* acc = s_acc + slot;
+#pragma unroll
+        for (int c = 0; c < 7; ++c) {
+          const float x = warp_sum(g7[c]);
+          if (lane == 0 && x != 0.0f) atomicAdd(acc + c * sc, x);
+        }
+#pragma unroll
+        for (int c = 0; c < MAXF; ++c) {
+          if (c < p.f) {
+            const float x = warp_sum(gfeat[c]);
+            if (lane == 0 && x != 0.0f) atomicAdd(acc + (7 + c) * sc, x);
+          }
+        }
+        if (p.with_vis) {
+          const float x = warp_sum(g_vis);
+          if (lane == 0 && x != 0.0f) atomicAdd(acc + c_vis * sc, x);
+        }
+        if (p.heur) {
+          const float x = warp_sum(g_prune);
+          const float y = warp_sum(g_split);
+          if (lane == 0 && x != 0.0f) atomicAdd(acc + (c_vis + 1) * sc, x);
+          if (lane == 0 && y != 0.0f) atomicAdd(acc + (c_vis + 2) * sc, y);
+        }
+      }
+    }
+    lt = acc_l + lt_in;
+    s_prev += acc_wgf;
+    __syncthreads();
+
+    // flush the slab's rows into the home-major buffer
+    for (int w = 0; w < p.w_max; ++w) {
+      const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
+      const int row0 = s_win[4 * w + 2], grow0 = s_win[4 * w + 3];
+      for (int r = tid; r < ln; r += nthr) {
+        const int grow = grow0 + r;
+        if (grow < 0 || grow >= r_rows) continue;
+        const float pa = p.table[static_cast<size_t>(row0 + r) * p.w_pad + 6];
+        const float* acc = s_acc + slot0 + r;
+        float* o = p.out + static_cast<size_t>(grow) * p.slabw;
+        for (int c = 0; c < p.slabw; ++c) {
+          float x = acc[c * sc];
+          if (c == 6) x = x / fmaxf(pa, 1e-20f);
+          if (p.heur && c == c_vis + 1) x = x * (pa * pa);
+          if (x != 0.0f) atomicAdd(o + c, x);
+        }
+      }
+    }
+    __syncthreads();   // shared buffers are rewritten by the next slab
+  }
+}
+
+template <int MAXF>
+int launch(const Params& p, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_backward_kernel<MAXF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_backward_kernel<MAXF><<<p.num_tiles, p.tile_size * p.tile_size,
+                                 smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block, in bytes.
+extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
+                                                    int feature_size,
+                                                    int slabw) {
+  int sort_cap = 1;
+  while (sort_cap < slab_cap) sort_cap <<= 1;
+  return 4LL * (sort_cap
+                + static_cast<long long>(kGeo + feature_size + slabw)
+                      * slab_cap
+                + 8 * w_max + 2);
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `out`
+// must be zero-initialised: the kernel only adds to it.
+extern "C" int tpu_splat_stream_backward(
+    const float* table, const int* desc, const int* strip_blk,
+    const float* img, const float* gimg, float* out, int num_tiles,
+    int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
+    int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
+    int antialias, int run_cap, int slabw, int with_vis, int heur,
+    float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
+  Params p;
+  p.table = table;
+  p.desc = desc;
+  p.strip_blk = strip_blk;
+  p.img = img;
+  p.gimg = gimg;
+  p.out = out;
+  p.num_tiles = num_tiles;
+  p.tiles_wide = tiles_wide;
+  p.group_width = group_width;
+  p.num_slabs = num_slabs;
+  p.w_max = w_max;
+  p.strip_cap = strip_cap;
+  p.slab_cap = slab_cap;
+  p.sort_cap = 1;
+  while (p.sort_cap < slab_cap) p.sort_cap <<= 1;
+  p.rpb = rpb;
+  p.w_pad = w_pad;
+  p.f = feature_size;
+  p.tile_size = tile_size;
+  p.antialias = antialias;
+  p.run_cap = run_cap;
+  p.slabw = slabw;
+  p.with_vis = with_vis;
+  p.heur = heur;
+  p.alpha_threshold = alpha_threshold;
+  p.clamp_max_alpha = clamp_max_alpha;
+  p.lcut = lcut;
+  const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
+      slab_cap, w_max, feature_size, slabw));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (feature_size <= 8) return launch<8>(p, smem, st);
+  if (feature_size <= 24) return launch<24>(p, smem, st);
+  return launch<56>(p, smem, st);
+}

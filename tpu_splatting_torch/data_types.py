@@ -4,8 +4,9 @@ Counterpart of ``tpu_splatting/data_types.py``.  ``RasterConfig`` keeps
 every field and default of the reference, so one config dict describes a
 render on either side (``convert.raster_config_from_dict``).  Fields that
 only shaped the TPU kernels are accepted and ignored here: ``chunk_size``,
-``pixel_stride``, ``stream_passes``, ``stream_share_asm`` and
-``stream_asm_budget_mb``.
+``pixel_stride``, ``stream_passes``, ``stream_share_asm``,
+``stream_asm_budget_mb`` and ``stream_gout_budget_mb`` (the backward is
+one pass: see ``rasterizer/stream_function.py``).
 """
 
 from __future__ import annotations

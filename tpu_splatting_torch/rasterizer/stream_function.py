@@ -1,10 +1,22 @@
-"""Rasterization over the tile-stream pipeline (forward).
+"""Differentiable rasterization over the tile-stream pipeline.
 
 Counterpart of ``tpu_splatting/rasterizer/stream_function.py``.  The
-rasterize op is a ``torch.autograd.Function`` whose forward is
-``stream_forward``; its backward (the stream backward kernels and the
-gradient reduce) is ROADMAP item P6 and raises until then, so that
-differentiating through it fails loudly instead of returning zeros.
+rasterize op is a ``torch.autograd.Function``: its forward is
+``stream_forward`` (K1); its backward is ``backward_reduce``, which runs
+``stream_backward`` (K2, with the reference's slab merge K3 fused in) into
+the home-major gradient buffer and gathers that buffer back to the
+caller's point order (``reduce_stage2``).
+
+Visibility and the point heuristics are the cotangent of a zero-valued
+probe input, as in the reference: they cost no pass beyond the backward
+every training step runs anyway.  Quantile mode is forward-only.
+
+The reference bounds its nine per-class gradient-slab buffers with a
+band-chunked backward (``stream_gout_budget_mb``).  The one home-major
+buffer here is about 164 MB at the 2M-splat headline capacities (run_cap
+256) and 2.6 GB at heavy-scene ones (run_cap 4096), where the slab
+buffers take 2.2 GB and more, so the backward is a single pass and the
+knob is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -16,7 +28,7 @@ import torch
 from ..data_types import RasterConfig
 from ..mapper.tile_mapper import tile_shape
 from .stream import StreamMapping, stream_map
-from .stream_kernels import stream_forward
+from .stream_kernels import stream_backward, stream_forward
 
 
 def detile(image_tiled: torch.Tensor, tiles_wide: int, tiles_high: int,
@@ -100,17 +112,57 @@ def stream_map_with_config(gaussians2d, depth, features, image_size,
       dup_cap=config.stream_dup_cap)
 
 
+def reduce_stage2(buf: torch.Tensor, mapping: StreamMapping) -> torch.Tensor:
+  """Stage 2 of the gradient reduce: the home-major (R + 1, slabw) buffer
+  -> (N, slabw) per-point gradients in the caller's point order.
+
+  The reference's gather path: one row gather at the map-time
+  ``grad_src`` indices, then each duplicate row's gradient added to its
+  point (unused duplicate slots carry ``dup_pid == N`` and land in a
+  scratch row).  The reference's sort path computes the same columns."""
+  n = mapping.num_points
+  v = buf[mapping.grad_src.long()]
+  if mapping.dup_cap > 0:
+    v = torch.cat([v, v.new_zeros((1, v.shape[1]))])
+    v.index_add_(0, mapping.dup_pid.long(), buf[mapping.dup_src.long()])
+    v = v[:n]
+  return v
+
+
+def stream_reduce(buf: torch.Tensor, mapping: StreamMapping) -> torch.Tensor:
+  """The reference's ``stream_reduce`` (slab merge + stage 2): the merge
+  is fused into ``stream_backward``, so only stage 2 is left."""
+  return reduce_stage2(buf, mapping)
+
+
+def backward_reduce(mapping: StreamMapping, image_tiled: torch.Tensor,
+                    g_image_tiled: torch.Tensor,
+                    config: RasterConfig) -> torch.Tensor:
+  """Backward kernel + reduce in one pass: (N, slabw) per-point columns
+  [7 packed-gaussian grads, F feature grads, probe columns]."""
+  buf = stream_backward(mapping, image_tiled, g_image_tiled, config)
+  return reduce_stage2(buf, mapping)
+
+
 class _StreamRaster(torch.autograd.Function):
   """image_tiled = stream_forward(mapping); the mapping's table is a copy
-  of (gaussians2d, features), which carry the gradient."""
+  of (gaussians2d, features), which carry the gradient, and the probe's
+  gradient carries [visibility][, prune_cost, split_score]."""
 
   @staticmethod
   def forward(ctx, gaussians2d, features, probe, mapping, config):
-    return stream_forward(mapping, config)
+    image_tiled = stream_forward(mapping, config)
+    ctx.mapping, ctx.config = mapping, config
+    ctx.save_for_backward(image_tiled)
+    return image_tiled
 
   @staticmethod
   def backward(ctx, g_image_tiled):
-    raise NotImplementedError("stream backward: ROADMAP P6")
+    (image_tiled,) = ctx.saved_tensors
+    mapping, config = ctx.mapping, ctx.config
+    f = mapping.feature_size
+    g = backward_reduce(mapping, image_tiled, g_image_tiled, config)
+    return g[:, :7], g[:, 7:7 + f], g[:, 7 + f:], None, None
 
 
 def stream_rasterize_with_mapping(

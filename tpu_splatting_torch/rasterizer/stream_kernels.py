@@ -1,20 +1,32 @@
-"""Stream forward rasterization: the CUDA kernel K1 and its plain twin.
+"""Stream rasterization kernels and their plain twins.
 
-Counterpart of the forward half of ``tpu_splatting/rasterizer/
-stream_kernels.py``.  ``stream_forward`` takes a ``StreamMapping`` and
-returns the (T, F+1, tile_area) tiled image; channel F is the alpha
-(weight) image in blending mode and the hit mask in quantile mode.
+Counterpart of ``tpu_splatting/rasterizer/stream_kernels.py``.
 
-* A mapping on a CUDA device goes to the hand-written Hopper kernel
-  ``csrc/stream_forward.cu`` (built at first use); the wrapper checks
-  shapes and types, launches on the current stream, raises on a launch
-  error and counts the launch in ``launch_counts``.
-* A mapping on the CPU goes to ``stream_forward_reference``, the same
-  function in plain torch.  There is no fallback between the two.
+* ``stream_forward`` (K1) takes a ``StreamMapping`` and returns the
+  (T, F+1, tile_area) tiled image; channel F is the alpha (weight) image
+  in blending mode and the hit mask in quantile mode.
+* ``stream_backward`` (K2, with the reference's slab merge K3 fused in)
+  takes the mapping, the forward image and its cotangent and returns the
+  home-major gradient buffer (T * run_cap + 1, slabw): row
+  ``home * run_cap + r`` holds the summed gradient of the r-th row of
+  that home's run, and the last row stays zero (the sentinel row that
+  ``grad_src`` / ``dup_src`` point at).  This is the output boundary of
+  the reference's ``merge_grad_slabs(stream_backward(...))``, as one
+  (R + 1, slabw) matrix instead of slabw (R,) columns.
 
-The reference's ``ablate`` and ``with_counts`` instruments, ``band0``
-(band sharding, ROADMAP P13) and ``with_asm`` (a TPU-only residual) are
-not ported.
+A mapping on a CUDA device goes to the hand-written Hopper kernels in
+``csrc/`` (built at first use); each wrapper checks shapes and types,
+launches on the current stream, raises on a launch error and counts the
+launch in ``launch_counts``.  A mapping on the CPU goes to the
+``*_reference`` twin, the same function in plain torch.  There is no
+fallback between the two.
+
+Both passes compute alpha with the forward's formula (``_alpha_raw``:
+the quadratic form with log(point alpha) folded in), so the forward and
+the backward make the same threshold, clamp and freeze decisions (ROADMAP
+F1).  The reference's ``ablate`` and ``with_counts`` instruments,
+``band0`` (band sharding, ROADMAP P13) and ``with_asm`` /
+``stream_share_asm`` (TPU-only residuals) are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from .stream import STRIP_SLACK, StreamMapping
 _NEG_BIG = -3.0e38
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
-launch_counts = {"stream_forward": 0}
+launch_counts = {"stream_forward": 0, "stream_backward": 0}
 
 
 def reset_launch_counts():
@@ -83,9 +95,34 @@ def _window_slots(mapping: StreamMapping):
   return slot0, lnc, row0
 
 
-def _alpha(rows, ox, oy, pxl, pyl, config: RasterConfig):
-  """(C, L, PIX) thresholded + clamped alpha of rows (C, L, >=7) at the
-  tile-centred pixel coordinates, the reference forward's formulas."""
+def window_grad_rows(mapping: StreamMapping) -> torch.Tensor:
+  """(T, S, W) home-major gradient-buffer row of each window's first row.
+
+  A window of tile i (position i in its group) and class b*3+k reads the
+  run of home (band y+b-1, column x+k-1), and its descriptor's gbuf_dst
+  is the row's offset in that run plus (i+k) * run_cap (the reference's
+  per-group slab position, ``_merge_kernel``).  So table row ``row0 + r``
+  of the window lands at ``home * run_cap + gbuf_dst - (i+k) * run_cap
+  + r`` — the row ``grad_src`` gives its point.  Empty windows hold
+  garbage."""
+  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
+  desc = mapping.desc.view(t, s, w, 4).to(torch.int64)
+  dst, b, k = desc[..., 2], desc[..., 3] // 3, desc[..., 3] % 3
+  tiles = torch.arange(t, device=desc.device)[:, None, None]
+  tw, rc = mapping.tiles_wide, mapping.run_cap
+  home = (tiles // tw + b - 1) * tw + tiles % tw + k - 1
+  return (home - tiles % mapping.group_width - k) * rc + dst
+
+
+def _s_sig(x, s):
+  z = x / s
+  return 1.0 / (1.0 + torch.exp(-1.6 * z - 0.07 * z * z * z))
+
+
+def _alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
+  """(C, L, PIX) raw alpha of rows (C, L, >=7) at the tile-centred pixel
+  coordinates, the reference forward's formulas; in antialias mode also
+  (tu, tv), the unscaled rotated-frame coordinates."""
   mlx = (rows[..., 0] - ox)[..., None]
   mly = (rows[..., 1] - oy)[..., None]
   ax, ay = rows[..., 2, None], rows[..., 3, None]
@@ -95,14 +132,9 @@ def _alpha(rows, ox, oy, pxl, pyl, config: RasterConfig):
     tv = -ay * pxl + ax * pyl + (mlx * ay - mly * ax)
     sxc = torch.clamp(sx, min=1e-12)
     syc = torch.clamp(sy, min=1e-12)
-
-    def s_sig(x, s):
-      z = x / s
-      return 1.0 / (1.0 + torch.exp(-1.6 * z - 0.07 * z * z * z))
-
-    ix = sxc * (s_sig(tu + 0.5, sxc) - s_sig(tu - 0.5, sxc))
-    iy = syc * (s_sig(tv + 0.5, syc) - s_sig(tv - 0.5, syc))
-    a_raw = pa * (2.0 * math.pi * ix * iy)
+    ix = sxc * (_s_sig(tu + 0.5, sxc) - _s_sig(tu - 0.5, sxc))
+    iy = syc * (_s_sig(tv + 0.5, syc) - _s_sig(tv - 0.5, syc))
+    return pa * (2.0 * math.pi * ix * iy), (tu, tv)
   else:
     isx2 = 1.0 / torch.clamp(sx * sx, min=1e-24)
     isy2 = 1.0 / torch.clamp(sy * sy, min=1e-24)
@@ -116,8 +148,45 @@ def _alpha(rows, ox, oy, pxl, pyl, config: RasterConfig):
            + torch.log(torch.clamp(pa, min=1e-30)))
     a_raw = torch.exp(cxx * (pxl * pxl) + cxy * (pxl * pyl)
                       + cyy * (pyl * pyl) + c_px * pxl + c_py * pyl + c_1)
+    return a_raw, None
+
+
+def _threshold(a_raw, config: RasterConfig):
   return torch.where(a_raw > config.alpha_threshold,
                      torch.clamp(a_raw, max=config.clamp_max_alpha), 0.0)
+
+
+def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None):
+  """One slab's window rows of a chunk of tiles, in rank-key order.
+
+  s0, ln, r0 (C, W): window slots, lengths and first table rows.  Returns
+  (valid (C, L), rows (C, L, W_PAD), grad_rows (C, L) or None): the rows
+  sorted by ``depth << 11 | slot`` (invalid slots last) and, when g0
+  (C, W) gives each window's first gradient-buffer row, each row's."""
+  dev = table.device
+  n_c = s0.shape[0]
+  slots = torch.arange(width, device=dev)
+  row_idx = torch.full((n_c, width), -1, dtype=torch.int64, device=dev)
+  grad_idx = None if g0 is None else torch.full_like(row_idx, -1)
+  for k in range(s0.shape[1]):
+    rel = slots - s0[:, k, None]
+    inside = (rel >= 0) & (rel < ln[:, k, None])
+    row_idx = torch.where(inside, r0[:, k, None] + rel, row_idx)
+    if g0 is not None:
+      grad_idx = torch.where(inside, g0[:, k, None] + rel, grad_idx)
+  valid = row_idx >= 0
+  rows = table[torch.clamp(row_idx, min=0)]                   # (C, L, Wp)
+  rank = torch.where(
+      valid, (rows[..., 7 + f].to(torch.int64) << 11) | slots,
+      torch.iinfo(torch.int64).max)
+  order = torch.argsort(rank, -1)
+  n_keep = max(1, int(valid.sum(-1).max()))
+  order = order[:, :n_keep]
+  valid = torch.gather(valid, 1, order)
+  rows = torch.gather(rows, 1, order[..., None].expand(-1, -1, rows.shape[-1]))
+  if grad_idx is not None:
+    grad_idx = torch.gather(grad_idx, 1, order)
+  return valid, rows, grad_idx
 
 
 def stream_forward_reference(mapping: StreamMapping,
@@ -168,25 +237,9 @@ def stream_forward_reference(mapping: StreamMapping,
           img[:, f] = torch.where(active[:, None],
                                   (carry < 0.0).to(dtype), img[:, f])
         continue
-      slots = torch.arange(width, device=dev)
-      row_idx = torch.full((n_c, width), -1, dtype=torch.int64, device=dev)
-      for k in range(s0.shape[1]):
-        rel = slots - s0[:, k, None]
-        inside = (rel >= 0) & (rel < ln[:, k, None])
-        row_idx = torch.where(inside, r0[:, k, None] + rel, row_idx)
-      valid = row_idx >= 0
-      rows = table[torch.clamp(row_idx, min=0)]               # (C, L, Wp)
-      rank = torch.where(
-          valid, (rows[..., 7 + f].to(torch.int64) << 11) | slots,
-          torch.iinfo(torch.int64).max)
-      order = torch.argsort(rank, -1)
-      n_keep = max(1, int(valid.sum(-1).max()))
-      order = order[:, :n_keep]
-      valid = torch.gather(valid, 1, order)
-      rows = torch.gather(rows, 1, order[..., None].expand(
-          -1, -1, rows.shape[-1]))
-      a = _alpha(rows, ox, oy, pxl, pyl, config)              # (C, L, PIX)
-      a = torch.where(valid[..., None], a, 0.0)
+      valid, rows, _ = _slab_rows(table, s0, ln, r0, width, f)
+      a = _threshold(_alpha_raw(rows, ox, oy, pxl, pyl, config)[0], config)
+      a = torch.where(valid[..., None], a, 0.0)               # (C, L, PIX)
       l = torch.log1p(-a)
       csum = torch.cumsum(l, 1)
       lt_in = carry[:, None, :]
@@ -212,31 +265,196 @@ def stream_forward_reference(mapping: StreamMapping,
   return out
 
 
-def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig):
+def _antialias_grads(tu, tv, sx, sy, dx, dy, ax, ay):
+  """Gradients of the antialiased pixel integral 2 pi ix iy with respect
+  to (mean x, mean y, axis x, axis y, sigma x, sigma y); copy of the
+  reference's ``rasterizer/kernels.py:_antialias_grads``."""
+  tau = 2.0 * math.pi
+  sx = torch.clamp(sx, min=1e-12)
+  sy = torch.clamp(sy, min=1e-12)
+
+  def s_grads(x, sig):
+    z = x / sig
+    s_val = 1.0 / (1.0 + torch.exp(-1.6 * z - 0.07 * z * z * z))
+    ds_dx = (1.6 + 0.21 * z * z) * s_val * (1.0 - s_val)
+    d_dx = ds_dx / sig
+    return s_val, d_dx, d_dx * -z
+
+  sx1, dx1, dx1s = s_grads(tu + 0.5, sx)
+  sx2, dx2, dx2s = s_grads(tu - 0.5, sx)
+  sy1, dy1, dy1s = s_grads(tv + 0.5, sy)
+  sy2, dy2, dy2s = s_grads(tv - 0.5, sy)
+  ix = sx * (sx1 - sx2)
+  iy = sy * (sy1 - sy2)
+  dsx_t = iy * sx * (dx1 - dx2)
+  dsy_t = ix * sy * (dy1 - dy2)
+  dmx = tau * (-dsx_t * ax + dsy_t * ay)
+  dmy = tau * (-dsx_t * ay - dsy_t * ax)
+  dax = tau * (dsx_t * dx + dsy_t * dy)
+  day = tau * (dsx_t * dy - dsy_t * dx)
+  dsx_ = tau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx)
+  dsy_ = tau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy)
+  return dmx, dmy, dax, day, dsx_, dsy_
+
+
+def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
+  """(C, L, PIX) per-pixel terms of the 7 packed-gaussian gradients (the
+  pa column before its 1 / pa) and of the split score."""
+  mlx = (rows[..., 0] - ox)[..., None]
+  mly = (rows[..., 1] - oy)[..., None]
+  ax, ay = rows[..., 2, None], rows[..., 3, None]
+  sx, sy, pa = rows[..., 4, None], rows[..., 5, None], rows[..., 6, None]
+  dx, dy = pxl - mlx, pyl - mly
+  if config.antialias:
+    tu, tv = aux
+    clamp_live = (a_raw < config.clamp_max_alpha).to(ag.dtype)
+    aag = pa * ag * clamp_live
+    g6 = [aag * d for d in _antialias_grads(tu, tv, sx, sy, dx, dy, ax, ay)]
+  else:
+    # through the sigma-scaled rotated coordinates u, v (reference
+    # _bwd_kernel :871-893, per pixel instead of through pixel moments)
+    isx = 1.0 / torch.clamp(sx, min=1e-12)
+    isy = 1.0 / torch.clamp(sy, min=1e-12)
+    u = (ax * dx + ay * dy) * isx
+    v = (-ay * dx + ax * dy) * isy
+    zu, zv = z0 * u, z0 * v
+    g6 = [ax * isx * zu - ay * isy * zv,
+          ay * isx * zu + ax * isy * zv,
+          -isx * zu * dx - isy * zv * dy,
+          -isx * zu * dy + isy * zv * dx,
+          isx * zu * u,
+          isy * zv * v]
+  return g6 + [z0], torch.abs(g6[0]) + torch.abs(g6[1])
+
+
+def stream_backward_reference(mapping: StreamMapping,
+                              image_tiled: torch.Tensor,
+                              g_image_tiled: torch.Tensor,
+                              config: RasterConfig) -> torch.Tensor:
+  """Plain-torch twin of the stream backward kernel: (T*run_cap + 1,
+  slabw) home-major gradient buffer.
+
+  Per chunk of tiles and per slab it recomputes the forward (the same
+  gathers, rank order, alpha, log transmittance and freeze as
+  ``stream_forward_reference``), forms every (row, pixel)'s gradient
+  terms, sums them over the pixels and ``index_add_``s each row into its
+  home-major buffer row.  Two carries cross slabs, as in the reference
+  ``_bwd_kernel``: the frozen log transmittance and the running sum of
+  w * (features . g_image)."""
+  if not config.use_alpha_blending:
+    raise ValueError("stream backward: quantile mode has no backward")
+  dev = mapping.table.device
+  f = mapping.feature_size
+  rpb = mapping.rows_per_block
+  table = mapping.table.reshape(-1, mapping.table.shape[1] // rpb)
+  dtype = table.dtype
+  t_all, s_all = mapping.num_tiles, mapping.num_slabs
+  ts, pix, tw = config.tile_size, config.tile_area, mapping.tiles_wide
+  lcut = _log_cut(config)
+  cmax = config.clamp_max_alpha
+  heur = config.compute_point_heuristic
+  with_vis = heur or config.compute_visibility
+  slabw = slab_width(config, f)
+  r_rows = t_all * mapping.run_cap
+
+  slot0, lnc, row0 = _window_slots(mapping)
+  grow0 = window_grad_rows(mapping)
+  used = mapping.desc.view(t_all, s_all, mapping.w_max, 4)[:, :, 0, 1] > 0
+  p = torch.arange(pix, device=dev)
+  pxl = ((p % ts).to(dtype) + 0.5 - ts * 0.5)
+  pyl = ((p // ts).to(dtype) + 0.5 - ts * 0.5)
+  tiles = torch.arange(t_all, device=dev)
+  ox_all = ((tiles % tw) * ts).to(dtype) + ts * 0.5
+  oy_all = ((tiles // tw) * ts).to(dtype) + ts * 0.5
+  img = image_tiled.to(dtype)
+  gimg = g_image_tiled.to(dtype)
+  s_total_all = (gimg * img).sum(1)                           # (T, PIX)
+  buf = torch.zeros((r_rows + 1, slabw), dtype=dtype, device=dev)
+
+  chunk = max(1, (1 << 22) // (mapping.slab_cap * pix))
+  for t0 in range(0, t_all, chunk):
+    sl = slice(t0, min(t0 + chunk, t_all))
+    n_c = sl.stop - sl.start
+    ox, oy = ox_all[sl, None], oy_all[sl, None]
+    gi, s_total = gimg[sl], s_total_all[sl]
+    carry = torch.zeros((n_c, pix), dtype=dtype, device=dev)
+    s_prev = torch.zeros((n_c, pix), dtype=dtype, device=dev)
+    for s in range(s_all):
+      s0, ln = slot0[sl, s], lnc[sl, s]
+      width = int((s0 + ln).max()) if ln.numel() else 0
+      if s == 0:
+        active = torch.ones(n_c, dtype=torch.bool, device=dev)
+      else:
+        active = used[sl, s] & ~(carry.max(-1).values <= lcut)
+      if width == 0 or not bool(active.any()):
+        continue
+      valid, rows, grow = _slab_rows(table, s0, ln, row0[sl, s], width, f,
+                                     grow0[sl, s])
+      a_raw, aux = _alpha_raw(rows, ox, oy, pxl, pyl, config)
+      a = torch.where(valid[..., None], _threshold(a_raw, config), 0.0)
+      l = torch.log1p(-a)
+      csum = torch.cumsum(l, 1)
+      lt = (torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], 1)
+            + carry[:, None, :])
+      live = (lt > lcut) & (a > 0.0)
+      t = torch.exp(lt)
+      w = torch.where(live, a * t, 0.0)
+      feats = rows[..., 7:7 + f]                              # (C, L, F)
+      gf = torch.einsum("clf,cfp->clp", feats, gi[:, :f]) + gi[:, None, f]
+      wgf = w * gf
+      s_i = s_total[:, None] - (torch.cumsum(wgf, 1) + s_prev[:, None])
+      ag = torch.where(live, t * gf - s_i / (1.0 - a), 0.0)
+      z0 = torch.where(live & (a_raw < cmax), ag * a_raw, 0.0)
+      g7, split = _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0,
+                             config)
+      pa = rows[..., 6]
+      cols = [g.sum(-1) for g in g7]
+      cols[6] = cols[6] / torch.clamp(pa, min=1e-20)
+      cols = [torch.stack(cols, -1),
+              torch.einsum("clp,cfp->clf", w, gi[:, :f])]
+      if with_vis:
+        cols.append(w.sum(-1)[..., None])
+      if heur:
+        cols.append(torch.stack([(ag * ag).sum(-1) * (pa * pa),
+                                 split.sum(-1)], -1))
+      vals = torch.cat(cols, -1)                              # (C, L, slabw)
+      keep = valid & active[:, None] & (grow >= 0) & (grow < r_rows)
+      buf.index_add_(0, grow[keep], vals[keep])
+
+      lt_end = carry + csum[:, -1]
+      new_carry = torch.maximum(
+          lt_end, torch.where(lt <= lcut, lt, _NEG_BIG).max(1).values)
+      carry = torch.where(active[:, None], new_carry, carry)
+      s_prev = torch.where(active[:, None], s_prev + wgf.sum(1), s_prev)
+  return buf
+
+
+def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
+                         name: str = "stream_forward"):
   table, desc, sb = mapping.table, mapping.desc, mapping.strip_blk
   dev = table.device
-  for name, x, dt in (("table", table, torch.float32),
-                      ("desc", desc, torch.int32),
-                      ("strip_blk", sb, torch.int32)):
+  for field, x, dt in (("table", table, torch.float32),
+                       ("desc", desc, torch.int32),
+                       ("strip_blk", sb, torch.int32)):
     if x.device != dev:
-      raise ValueError(f"stream_forward: {name} on {x.device}, table on {dev}")
+      raise ValueError(f"{name}: {field} on {x.device}, table on {dev}")
     if x.dtype != dt:
-      raise TypeError(f"stream_forward: {name} must be {dt}, got {x.dtype}")
+      raise TypeError(f"{name}: {field} must be {dt}, got {x.dtype}")
     if not x.is_contiguous():
-      raise ValueError(f"stream_forward: {name} must be contiguous")
+      raise ValueError(f"{name}: {field} must be contiguous")
   w_pad = table.shape[1] // mapping.rows_per_block
   f = mapping.feature_size
   t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
   if f > w_pad - 8 or f > 56:
-    raise ValueError(f"stream_forward kernel: {f} features exceed the row "
+    raise ValueError(f"{name} kernel: {f} features exceed the row "
                      f"stride {w_pad} (at most {min(w_pad - 8, 56)})")
   if tuple(desc.shape) != (mapping.num_groups, 1,
                            mapping.group_width * s * w * 4):
-    raise ValueError(f"stream_forward: desc shape {tuple(desc.shape)}")
+    raise ValueError(f"{name}: desc shape {tuple(desc.shape)}")
   if tuple(sb.shape) != (mapping.num_groups, 3):
-    raise ValueError(f"stream_forward: strip_blk shape {tuple(sb.shape)}")
+    raise ValueError(f"{name}: strip_blk shape {tuple(sb.shape)}")
   if mapping.num_groups * mapping.group_width != t:
-    raise ValueError("stream_forward: groups do not cover the tiles")
+    raise ValueError(f"{name}: groups do not cover the tiles")
   if mapping.slab_cap > 2048:
     raise ValueError(f"slab_cap {mapping.slab_cap} overflows the 11-bit "
                      "rank-key slot")
@@ -300,4 +518,83 @@ def stream_forward(mapping: StreamMapping,
     raise RuntimeError(f"stream_forward kernel launch failed: CUDA error "
                        f"{err}")
   launch_counts["stream_forward"] += 1
+  return out
+
+
+@functools.cache
+def _bwd_kernel():
+  from ..utils.cuda_build import load_kernel_library
+  lib = load_kernel_library("stream_backward.cu")
+  lib.tpu_splat_stream_backward.restype = ctypes.c_int
+  lib.tpu_splat_stream_backward.argtypes = (
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_float] * 3
+      + [ctypes.c_void_p])
+  lib.tpu_splat_stream_backward_smem.restype = ctypes.c_longlong
+  lib.tpu_splat_stream_backward_smem.argtypes = [ctypes.c_int] * 4
+  return lib
+
+
+def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
+                    g_image_tiled: torch.Tensor,
+                    config: RasterConfig) -> torch.Tensor:
+  """Backward rasterization: the (T*run_cap + 1, slabw) home-major
+  gradient buffer of ``stream_forward``'s image cotangent.
+
+  CPU mapping -> ``stream_backward_reference``; CUDA mapping -> the
+  ``csrc/stream_backward.cu`` kernel, or an exception."""
+  dev = mapping.table.device
+  if dev.type == "cpu":
+    return stream_backward_reference(mapping, image_tiled, g_image_tiled,
+                                     config)
+  if dev.type != "cuda":
+    raise ValueError(f"stream_backward: unsupported device {dev}")
+  if not config.use_alpha_blending:
+    raise ValueError("stream backward: quantile mode has no backward")
+  w_pad = _check_kernel_inputs(mapping, config, "stream_backward")
+  f = mapping.feature_size
+  t, pix = mapping.num_tiles, config.tile_area
+  if pix % 32:
+    raise ValueError(f"stream_backward kernel: tile_area {pix} is not a "
+                     "whole number of warps")
+  for name, x in (("image_tiled", image_tiled),
+                  ("g_image_tiled", g_image_tiled)):
+    if x.device != dev:
+      raise ValueError(f"stream_backward: {name} on {x.device}, table on "
+                       f"{dev}")
+    if x.dtype != torch.float32:
+      raise TypeError(f"stream_backward: {name} must be torch.float32, got "
+                      f"{x.dtype}")
+    if tuple(x.shape) != (t, f + 1, pix):
+      raise ValueError(f"stream_backward: {name} shape {tuple(x.shape)}, "
+                       f"expected {(t, f + 1, pix)}")
+  image_tiled = image_tiled.contiguous()
+  g_image_tiled = g_image_tiled.contiguous()
+  slabw = slab_width(config, f)
+  heur = config.compute_point_heuristic
+  with_vis = heur or config.compute_visibility
+  lib = _bwd_kernel()
+  smem = lib.tpu_splat_stream_backward_smem(mapping.slab_cap, mapping.w_max,
+                                            f, slabw)
+  if smem > _SMEM_LIMIT:
+    raise ValueError(f"stream_backward kernel needs {smem} B of shared "
+                     f"memory (slab_cap {mapping.slab_cap}, {f} features, "
+                     f"{slabw} gradient columns); the limit is {_SMEM_LIMIT}")
+  out = torch.zeros((t * mapping.run_cap + 1, slabw), dtype=torch.float32,
+                    device=dev)
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.tpu_splat_stream_backward(
+        mapping.table.data_ptr(), mapping.desc.data_ptr(),
+        mapping.strip_blk.data_ptr(), image_tiled.data_ptr(),
+        g_image_tiled.data_ptr(), out.data_ptr(),
+        t, mapping.tiles_wide, mapping.group_width, mapping.num_slabs,
+        mapping.w_max, mapping.strip_cap, mapping.slab_cap,
+        mapping.rows_per_block, w_pad, f, config.tile_size,
+        int(config.antialias), mapping.run_cap, slabw, int(with_vis),
+        int(heur), config.alpha_threshold, config.clamp_max_alpha,
+        _log_cut(config), stream)
+  if err != 0:
+    raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
+                       f"{err}")
+  launch_counts["stream_backward"] += 1
   return out

@@ -1,10 +1,10 @@
 """Top-level 3D renderer: projection -> (SH shading) -> NDC depth ->
-stream mapping -> rasterization -> (median-depth second pass).
+stream mapping -> rasterization -> (median-depth second pass), and the
+training step's ``render_with_heuristics``.
 
 Counterpart of the stream branch of ``tpu_splatting/renderer.py``.  The
 sorted-overlap pipeline (``pipeline="sorted"``, images of 65,536 tiles or
-more) is ROADMAP item P9; per-point visibility and heuristics, which the
-stream pipeline gets from its backward, are P6/P7.  Both raise here.
+more) is ROADMAP item P9 and raises here.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from .data_types import Gaussians3D, RasterConfig
 from .perspective.params import CameraParams
 from .perspective.projection import ndc_depth, project_to_image
-from .rasterizer.stream_function import (stream_eligible,
+from .rasterizer.stream_function import (probe_width, stream_eligible,
                                          stream_map_with_config,
                                          stream_rasterize_with_mapping)
 from .rendering import RenderedPoints, Rendering
@@ -74,17 +74,22 @@ def render_projected(
     probe: Optional[torch.Tensor] = None,
     tiled: bool = False,
 ) -> Rendering:
-  """Rasterize already-projected gaussians through the stream pipeline."""
+  """Rasterize already-projected gaussians through the stream pipeline.
+
+  Per-point visibility is a backward product: training code uses
+  ``render_with_heuristics`` (or threads ``probe`` and reads its
+  gradient).  With ``config.compute_visibility`` and no ``probe`` this
+  function runs one extra backward under a zero image cotangent, so
+  ``rendering.points.visibility`` is filled either way."""
   image_size = camera_params.image_size
   if not stream_eligible(config, image_size):
     raise NotImplementedError(
         "sorted-overlap pipeline (pipeline='sorted' or >= 65,536 tiles): "
         "ROADMAP P9")
-  if heuristic_probe is not None or (config.compute_visibility
-                                     and probe is None):
-    raise NotImplementedError(
-        "per-point visibility / heuristics come from the stream backward: "
-        "ROADMAP P6/P7")
+  pw = probe_width(config)
+  if probe is None and heuristic_probe is not None and pw >= 2:
+    probe = torch.cat([heuristic_probe.new_zeros(
+        (heuristic_probe.shape[0], pw - 2)), heuristic_probe], -1)
   ndc_depths = ndc_depth(depths, camera_params.near_plane,
                          camera_params.far_plane)
   # culled points have depth 0: keep the mapper's invalid mask
@@ -131,11 +136,26 @@ def render_projected(
         median_cfg, tiled=tiled)
     median_depth = med[:, f, :] if tiled else med[0][..., f]
 
+  visibility = None
+  if config.compute_visibility and probe is None:
+    # visibility = probe column 0's cotangent under a zero image cotangent
+    # (the sum of compositing weights, independent of any loss)
+    with torch.enable_grad():
+      probe0 = torch.zeros((gaussians2d.shape[0], pw),
+                           dtype=gaussians2d.dtype, device=gaussians2d.device,
+                           requires_grad=True)
+      it_p = stream_rasterize_with_mapping(
+          gaussians2d.detach(), feats_all.detach(), mapping, image_size,
+          config, probe=probe0, tiled=True)
+      (gpr,) = torch.autograd.grad(it_p, probe0, torch.zeros_like(it_p))
+    visibility = gpr[:, 0]
+
   points = RenderedPoints(
       in_view=in_view,
       depths=depths,
       gaussians2d=gaussians2d,
       features=features,
+      _visibility=visibility,
   )
   return Rendering(
       image=image,
@@ -155,6 +175,38 @@ def render_with_heuristics(loss_fn, gaussians: Gaussians3D,
                            camera_params: CameraParams,
                            config: RasterConfig = RasterConfig(),
                            **render_kwargs):
-  """Render + loss + backward with per-point heuristics: needs the stream
-  backward (ROADMAP P6/P7)."""
-  raise NotImplementedError("render_with_heuristics: ROADMAP P6/P7")
+  """Render, evaluate ``loss_fn(rendering)`` and run the backward pass:
+  ``(loss, rendering, grads)`` with ``rendering.points`` visibility,
+  prune_cost and split_score filled in.
+
+  The heuristics are the gradient of a zero-valued probe input, computed
+  in the same backward as ``grads`` (a ``Gaussians3D`` of the gradients of
+  every leaf).  ``gaussians`` is not modified: the step differentiates
+  detached copies of its leaves.  ``render_kwargs`` go to
+  ``render_gaussians``."""
+  assert config.compute_point_heuristic, (
+      "render_with_heuristics requires config.compute_point_heuristic")
+  leaves = [getattr(gaussians, f.name).detach().requires_grad_(True)
+            for f in dataclasses.fields(gaussians)]
+  # [visibility, prune_cost, split_score]: heuristics imply visibility
+  probe = torch.zeros((leaves[0].shape[0], 3), dtype=leaves[0].dtype,
+                      device=leaves[0].device, requires_grad=True)
+  with torch.enable_grad():
+    rendering = render_gaussians(Gaussians3D(*leaves), camera_params, config,
+                                 probe=probe, **render_kwargs)
+    loss = loss_fn(rendering)
+    grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
+  grads = [torch.zeros_like(x) if g is None else g
+           for x, g in zip(leaves + [probe], grads)]
+  gpr = grads[-1]
+  points = rendering.points.replace(
+      _visibility=gpr[:, 0], _prune_cost=gpr[:, 1], _split_score=gpr[:, 2])
+  return (loss.detach(), rendering.replace(points=points),
+          Gaussians3D(*grads[:-1]))
+
+
+def viewspace_gradient(grad_gaussians2d: torch.Tensor) -> torch.Tensor:
+  """Norm of the xy gradient of the projected gaussians (densify
+  heuristic): pass the (N, 7) gradient of ``points.gaussians2d``."""
+  assert grad_gaussians2d.shape[1] == 7
+  return torch.linalg.norm(grad_gaussians2d[:, :2], dim=1)

@@ -1,8 +1,9 @@
 """Benchmark scenes as port inputs (numpy + torch only).
 
-``lift_to_3d`` is the counterpart of ``bench.lift_to_3d``, which builds
-JAX arrays; the 2D scene generators ``uniform_scene`` and ``heavy_scene``
-are plain numpy and are imported from ``bench`` by callers.
+``uniform_scene`` and ``heavy_scene`` are copies of the 2D scene
+generators of the repository's ``bench.py`` (plain numpy: the same seed
+gives the same arrays), and ``lift_to_3d`` is the counterpart of
+``bench.lift_to_3d``, which builds JAX arrays.
 """
 
 from __future__ import annotations
@@ -16,8 +17,52 @@ from .data_types import Gaussians3D
 from .perspective.params import CameraParams
 
 
+def uniform_scene(rng, n, image_size):
+  """n splats uniform over the image: (packed (n, 7), NDC depth (n,),
+  colours (n, 3)), all f32."""
+  w, h = image_size
+  density = 1.2 * w / (1 + math.sqrt(n))
+  packed = np.zeros((n, 7), np.float32)
+  packed[:, 0] = rng.uniform(0, w, n)
+  packed[:, 1] = rng.uniform(0, h, n)
+  theta = rng.uniform(0, np.pi, n)
+  packed[:, 2] = np.cos(theta)
+  packed[:, 3] = np.sin(theta)
+  packed[:, 4:6] = (rng.random((n, 2)) + 0.2) * density
+  packed[:, 6] = rng.uniform(0.1, 0.9, n)
+  depth = rng.uniform(0.05, 0.95, n).astype(np.float32)
+  feats = rng.random((n, 3)).astype(np.float32)
+  return packed, depth, feats
+
+
+def heavy_scene(rng, n, image_size):
+  """3DGS-checkpoint-like statistics: log-normal projected scales (median
+  ~1.3 px, long tail to ~100 px), anisotropy, opacity mass near 0 and 1
+  (sigmoid of a wide logit distribution), mild spatial clustering."""
+  w, h = image_size
+  packed = np.zeros((n, 7), np.float32)
+  n_c = 4096
+  centres = np.stack([rng.uniform(0, w, n_c), rng.uniform(0, h, n_c)], 1)
+  which = rng.integers(0, n_c, n)
+  jitter = rng.normal(0.0, 0.08, (n, 2)) * np.asarray([w, h])
+  pos = centres[which] + jitter
+  packed[:, 0] = np.clip(pos[:, 0], 0, w - 1)
+  packed[:, 1] = np.clip(pos[:, 1], 0, h - 1)
+  theta = rng.uniform(0, np.pi, n)
+  packed[:, 2] = np.cos(theta)
+  packed[:, 3] = np.sin(theta)
+  s_major = np.exp(rng.normal(0.35, 0.9, n)).astype(np.float32)   # px
+  ratio = np.exp(-np.abs(rng.normal(0.0, 0.7, n))).astype(np.float32)
+  packed[:, 4] = np.clip(s_major, 0.05, 110.0)
+  packed[:, 5] = np.clip(s_major * ratio, 0.05, 110.0)
+  packed[:, 6] = 1.0 / (1.0 + np.exp(-rng.normal(0.0, 2.5, n)))
+  depth = rng.uniform(0.02, 0.98, n).astype(np.float32)
+  feats = rng.random((n, 3)).astype(np.float32)
+  return packed, depth.astype(np.float32), feats
+
+
 def lift_to_3d(packed, depth_ndc, feats, image_size, near, far, fov_deg,
-               device=None):
+               device="cuda"):
   """Lift a 2D bench scene to Gaussians3D + CameraParams whose projection
   reproduces (approximately) the same screen-space statistics: each splat
   sits on the camera ray through its 2D position at the metric depth of

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks = {}      # one lock per source: different sources build in parallel
 _libs = {}
 # per source: {"seconds": build time (0.0 when already built), "log": ptxas}
 build_info = {}
@@ -43,8 +44,12 @@ def _nvcc() -> str:
 
 
 def load_kernel_library(source: str) -> ctypes.CDLL:
-  """Compile ``csrc/<source>`` (once per source content) and load it."""
-  with _lock:
+  """Compile ``csrc/<source>`` (once per source content) and load it.
+  Thread-safe; calls for different sources run their ``nvcc`` in
+  parallel."""
+  with _locks_guard:
+    lock = _locks.setdefault(source, threading.Lock())
+  with lock:
     lib = _libs.get(source)
     if lib is not None:
       return lib
@@ -68,3 +73,10 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     _libs[source] = lib
     return lib
+
+
+def load_kernel_libraries(sources) -> dict:
+  """Build and load several sources at once, one ``nvcc`` each."""
+  from concurrent.futures import ThreadPoolExecutor
+  with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+    return dict(zip(sources, pool.map(load_kernel_library, sources)))
