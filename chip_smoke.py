@@ -6,9 +6,10 @@
 Phases (any failure raises and exits non-zero):
 
 1. Device and build: needs CUDA, prints the card's name and power limit,
-   builds the stream forward (K1) and backward (K2) kernels from
-   ``tpu_splatting_torch/csrc`` (one ``nvcc`` each, in parallel) and
-   prints their registers and spills.
+   builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
+   per source, all in parallel: the stream forward K1 and backward K2,
+   the sorted forward K4 and backward K5, the layout kernels K6 and K7)
+   and prints their registers and spills.
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
@@ -33,6 +34,30 @@ Phases (any failure raises and exits non-zero):
    features, checked for zero overflow, finite loss and gradients,
    visibility >= 0, and K2 launches; then a staged timing of one step and
    K2 against its twin at the full-size shapes.
+5. The sorted-overlap pipeline's kernels against their twins on the card:
+   200k splats at 1024x768 with ``scenes.uniform_scene`` and with
+   ``scenes.heavy_scene`` statistics, each mapped on the card by the
+   port's ``calibrate_mapper`` + ``map_to_tiles`` (``pipeline="sorted"``):
+   K4 in blending, antialias and quantile modes with visibility (image max
+   abs <= 1e-4, visibility per row <= 1e-4 * max + 1e-6), K5 in blending,
+   antialias and heuristics modes (per column <= 1e-4 * max |twin column|
+   + 1e-6), K6 bit for bit, K7 per column <= 1e-5 * max + 1e-6; and one
+   small 3D scene mapped on the card and on the CPU (identical integer
+   fields) and trained one sorted ``render_with_heuristics`` step on each
+   (equal loss to 1e-4 relative).
+6. The sorted pipeline at full size: the phase-3 scene with
+   ``pipeline="sorted"`` and capacities from the port's
+   ``calibrate_mapper`` (max over the five poses): three
+   ``render_gaussians`` requests (the last with the median pass, which
+   takes the gather fallback) and three training steps as in phase 4
+   (flat masked L2 loss: the sorted pipeline has no tiled output), checked
+   for zero overflow, finite images, loss and gradients, weights in
+   [0, 1 + 1e-6] and visibility >= 0, with the launches of K4-K7 per
+   render and per step; staged timings of a render and a step; K4-K7
+   against their twins and K6 / K7 against one PyTorch call at the
+   full-size shapes; and, for information, the sorted image against the
+   stream image of the same pose (the stream pipeline composites in 14-bit
+   depth order, the sorted one in exact f32 depth order).
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times and bounds, and
@@ -155,6 +180,14 @@ def backward_vs_twin(mapping, config, label, reps=3):
   return err, k_ms, t_ms
 
 
+SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
+           "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
+           "K6, K7": "layout.cu"}
+# f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
+# count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
+K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
+
+
 def phase_device():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: CUDA is not available")
@@ -168,10 +201,10 @@ def phase_device():
   from tpu_splatting_torch.utils.cuda_build import (build_info,
                                                     load_kernel_libraries)
   t0 = time.perf_counter()
-  sources = ("stream_forward.cu", "stream_backward.cu")
+  sources = tuple(SOURCES.values())
   load_kernel_libraries(sources)
   log(f"build of {sources} in parallel: {time.perf_counter() - t0:.2f} s")
-  for name, src in zip(("K1", "K2"), sources):
+  for name, src in SOURCES.items():
     info = build_info[src]
     log(f"{name} build ({src}): {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
@@ -596,6 +629,468 @@ def phase_train(dev, g3d, cams, cfg_caps):
   return k2, k3
 
 
+def sorted_mapped(packed, depth, feats, image_size, config, dev):
+  """The port's calibrate_mapper + map_to_tiles on the card:
+  (config with the calibrated windows, mapping)."""
+  from tpu_splatting_torch import map_to_tiles
+  from tpu_splatting_torch.mapper.tile_mapper import calibrate_mapper
+  p, d, f = (torch.from_numpy(x).to(dev) for x in (packed, depth, feats))
+  t0 = time.perf_counter()
+  cal = calibrate_mapper(p, d, image_size, config)
+  cfg = dataclasses.replace(config, tile_window=cal["tile_window"],
+                            big_capacity=cal["big_capacity"])
+  m = map_to_tiles(p, d, image_size, cfg, max_overlaps=cal["max_overlaps"],
+                   features=f)
+  torch.cuda.synchronize()
+  assert int(m.num_overflow) == 0, int(m.num_overflow)
+  cnt = m.chunk_cnt
+  shown = ("tile_window", "big_capacity", "max_overlaps", "num_wide")
+  log(f"  calibration + mapping {time.perf_counter() - t0:.2f} s: "
+      f"{ {k: cal[k] for k in shown} } "
+      f"overlaps {int(cnt.sum())} chunks {m.num_chunks} (used "
+      f"{int((cnt > 0).sum())}), most chunks of a tile "
+      f"{int(torch.bincount(m.chunk_to_tile.long())[:m.num_tiles].max())}")
+  return cfg, m
+
+
+def sorted_forward_vs_twin(m, config, label, reps=3):
+  """K4 against forward_reference: (image max abs error, kernel ms, twin
+  ms); visibility per row <= 1e-4 * max + 1e-6."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  args = (m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile,
+          config, m.num_tiles, m.tiles_wide)
+  img, vis = kk.forward(*args)
+  img_t, vis_t = kk.forward_reference(*args)
+  torch.cuda.synchronize()
+  assert torch.isfinite(img).all() and torch.isfinite(vis).all(), label
+  err = float((img - img_t).abs().max())
+  vis_err = float((vis - vis_t).abs().max())
+  vis_tol = 1e-4 * float(vis_t.abs().max()) + 1e-6
+  k_ms = cuda_ms(lambda: kk.forward(*args), reps)
+  t_ms = cuda_ms(lambda: kk.forward_reference(*args), 1)
+  log(f"  {label} K4: image max_abs_err {err:.3e} (tol {TOL:g}), "
+      f"visibility {vis_err:.3e} (tol {vis_tol:.3e})  kernel {k_ms:.3f} ms"
+      f"  twin {t_ms:.3f} ms")
+  assert err <= TOL, f"{label}: K4 disagrees with its twin ({err})"
+  assert vis_err <= vis_tol, f"{label}: K4 visibility ({vis_err})"
+  return err, k_ms, t_ms
+
+
+def sorted_backward_vs_twin(m, config, label, reps=3):
+  """K5 against backward_reference on one cotangent, column by column
+  (<= 1e-4 * max |twin column| + 1e-6): (max abs error, kernel ms, twin
+  ms, gradient rows)."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  img, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
+                      m.chunk_to_tile, config, m.num_tiles, m.tiles_wide,
+                      with_vis=False)
+  gen = torch.Generator(device=img.device).manual_seed(5)
+  gimg = torch.randn(img.shape, generator=gen, device=img.device)
+  args = (m.sorted_payload, img, gimg, m.chunk_src, m.chunk_cnt,
+          m.chunk_to_tile, config, m.num_tiles, m.tiles_wide)
+  got = kk.backward(*args)
+  want = kk.backward_reference(*args)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all(), f"{label}: non-finite K5 output"
+  err_col = (got - want).abs().amax(0)
+  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+  err = float(err_col.max())
+  k_ms = cuda_ms(lambda: kk.backward(*args), reps)
+  t_ms = cuda_ms(lambda: kk.backward_reference(*args), 1)
+  log(f"  {label} K5: max_abs_err {err:.3e}, worst column at "
+      f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
+      f"{k_ms:.3f} ms  twin {t_ms:.3f} ms")
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K5 disagrees with its twin", err_col.tolist(),
+      tol_col.tolist())
+  return err, k_ms, t_ms, got
+
+
+def layout_vs_twins(m, gout, label, reps=3):
+  """K6 bit for bit on the overlap ids and the sorted rows; K7 on the
+  gradient rows sorted by point id, per column <= 1e-5 * max + 1e-6.
+  Returns (K7 max abs error, timings dict)."""
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.rasterizer.function import _pid_chunked
+  g = m.chunk_size
+  for rows in (m.overlap_to_point, m.sorted_payload):
+    got = layout.window_copy(rows, m.chunk_src, m.chunk_cnt, g)
+    want = layout.window_copy_reference(rows, m.chunk_src, m.chunk_cnt, g)
+    assert torch.equal(got, want), f"{label}: K6 differs from its twin"
+  ids, order = torch.sort(_pid_chunked(m), stable=True)
+  rows = gout[order]
+  got = layout.segment_sum_sorted(rows, ids, m.num_points)
+  want = layout.segment_sum_sorted_reference(rows, ids, m.num_points)
+  torch.cuda.synchronize()
+  err_col = (got - want).abs().amax(0)
+  tol_col = 1e-5 * want.abs().amax(0) + 1e-6
+  err = float(err_col.max())
+  log(f"  {label} K6: bit-exact on ids and rows; K7: max_abs_err "
+      f"{err:.3e}, worst column at "
+      f"{float((err_col / tol_col).max()):.3f} of its tolerance")
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K7 disagrees with its twin", err_col.tolist())
+  return err
+
+
+def phase_sorted_twin(dev):
+  """Phase 5: (K4, K5, K7 max errors) at the check shapes."""
+  from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.scenes import heavy_scene, uniform_scene
+  e4, e5, e7 = [], [], []
+  # heavy splats reach ~100 px sigma: a big-path window as wide as the
+  # image (64 tiles) leaves no span clipped; chunks of 32 rows give its
+  # clustered tiles many chunks (the carries across chunks)
+  for name, gen, seed, big_window, g in (
+      ("uniform", uniform_scene, 0, 16, 128),
+      ("heavy", heavy_scene, 1, 64, 32)):
+    log(f"phase 5: K4-K7 vs twins, {name} {N_SMALL} splats {SIZE_SMALL}, "
+        f"pipeline sorted, big_tile_window {big_window}, chunk_size {g}")
+    packed, depth, feats = gen(np.random.default_rng(seed), N_SMALL,
+                               SIZE_SMALL)
+    base = RasterConfig(pipeline="sorted", big_tile_window=big_window,
+                        chunk_size=g)
+    cfg, m = sorted_mapped(packed, depth, feats, SIZE_SMALL, base, dev)
+    reps = 3 if name == "uniform" else 1
+    e4.append(sorted_forward_vs_twin(m, cfg, f"{name} blending", reps)[0])
+    e4.append(sorted_forward_vs_twin(
+        m, dataclasses.replace(cfg, antialias=True), f"{name} antialias",
+        reps)[0])
+    _, mq = sorted_mapped(packed, depth, depth[:, None], SIZE_SMALL, cfg,
+                          dev)
+    e4.append(sorted_forward_vs_twin(
+        mq, dataclasses.replace(cfg, use_alpha_blending=False,
+                                saturate_threshold=0.25), f"{name} quantile",
+        reps)[0])
+    e5.append(sorted_backward_vs_twin(m, cfg, f"{name} blending", reps)[0])
+    e5.append(sorted_backward_vs_twin(
+        m, dataclasses.replace(cfg, antialias=True), f"{name} antialias",
+        reps)[0])
+    err, _, _, gout = sorted_backward_vs_twin(
+        m, dataclasses.replace(cfg, **HEUR), f"{name} heuristics", reps)
+    e5.append(err)
+    e7.append(layout_vs_twins(m, gout, name))
+  return max(e4), max(e5), max(e7)
+
+
+def sorted_cross_device_check(dev):
+  """A small 3D scene's projected splats mapped by map_to_tiles on the
+  card and on the CPU (every integer field identical, the payload equal),
+  and one sorted render_with_heuristics step on each device (equal loss
+  to 1e-4 relative)."""
+  from tpu_splatting_torch import (RasterConfig, map_to_tiles,
+                                   render_with_heuristics)
+  from tpu_splatting_torch.convert import TILE_MAPPING_INT_FIELDS
+  from tpu_splatting_torch.perspective.projection import (ndc_depth,
+                                                          project_to_image)
+  from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
+  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+  size = (256, 192)
+  packed, depth, feats = uniform_scene(np.random.default_rng(2), 20_000,
+                                       size)
+  cfg = RasterConfig(pipeline="sorted", **HEUR)
+  cap = 200_000
+  g3d, cam = lift_to_3d(packed, depth, feats, size, near=0.1, far=100.0,
+                        fov_deg=70.0, device=dev)
+  with torch.no_grad():
+    g2d, depths, _ = project_to_image(g3d, cam, cfg)
+    sh = evaluate_sh_at(g3d.feature, g3d.position, cam.camera_position)
+    nd = torch.where(depths > 0,
+                     ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+    maps = [map_to_tiles(g2d.to(d), nd.to(d), size, cfg, max_overlaps=cap,
+                         features=sh.to(d)) for d in (dev, "cpu")]
+  assert int(maps[1].num_overflow) == 0
+  for name in TILE_MAPPING_INT_FIELDS:
+    a, b = getattr(maps[0], name).cpu(), getattr(maps[1], name)
+    assert torch.equal(a, b), f"sorted mapper differs on card and CPU: {name}"
+  assert torch.equal(maps[0].sorted_payload.cpu(), maps[1].sorted_payload)
+  tgt = torch.from_numpy(np.random.default_rng(7).random(
+      (size[1], size[0], 3)).astype(np.float32))
+  losses = []
+  for d in (dev, "cpu"):
+    t = tgt.to(d)
+    g_d = g3d.replace(**{f.name: getattr(g3d, f.name).to(d)
+                         for f in dataclasses.fields(g3d)})
+    loss, r, grads = render_with_heuristics(
+        lambda r, t=t: ((r.image - t) ** 2).sum(), g_d, cam.to(d), cfg,
+        use_sh=True, max_overlaps=cap)
+    assert int(r.num_overflow) == 0
+    assert torch.isfinite(grads.position).all(), d
+    losses.append(float(loss))
+  log(f"  small sorted scene {size}: mapper identical on card and CPU "
+      f"({int(maps[1].chunk_cnt.sum())} overlaps); training step loss card "
+      f"{losses[0]:.6f} CPU {losses[1]:.6f}")
+  assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+
+
+def phase_sorted_full(dev, g3d, cams, stream_cfg):
+  """Phase 6: the sorted pipeline at full size.  Returns the K4-K7
+  entries of the kernels line (without the phase-5 errors)."""
+  from tpu_splatting_torch import (RasterConfig, map_to_tiles,
+                                   render_gaussians, render_with_heuristics)
+  from tpu_splatting_torch.mapper.tile_mapper import (calibrate_mapper,
+                                                      tile_shape)
+  from tpu_splatting_torch.optim import GroupConfig, VisibilityAwareAdam
+  from tpu_splatting_torch.perspective.projection import (ndc_depth,
+                                                          project_to_image)
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.rasterizer.stream_function import detile
+  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+
+  log(f"phase 6: sorted pipeline, {N_FULL} splats {SIZE_FULL} SH degree 3")
+  base = RasterConfig(pipeline="sorted")
+  t0 = time.perf_counter()
+  caps = {}
+  with torch.no_grad():
+    for cam in cams:
+      g2d, depths, _ = project_to_image(g3d, cam, base)
+      nd = torch.where(depths > 0,
+                       ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+      cal = calibrate_mapper(g2d, nd, SIZE_FULL, base)
+      for k in ("tile_window", "big_capacity", "max_overlaps"):
+        caps[k] = max(caps.get(k, 0), cal[k])
+      del g2d, depths, nd
+  torch.cuda.synchronize()
+  log(f"  calibration (5 poses): {time.perf_counter() - t0:.2f} s; caps "
+      f"(max over poses) {caps}; identity-pose hits upper bound "
+      f"{cal['measured_hits_upper_bound']}, wide {cal['num_wide']}")
+  cfg = dataclasses.replace(base, tile_window=caps["tile_window"],
+                            big_capacity=caps["big_capacity"])
+  cap = caps["max_overlaps"]
+
+  def counts():
+    return {**kk.launch_counts, **layout.launch_counts}
+
+  # three requests through the public entry point
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kk.reset_launch_counts()
+  layout.reset_launch_counts()
+  times = []
+  with torch.no_grad():
+    for i, cam in enumerate(cams[:3]):
+      median = i == 2
+      t0 = time.perf_counter()
+      r = render_gaussians(g3d, cam, cfg, use_sh=True, max_overlaps=cap,
+                           render_median_depth=median)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+      assert int(r.num_overflow) == 0, (i, int(r.num_overflow))
+      assert torch.isfinite(r.image).all(), i
+      w_min, w_max = float(r.image_weight.min()), float(r.image_weight.max())
+      assert w_min >= 0.0 and w_max <= 1.0 + 1e-6, (i, w_min, w_max)
+      if median:
+        assert torch.isfinite(r.median_depth_image).all()
+      if i == 0:
+        image0 = r.image
+      log(f"  request {i}: {times[-1]:.2f} ms  weight in [{w_min:.4f}, "
+          f"{w_max:.6f}]  mean rgb {r.image.mean().item():.4f}"
+          + ("  (+median pass)" if median else ""))
+  render_launches = counts()
+  render_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"  launches in the 3 requests: {render_launches}")
+  assert render_launches["sorted_forward"] >= 3, render_launches
+  log(f"  end-to-end ms per render: {[round(t, 3) for t in times]}")
+  log(f"  peak device memory: {render_peak:.3f} GiB")
+
+  with torch.no_grad():
+    r_stream = render_gaussians(g3d, cams[0], stream_cfg, use_sh=True)
+    diff = (image0 - r_stream.image).abs()
+  log(f"  sorted vs stream image, pose 0 (information only): max abs "
+      f"{float(diff.max()):.4e}, mean abs {float(diff.mean()):.4e}")
+  del r_stream, diff
+
+  # three training steps
+  tcfg = dataclasses.replace(cfg, **HEUR)
+  tgt = torch.from_numpy(np.random.default_rng(7).random(
+      (SIZE_FULL[1], SIZE_FULL[0], 3)).astype(np.float32)).to(dev)
+
+  def loss_fn(rendering):
+    err = rendering.image - tgt
+    return (err * err).sum()
+
+  opt = VisibilityAwareAdam({"feature": GroupConfig(lr=1e-3)})
+  state = opt.init({"feature": g3d.feature})
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  before = counts()
+  step_times = []
+  for i, cam in enumerate(cams[:3]):
+    t0 = time.perf_counter()
+    loss, r, grads = render_with_heuristics(loss_fn, g3d, cam, tcfg,
+                                            use_sh=True, max_overlaps=cap)
+    vis = r.points.visibility
+    params, state = opt.step({"feature": g3d.feature},
+                             {"feature": grads.feature}, state, vis)
+    g3d = g3d.replace(feature=params["feature"])
+    torch.cuda.synchronize()
+    step_times.append((time.perf_counter() - t0) * 1e3)
+    assert int(r.num_overflow) == 0, (i, int(r.num_overflow))
+    assert np.isfinite(float(loss)), i
+    for name in ("position", "log_scaling", "rotation", "alpha_logit",
+                 "feature"):
+      assert torch.isfinite(getattr(grads, name)).all(), (i, name)
+    for name in ("prune_cost", "split_score"):
+      assert torch.isfinite(getattr(r.points, name)).all(), (i, name)
+    assert float(vis.min()) >= 0.0, (i, float(vis.min()))
+    log(f"  step {i}: {step_times[-1]:.2f} ms  loss {float(loss):.4f}  "
+        f"visible {int((vis > 0).sum())}")
+  after = counts()
+  step_launches = {k: after[k] - before[k] for k in after}
+  step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"  launches in the 3 steps: {step_launches}")
+  for k in ("sorted_forward", "sorted_backward", "window_copy",
+            "segment_sum_sorted"):
+    assert step_launches[k] >= 3, (k, step_launches)
+  log(f"  end-to-end ms per training step: "
+      f"{[round(t, 3) for t in step_times]}")
+  log(f"  peak device memory: {step_peak:.3f} GiB")
+  launches = after
+
+  # staged timing of one render and one step (CUDA events)
+  cam = cams[0]
+  n = g3d.position.shape[0]
+  ts = cfg.tile_size
+  tw, th = tile_shape(SIZE_FULL, ts)
+  t_all = tw * th
+  with torch.no_grad():
+    for _ in range(2):                        # warm once, time the second
+      ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+      ev[0].record()
+      g2d, depths, _ = project_to_image(g3d, cam, cfg)
+      ev[1].record()
+      feats = evaluate_sh_at(g3d.feature, g3d.position, cam.camera_position)
+      ev[2].record()
+      nd = torch.where(depths > 0,
+                       ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+      m = map_to_tiles(g2d, nd, SIZE_FULL, cfg, max_overlaps=cap,
+                       features=feats)
+      ev[3].record()
+      it, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
+                         m.chunk_to_tile, cfg, t_all, tw, with_vis=False)
+      ev[4].record()
+      detile(it[:t_all], tw, th, ts, SIZE_FULL)
+      ev[5].record()
+      torch.cuda.synchronize()
+  names = ("project", "SH", "map", "K4", "detile")
+  stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+  log("  render stages (ms): " + "  ".join(f"{nm} {t:.3f}"
+                                           for nm, t in stages.items()))
+  log(f"  full mapping: {int(m.chunk_cnt.sum())} overlaps in "
+      f"{m.num_chunks} chunks of {m.chunk_size}")
+
+  names = ("forward to map", "K4 + visibility", "visibility reduce",
+           "loss gradient", "K5", "backward reduce", "autograd tail",
+           "optimizer")
+  for _ in range(2):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    ev[0].record()
+    leaves = [getattr(g3d, f.name).detach().requires_grad_(True)
+              for f in dataclasses.fields(g3d)]
+    g = g3d.replace(**{f.name: x for f, x in
+                       zip(dataclasses.fields(g3d), leaves)})
+    g2d, depths, _ = project_to_image(g, cam, tcfg)
+    feats = evaluate_sh_at(g.feature, g.position.detach(),
+                           cam.camera_position)
+    nd = torch.where(depths > 0,
+                     ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+    m = map_to_tiles(g2d.detach(), nd.detach(), SIZE_FULL, tcfg,
+                     max_overlaps=cap, features=feats.detach())
+    ev[1].record()
+    it, vis_c = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
+                           m.chunk_to_tile, tcfg, t_all, tw, with_vis=True)
+    ev[2].record()
+    pid = fn._pid_chunked(m)
+    vis = fn.reduce_chunked_to_points(vis_c, pid, n)[:, 0]
+    ev[3].record()
+    it_g = it.detach().requires_grad_(True)
+    full = detile(it_g[:t_all], tw, th, ts, SIZE_FULL)
+    (g_it,) = torch.autograd.grad(((full[..., :3] - tgt) ** 2).sum(), it_g)
+    ev[4].record()
+    gout = kk.backward(m.sorted_payload, it, g_it, m.chunk_src, m.chunk_cnt,
+                       m.chunk_to_tile, tcfg, t_all, tw)
+    ev[5].record()
+    red = fn.reduce_chunked_to_points(gout, fn._pid_chunked(m), n)
+    ev[6].record()
+    tail = torch.autograd.grad([g2d, feats], leaves,
+                               [red[:, :7], red[:, 7:10]])
+    ev[7].record()
+    opt.step({"feature": g3d.feature}, {"feature": tail[4]}, state, vis)
+    ev[8].record()
+    torch.cuda.synchronize()
+  stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+  log("  step stages (ms): " + "  ".join(f"{nm} {t:.3f}"
+                                         for nm, t in stages.items()))
+
+  # K4-K7 at the full-size shapes: kernel, twin, bound, library call
+  log("  K4-K7 vs twins at the full-size shapes")
+  err4, k4_ms, t4_ms = sorted_forward_vs_twin(m, tcfg, "full blending",
+                                              reps=5)
+  err5, k5_ms, t5_ms, gout = sorted_backward_vs_twin(
+      m, tcfg, "full heuristics", reps=5)
+  err7 = layout_vs_twins(m, gout, "full")
+  f = m.feature_size
+  valid = int(m.chunk_cnt.sum())
+  pairs = valid * tcfg.tile_area
+  out_w = gout.shape[1]
+  g = m.chunk_size
+  row_bytes = valid * (7 + f) * 4
+  idx_bytes = nbytes(m.chunk_src, m.chunk_cnt, m.chunk_to_tile)
+  b4 = bound_ms(pairs * K4_OPS_PER_PAIR,
+                row_bytes + idx_bytes + nbytes(it, vis_c))
+  b5 = bound_ms(pairs * k2_ops_per_pair(out_w),
+                row_bytes + idx_bytes + 2 * nbytes(it) + nbytes(gout))
+  log(f"  K4 bound {b4[0]:.4f} ms ({b4[1]}), K5 bound {b5[0]:.4f} ms "
+      f"({b5[1]}): {pairs} (row, pixel) pairs")
+
+  o2p, src, cnt = m.overlap_to_point, m.chunk_src, m.chunk_cnt
+  k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 5)
+  t6_ms = cuda_ms(lambda: layout.window_copy_reference(o2p, src, cnt, g), 5)
+  r = torch.arange(g, device=dev)
+  flat = torch.where(r < cnt[:, None], src.long()[:, None] + r,
+                     o2p.shape[0]).reshape(-1)
+  o2p_ext = torch.cat([o2p, o2p.new_zeros(1)])
+  assert torch.equal(o2p_ext[flat], layout.window_copy(o2p, src, cnt, g))
+  l6_ms = cuda_ms(lambda: o2p_ext[flat], 5)
+  b6 = bound_ms(0, nbytes(src, cnt) + valid * 4 + flat.numel() * 4)
+  log(f"  K6 (overlap ids, {flat.numel()} slots): kernel {k6_ms:.3f} ms  "
+      f"twin {t6_ms:.3f} ms  torch indexing {l6_ms:.3f} ms  bound "
+      f"{b6[0]:.4f} ms ({b6[1]})")
+
+  ids, order = torch.sort(fn._pid_chunked(m), stable=True)
+  rows = gout[order]
+  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 5)
+  t7_ms = cuda_ms(lambda: layout.segment_sum_sorted_reference(rows, ids, n),
+                  5)
+  acc = torch.zeros((n + 1, out_w), device=dev)
+  ids_c = torch.clamp(ids, max=n)
+  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 5)
+  b7 = bound_ms(0, nbytes(rows, ids) + (n + 1) * 4 + n * out_w * 4)
+  log(f"  K7 ({rows.shape[0]} rows x {out_w} columns -> {n} points): kernel "
+      f"{k7_ms:.3f} ms  twin {t7_ms:.3f} ms  index_add_ {l7_ms:.3f} ms  "
+      f"bound {b7[0]:.4f} ms ({b7[1]})")
+
+  def entry(name, src_file, line, count, err, ms, plain, b, lib):
+    return dict(name=name, route="cuda",
+                source="tpu_splatting_torch/csrc/" + src_file,
+                replaces=line, launches=count, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                library_ms=lib)
+  ref = "tpu_splatting/rasterizer/"
+  return [
+      entry("sorted_forward", "sorted_forward.cu", ref + "kernels.py:216",
+            launches["sorted_forward"], err4, k4_ms, t4_ms, b4, None),
+      entry("sorted_backward", "sorted_backward.cu", ref + "kernels.py:393",
+            launches["sorted_backward"], err5, k5_ms, t5_ms, b5, None),
+      entry("window_copy", "layout.cu", ref + "layout.py:56",
+            launches["window_copy"], 0.0, k6_ms, t6_ms, b6, l6_ms),
+      entry("segment_sum_sorted", "layout.cu", ref + "layout.py:105",
+            launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms),
+  ]
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -607,7 +1102,13 @@ def main():
   cross_device_check(dev)
   k1, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
-  log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}")
+  e4, e5, e7 = phase_sorted_twin(dev)
+  sorted_cross_device_check(dev)
+  sorted_entries = phase_sorted_full(dev, g3d, cams, cfg)
+  for e, err in zip(sorted_entries, (e4, e5, 0.0, e7)):
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+  log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
+      f"{e4:.3e} K5 {e5:.3e} K7 {e7:.3e}")
   log(card)                    # name, power limit as nvidia-smi prints them
   src = "tpu_splatting_torch/csrc/"
   ref = "tpu_splatting/rasterizer/stream_kernels.py:"
@@ -620,7 +1121,8 @@ def main():
            library_ms=None, **k2),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
-           fused_into="stream_backward", **k3)]}))
+           fused_into="stream_backward", **k3),
+      *sorted_entries]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

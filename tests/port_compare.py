@@ -59,3 +59,26 @@ def assert_mappings_equal(mj, mt):
   for f in dataclasses.fields(mt):
     if not isinstance(getattr(mt, f.name), torch.Tensor):
       assert getattr(mt, f.name) == getattr(mj, f.name), f.name
+
+
+def tile_mapping(m):
+  return convert.tile_mapping_from_numpy(fields(m), device="cpu")
+
+
+def assert_tile_mappings_equal(mj, mt):
+  """A sorted-pipeline TileMapping: every integer field exactly, the
+  sorted payload to 1e-7, the static metadata."""
+  for name in convert.TILE_MAPPING_INT_FIELDS:
+    a = np.asarray(getattr(mj, name)).astype(np.int64)
+    b = getattr(mt, name).numpy().astype(np.int64)
+    assert a.shape == b.shape, (name, a.shape, b.shape)
+    np.testing.assert_array_equal(b, a, err_msg=name)
+  assert (mj.sorted_payload is None) == (mt.sorted_payload is None)
+  if mt.sorted_payload is not None:
+    np.testing.assert_allclose(mt.sorted_payload.numpy(),
+                               np.asarray(mj.sorted_payload), rtol=0,
+                               atol=1e-7)
+  for f in dataclasses.fields(mt):
+    if not isinstance(getattr(mt, f.name), torch.Tensor) and (
+        f.name != "sorted_payload"):
+      assert getattr(mt, f.name) == getattr(mj, f.name), f.name

@@ -144,3 +144,130 @@ def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
   assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1}
   assert float(probe.grad[:, 0].max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
+
+
+# --- the sorted-overlap pipeline: K4, K5, K6, K7 ---------------------------
+
+SORTED_MODES = {
+    "blend": dict(),
+    "antialias": dict(antialias=True),
+    "quantile": dict(use_alpha_blending=False, saturate_threshold=0.25),
+}
+
+
+def sorted_mapping_for(dev, config, n=4000, size=(128, 96),
+                       depth_features=False):
+  from tpu_splatting_torch import map_to_tiles
+  from tpu_splatting_torch.mapper.tile_mapper import calibrate_mapper
+  packed, depth, feats = (
+      torch.from_numpy(x).to(dev)
+      for x in uniform_scene(np.random.default_rng(0), n, size))
+  if depth_features:
+    feats = depth[:, None]
+  cal = calibrate_mapper(packed, depth, size, config)
+  config = dataclasses.replace(config, tile_window=cal["tile_window"],
+                               big_capacity=cal["big_capacity"])
+  m = map_to_tiles(packed, depth, size, config,
+                   max_overlaps=cal["max_overlaps"], features=feats)
+  assert int(m.num_overflow) == 0
+  return m, config
+
+
+@pytest.mark.parametrize("mode", sorted(SORTED_MODES))
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_sorted_forward_kernel_matches_twin(cuda, mode, tile_size):
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  config = RasterConfig(tile_size=tile_size, **SORTED_MODES[mode])
+  m, config = sorted_mapping_for(cuda, config,
+                                 depth_features=not config.use_alpha_blending)
+  args = (m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile,
+          config, m.num_tiles, m.tiles_wide)
+  kk.reset_launch_counts()
+  img, vis = kk.forward(*args)
+  torch.cuda.synchronize()
+  assert kk.launch_counts["sorted_forward"] == 1
+  img_t, vis_t = kk.forward_reference(*args)
+  assert float(img_t.abs().max()) > 0.1
+  torch.testing.assert_close(img, img_t, atol=1e-4, rtol=0)
+  assert float((vis - vis_t).abs().max()) <= 1e-4 * float(
+      vis_t.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("mode", sorted(BWD_MODES))
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_sorted_backward_kernel_matches_twin(cuda, mode, tile_size):
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
+  m, config = sorted_mapping_for(cuda, config)
+  img, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
+                      m.chunk_to_tile, config, m.num_tiles, m.tiles_wide,
+                      with_vis=False)
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  gimg = torch.randn(img.shape, generator=gen, device=cuda)
+  args = (m.sorted_payload, img, gimg, m.chunk_src, m.chunk_cnt,
+          m.chunk_to_tile, config, m.num_tiles, m.tiles_wide)
+  kk.reset_launch_counts()
+  got = kk.backward(*args)
+  torch.cuda.synchronize()
+  assert kk.launch_counts["sorted_backward"] == 1
+  want = kk.backward_reference(*args)
+  assert float(want.abs().max()) > 0.1
+  columns_close(got, want)
+
+
+def test_layout_kernels_match_twins(cuda):
+  from tpu_splatting_torch.rasterizer import layout
+  m, _ = sorted_mapping_for(cuda, RasterConfig())
+  layout.reset_launch_counts()
+  for rows in (m.sorted_payload, m.overlap_to_point,
+               m.sorted_payload.double()):
+    got = layout.window_copy(rows, m.chunk_src, m.chunk_cnt, m.chunk_size)
+    want = layout.window_copy_reference(rows, m.chunk_src, m.chunk_cnt,
+                                        m.chunk_size)
+    assert torch.equal(got, want)
+  gen = torch.Generator(device=cuda).manual_seed(1)
+  n = 5000
+  ids = torch.sort(torch.randint(0, n + 40, (60000,), generator=gen,
+                                 device=cuda)).values.to(torch.int32)
+  for c in (1, 12, 40):
+    rows = torch.randn((ids.shape[0], c), generator=gen, device=cuda)
+    got = layout.segment_sum_sorted(rows, ids, n)
+    want = layout.segment_sum_sorted_reference(rows, ids, n)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max()) + 1e-6
+  assert layout.launch_counts == {"window_copy": 3, "segment_sum_sorted": 3}
+  with pytest.raises(TypeError):
+    layout.segment_sum_sorted(rows, ids.long(), n)
+
+
+def test_sorted_step_never_takes_a_twin(cuda, monkeypatch):
+  """Forward (with visibility) and backward of a CUDA render on the sorted
+  pipeline run K4, K5, K6 and K7 only."""
+  from tpu_splatting_torch import rasterize
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import layout
+
+  def refuse(*args, **kw):
+    raise AssertionError("a CUDA tensor reached a plain twin")
+  for mod, name in ((kk, "forward_reference"), (kk, "backward_reference"),
+                    (layout, "window_copy_reference"),
+                    (layout, "segment_sum_sorted_reference")):
+    monkeypatch.setattr(mod, name, refuse)
+  config = RasterConfig(pipeline="sorted", compute_point_heuristic=True,
+                        compute_visibility=True)
+  packed, depth, feats = (
+      torch.from_numpy(x).to(cuda)
+      for x in uniform_scene(np.random.default_rng(0), 4000, (128, 96)))
+  g2d = packed.clone().requires_grad_(True)
+  probe = torch.zeros((4000, 2), device=cuda, requires_grad=True)
+  kk.reset_launch_counts()
+  layout.reset_launch_counts()
+  out = rasterize(g2d, depth, feats, (128, 96), config, max_overlaps=200000,
+                  heuristic_probe=probe)
+  assert int(out.num_overflow) == 0
+  (out.image.square().sum() + out.image_weight.sum()).backward()
+  assert kk.launch_counts == {"sorted_forward": 1, "sorted_backward": 1}
+  assert layout.launch_counts == {"window_copy": 2, "segment_sum_sorted": 2}
+  assert float(out.visibility.max()) > 0.0
+  assert bool(torch.isfinite(g2d.grad).all())
+  assert float(probe.grad[:, 0].max()) > 0.0

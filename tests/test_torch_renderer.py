@@ -80,17 +80,23 @@ def test_render_tiled_layout():
 
 
 def test_outside_the_slice_raises():
-  """The sorted pipeline is P9; quantile mode is forward-only."""
+  """Both pipelines stop at 65,535 tiles (16-bit tile ids): under
+  pipeline="auto" a 4096x4096 image of 16-px tiles leaves the stream
+  pipeline and the sorted mapper asserts, as in the reference.  Quantile
+  mode is forward-only on both pipelines."""
   g, camera = scene(2, n=50)
+  big = camera.replace(image_size=(4096, 4096))
+  with pytest.raises(AssertionError, match="16-bit"):
+    jax.jit(lambda g: J.render_gaussians(g, big, J.RasterConfig(),
+                                         use_sh=True))(g)
   tg, tc = pc.gaussians(g), pc.camera(camera)
-  with pytest.raises(NotImplementedError, match="P9"):
-    T.render_gaussians(tg, tc, T.RasterConfig(pipeline="sorted"),
-                       use_sh=True)
-  with pytest.raises(NotImplementedError, match="P9"):
-    T.render_with_heuristics(
-        lambda r: r.image.sum(), tg, tc,
-        T.RasterConfig(pipeline="sorted", compute_point_heuristic=True),
-        use_sh=True)
+  with pytest.raises(AssertionError, match="16-bit"):
+    T.render_gaussians(tg, pc.camera(big), T.RasterConfig(), use_sh=True)
+  with pytest.raises(AssertionError, match="16-bit"):
+    T.render_gaussians(tg, pc.camera(big),
+                       T.RasterConfig(pipeline="sorted"), use_sh=True)
+
+  from tpu_splatting_torch.rasterizer.function import rasterize
   from tpu_splatting_torch.rasterizer.stream_function import (
       stream_map_with_config, stream_rasterize_with_mapping)
   cfg = pc.config(CONFIG)
@@ -99,10 +105,102 @@ def test_outside_the_slice_raises():
   g2d = g2d.detach().requires_grad_(True)
   nd = torch.where(depth > 0, T.perspective.ndc_depth(depth, 0.1, 100.0), 0.0)
   m = stream_map_with_config(g2d.detach(), nd, feats, camera.image_size, cfg)
-  q = stream_rasterize_with_mapping(
-      g2d, feats, m, camera.image_size,
-      dataclasses.replace(cfg, use_alpha_blending=False))
+  quantile = dataclasses.replace(cfg, use_alpha_blending=False)
+  q = stream_rasterize_with_mapping(g2d, feats, m, camera.image_size,
+                                    quantile)
   assert not q[0].requires_grad
+  q = rasterize(g2d, nd, feats, camera.image_size,
+                dataclasses.replace(quantile, pipeline="sorted"))
+  assert not q.image.requires_grad and not q.image_weight.requires_grad
+
+
+# the sorted pipeline: chunks of 32 rows, capacity sized for these scenes
+SORTED_CONFIG = dataclasses.replace(CONFIG, pipeline="sorted", chunk_size=32)
+SORTED_CAP = 8192
+
+
+def test_render_gaussians_sorted_matches_reference():
+  """pipeline="sorted": SH degree 3, expected depth, the median-depth
+  pass (the gather fallback: depth is another feature width than the
+  mapping's) and forward visibility, atol / rtol 1e-5."""
+  g, camera = scene(3)
+  cfg = dataclasses.replace(SORTED_CONFIG, compute_visibility=True)
+  rj = jax.jit(lambda g: J.render_gaussians(
+      g, camera, cfg, use_sh=True, render_depth=True,
+      render_median_depth=True, max_overlaps=SORTED_CAP))(g)
+  assert int(rj.num_overflow) == 0
+  with torch.no_grad():
+    rt = T.render_gaussians(pc.gaussians(g), pc.camera(camera),
+                            pc.config(cfg), use_sh=True, render_depth=True,
+                            render_median_depth=True,
+                            max_overlaps=SORTED_CAP)
+  assert int(rt.num_overflow) == 0 and rt.overflow_by_cause is None
+  assert float(rt.image_weight.max()) > 0.5
+  for name in ("image", "image_weight", "depth_image",
+               "median_depth_image"):
+    got, want = getattr(rt, name), np.asarray(getattr(rj, name))
+    assert tuple(got.shape) == want.shape, name
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5,
+                               err_msg=name)
+  np.testing.assert_allclose(rt.points.visibility.numpy(),
+                             np.asarray(rj.points.visibility), atol=1e-5,
+                             rtol=1e-4)
+  with pytest.raises(AssertionError, match="stream-pipeline"):
+    T.render_gaussians(pc.gaussians(g), pc.camera(camera), pc.config(cfg),
+                       use_sh=True, tiled=True)
+
+
+def flat_l2_loss(image_size):
+  tgt = np.random.default_rng(7).random(
+      (image_size[1], image_size[0], 3)).astype(np.float32)
+
+  def loss_fn(rendering):
+    err = rendering.image - (jnp.asarray(tgt, rendering.image.dtype)
+                             if isinstance(rendering.image, jax.Array)
+                             else torch.from_numpy(tgt).to(
+                                 rendering.image.dtype))
+    return (err * err).sum()
+  return loss_fn
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_render_with_heuristics_sorted_matches_reference(dtype):
+  """pipeline="sorted", SH degree 3, flat L2 loss: the loss, every
+  Gaussians3D leaf's gradient, visibility (a forward product here),
+  prune_cost and split_score; f64 to 1e-8, f32 as the stream test (F8)."""
+  f64 = dtype == "float64"
+  g, camera = scene(6, n=300)
+  if f64:
+    g = jax.tree.map(lambda x: x.astype(jnp.float64), g)
+    camera = camera.replace(
+        projection=camera.projection.astype(jnp.float64),
+        T_camera_world=camera.T_camera_world.astype(jnp.float64))
+  cfg = dataclasses.replace(SORTED_CONFIG, compute_point_heuristic=True,
+                            compute_visibility=True)
+  loss = flat_l2_loss(camera.image_size)
+  lj, rj, gj = jax.jit(lambda g: J.render_with_heuristics(
+      loss, g, camera, cfg, use_sh=True, max_overlaps=SORTED_CAP))(g)
+  assert int(rj.num_overflow) == 0
+  lt, rt, gt = T.render_with_heuristics(loss, pc.gaussians(g),
+                                        pc.camera(camera), pc.config(cfg),
+                                        use_sh=True, max_overlaps=SORTED_CAP)
+  assert gt.position.dtype == getattr(torch, dtype)
+  tight = dict(atol=1e-8, rtol=1e-8) if f64 else None
+  np.testing.assert_allclose(float(lt), float(lj), rtol=1e-8 if f64 else 1e-5)
+  for name in ("position", "log_scaling", "rotation", "alpha_logit",
+               "feature"):
+    want = np.asarray(getattr(gj, name))
+    scale = float(np.abs(want).max())
+    assert scale > 0.0, name
+    np.testing.assert_allclose(getattr(gt, name).numpy(), want,
+                               **(tight or dict(atol=1e-3 * scale, rtol=0)),
+                               err_msg=name)
+  for name in ("visibility", "prune_cost", "split_score"):
+    want = np.asarray(getattr(rj.points, name))
+    assert float(np.abs(want).max()) > 0.0, name
+    np.testing.assert_allclose(getattr(rt.points, name).detach().numpy(),
+                               want, **(tight or dict(atol=1e-4, rtol=1e-4)),
+                               err_msg=name)
 
 
 HEUR_CONFIG = dataclasses.replace(CONFIG, compute_point_heuristic=True,

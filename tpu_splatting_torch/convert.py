@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .data_types import Gaussians3D, RasterConfig
+from .mapper.tile_mapper import TileMapping
 from .perspective.params import CameraParams
 from .rasterizer.stream import StreamMapping
 
@@ -69,3 +70,23 @@ def stream_mapping_from_numpy(d: dict, device="cuda") -> StreamMapping:
     else:
       kw[f.name] = int(v)
   return StreamMapping(**kw)
+
+
+TILE_MAPPING_INT_FIELDS = ("overlap_to_point", "tile_ranges", "chunk_to_tile",
+                           "chunk_src", "chunk_cnt", "num_overflow")
+
+
+def tile_mapping_from_numpy(d: dict, device="cuda") -> TileMapping:
+  """A TileMapping (sorted pipeline) from the reference's fields: integer
+  arrays as int32, ``sorted_payload`` in its own float type (or None),
+  static ints as they are (``feature_size`` may be None)."""
+  kw = {}
+  for f in dataclasses.fields(TileMapping):
+    v = d[f.name]
+    if f.name in TILE_MAPPING_INT_FIELDS:
+      kw[f.name] = _tensor(np.asarray(v).astype(np.int32), device)
+    elif f.name == "sorted_payload":
+      kw[f.name] = None if v is None else _tensor(v, device)
+    else:
+      kw[f.name] = None if v is None else int(v)
+  return TileMapping(**kw)

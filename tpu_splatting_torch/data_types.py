@@ -3,7 +3,7 @@
 Counterpart of ``tpu_splatting/data_types.py``.  ``RasterConfig`` keeps
 every field and default of the reference, so one config dict describes a
 render on either side (``convert.raster_config_from_dict``).  Fields that
-only shaped the TPU kernels are accepted and ignored here: ``chunk_size``,
+only shaped the TPU kernels are accepted and ignored here:
 ``pixel_stride``, ``stream_passes``, ``stream_share_asm``,
 ``stream_asm_budget_mb`` and ``stream_gout_budget_mb`` (the backward is
 one pass: see ``rasterizer/stream_function.py``).
@@ -47,7 +47,7 @@ class RasterConfig:
 
   median_threshold: float = 0.25
 
-  # ignored: grid granularity of the reference's sorted-pipeline kernels
+  # overlap rows per chunk of the sorted pipeline
   chunk_size: int = 128
 
   # tile windows of the sorted-pipeline mapper; big_tile_window also

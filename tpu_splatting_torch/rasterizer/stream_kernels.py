@@ -38,9 +38,8 @@ import math
 import torch
 
 from ..data_types import RasterConfig
+from .kernels import _NEG_BIG, _antialias_grads, _s_sig
 from .stream import STRIP_SLACK, StreamMapping
-
-_NEG_BIG = -3.0e38
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
 launch_counts = {"stream_forward": 0, "stream_backward": 0}
@@ -112,11 +111,6 @@ def window_grad_rows(mapping: StreamMapping) -> torch.Tensor:
   tw, rc = mapping.tiles_wide, mapping.run_cap
   home = (tiles // tw + b - 1) * tw + tiles % tw + k - 1
   return (home - tiles % mapping.group_width - k) * rc + dst
-
-
-def _s_sig(x, s):
-  z = x / s
-  return 1.0 / (1.0 + torch.exp(-1.6 * z - 0.07 * z * z * z))
 
 
 def _alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
@@ -263,38 +257,6 @@ def stream_forward_reference(mapping: StreamMapping,
         new_carry = lt_end
       carry = torch.where(active[:, None], new_carry, carry)
   return out
-
-
-def _antialias_grads(tu, tv, sx, sy, dx, dy, ax, ay):
-  """Gradients of the antialiased pixel integral 2 pi ix iy with respect
-  to (mean x, mean y, axis x, axis y, sigma x, sigma y); copy of the
-  reference's ``rasterizer/kernels.py:_antialias_grads``."""
-  tau = 2.0 * math.pi
-  sx = torch.clamp(sx, min=1e-12)
-  sy = torch.clamp(sy, min=1e-12)
-
-  def s_grads(x, sig):
-    z = x / sig
-    s_val = 1.0 / (1.0 + torch.exp(-1.6 * z - 0.07 * z * z * z))
-    ds_dx = (1.6 + 0.21 * z * z) * s_val * (1.0 - s_val)
-    d_dx = ds_dx / sig
-    return s_val, d_dx, d_dx * -z
-
-  sx1, dx1, dx1s = s_grads(tu + 0.5, sx)
-  sx2, dx2, dx2s = s_grads(tu - 0.5, sx)
-  sy1, dy1, dy1s = s_grads(tv + 0.5, sy)
-  sy2, dy2, dy2s = s_grads(tv - 0.5, sy)
-  ix = sx * (sx1 - sx2)
-  iy = sy * (sy1 - sy2)
-  dsx_t = iy * sx * (dx1 - dx2)
-  dsy_t = ix * sy * (dy1 - dy2)
-  dmx = tau * (-dsx_t * ax + dsy_t * ay)
-  dmy = tau * (-dsx_t * ay - dsy_t * ax)
-  dax = tau * (dsx_t * dx + dsy_t * dy)
-  day = tau * (dsx_t * dy - dsy_t * dx)
-  dsx_ = tau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx)
-  dsy_ = tau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy)
-  return dmx, dmy, dax, day, dsx_, dsy_
 
 
 def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):

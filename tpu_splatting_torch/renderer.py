@@ -1,10 +1,15 @@
 """Top-level 3D renderer: projection -> (SH shading) -> NDC depth ->
-stream mapping -> rasterization -> (median-depth second pass), and the
+tile mapping -> rasterization -> (median-depth second pass), and the
 training step's ``render_with_heuristics``.
 
-Counterpart of the stream branch of ``tpu_splatting/renderer.py``.  The
-sorted-overlap pipeline (``pipeline="sorted"``, images of 65,536 tiles or
-more) is ROADMAP item P9 and raises here.
+Counterpart of ``tpu_splatting/renderer.py``.  ``config.pipeline``
+chooses the pipeline: the tile-stream one (``"stream"``, and ``"auto"``
+below 65,536 tiles) or the sorted-overlap one (``"sorted"``).  Both stop
+at about 65,535 tiles, since both keep tile ids in 16 bits: the stream
+pipeline takes fewer than 65,536 tiles and the sorted mapper fewer than
+65,535, and each asserts beyond, as the reference's do.  So under
+``"auto"`` an image of 65,536 tiles or more fails the sorted mapper's
+assertion; it is served by neither pipeline.
 """
 
 from __future__ import annotations
@@ -15,8 +20,10 @@ from typing import Optional
 import torch
 
 from .data_types import Gaussians3D, RasterConfig
+from .mapper.tile_mapper import map_to_tiles
 from .perspective.params import CameraParams
 from .perspective.projection import ndc_depth, project_to_image
+from .rasterizer.function import rasterize_with_tiles
 from .rasterizer.stream_function import (probe_width, stream_eligible,
                                          stream_map_with_config,
                                          stream_rasterize_with_mapping)
@@ -74,22 +81,17 @@ def render_projected(
     probe: Optional[torch.Tensor] = None,
     tiled: bool = False,
 ) -> Rendering:
-  """Rasterize already-projected gaussians through the stream pipeline.
+  """Rasterize already-projected gaussians.
 
-  Per-point visibility is a backward product: training code uses
-  ``render_with_heuristics`` (or threads ``probe`` and reads its
-  gradient).  With ``config.compute_visibility`` and no ``probe`` this
-  function runs one extra backward under a zero image cotangent, so
-  ``rendering.points.visibility`` is filled either way."""
+  On the stream pipeline per-point visibility is a backward product:
+  training code uses ``render_with_heuristics`` (or threads ``probe`` and
+  reads its gradient).  With ``config.compute_visibility`` and no
+  ``probe`` this function runs one extra backward under a zero image
+  cotangent, so ``rendering.points.visibility`` is filled either way.  On
+  the sorted pipeline visibility comes from the forward, and ``tiled``
+  is refused, as in the reference."""
   image_size = camera_params.image_size
-  if not stream_eligible(config, image_size):
-    raise NotImplementedError(
-        "sorted-overlap pipeline (pipeline='sorted' or >= 65,536 tiles): "
-        "ROADMAP P9")
-  pw = probe_width(config)
-  if probe is None and heuristic_probe is not None and pw >= 2:
-    probe = torch.cat([heuristic_probe.new_zeros(
-        (heuristic_probe.shape[0], pw - 2)), heuristic_probe], -1)
+  use_stream = stream_eligible(config, image_size)
   ndc_depths = ndc_depth(depths, camera_params.near_plane,
                          camera_params.far_plane)
   # culled points have depth 0: keep the mapper's invalid mask
@@ -98,57 +100,85 @@ def render_projected(
   if render_depth:
     # composite (feature, depth, depth^2) in one pass -> expectation depth
     feats_all = torch.cat([features, depths, depths ** 2], -1)
-  elif render_median_depth:
-    # the median pass reuses the mapping's table: depth rides it as a
-    # feature channel
+  elif render_median_depth and use_stream:
+    # the stream median pass reuses the mapping's table: depth rides it
+    # as a feature channel
     feats_all = torch.cat([features, depths], -1)
   else:
     feats_all = features
   f = features.shape[1]
   f_all = feats_all.shape[1]
+  median_cfg = dataclasses.replace(
+      config, use_alpha_blending=False,
+      saturate_threshold=config.median_threshold)
+  assert not tiled or use_stream, (
+      "tiled rendering output is a stream-pipeline feature")
 
-  # the mapping is built from detached inputs; gradients flow through the
-  # rasterize op's own inputs
-  mapping = stream_map_with_config(
-      gaussians2d.detach(), ndc_depths.detach(), feats_all.detach(),
-      image_size, config)
-  out = stream_rasterize_with_mapping(
-      gaussians2d, feats_all, mapping, image_size, config, probe=probe,
-      tiled=tiled)
-  if tiled:
-    image = out[:, :f, :]
-    image_weight = out[:, f_all, :]
-    depth_image = (out[:, f, :] / torch.clamp(image_weight, min=1e-10)
+  if not use_stream:
+    # the mapping is built from detached inputs; gradients flow through
+    # the rasterize op's own inputs
+    mapping = map_to_tiles(
+        gaussians2d.detach(), ndc_depths.detach(), image_size, config,
+        max_overlaps=max_overlaps, use_depth16=use_depth16,
+        features=feats_all.detach())
+    raster = rasterize_with_tiles(gaussians2d, feats_all, mapping,
+                                  image_size, config,
+                                  heuristic_probe=heuristic_probe)
+    image_weight = raster.image_weight
+    depth_image = (raster.image[..., f] / torch.clamp(image_weight, min=1e-10)
                    if render_depth else None)
+    image = raster.image[..., :f]
+    median_depth = None
+    if render_median_depth:
+      # another feature width than the mapping's: the gather fallback
+      median_depth = rasterize_with_tiles(
+          gaussians2d.detach(), depths.detach(), mapping, image_size,
+          median_cfg).image[..., 0]
+    visibility = raster.visibility
+    overflow_by_cause = None
   else:
-    img_full, image_weight = out
-    depth_image = (img_full[..., f] / torch.clamp(image_weight, min=1e-10)
-                   if render_depth else None)
-    image = img_full[..., :f]
+    pw = probe_width(config)
+    if probe is None and heuristic_probe is not None and pw >= 2:
+      probe = torch.cat([heuristic_probe.new_zeros(
+          (heuristic_probe.shape[0], pw - 2)), heuristic_probe], -1)
+    mapping = stream_map_with_config(
+        gaussians2d.detach(), ndc_depths.detach(), feats_all.detach(),
+        image_size, config)
+    out = stream_rasterize_with_mapping(
+        gaussians2d, feats_all, mapping, image_size, config, probe=probe,
+        tiled=tiled)
+    if tiled:
+      image = out[:, :f, :]
+      image_weight = out[:, f_all, :]
+      depth_image = (out[:, f, :] / torch.clamp(image_weight, min=1e-10)
+                     if render_depth else None)
+    else:
+      img_full, image_weight = out
+      depth_image = (img_full[..., f] / torch.clamp(image_weight, min=1e-10)
+                     if render_depth else None)
+      image = img_full[..., :f]
 
-  median_depth = None
-  if render_median_depth:
-    median_cfg = dataclasses.replace(
-        config, use_alpha_blending=False,
-        saturate_threshold=config.median_threshold)
-    med = stream_rasterize_with_mapping(
-        gaussians2d.detach(), feats_all.detach(), mapping, image_size,
-        median_cfg, tiled=tiled)
-    median_depth = med[:, f, :] if tiled else med[0][..., f]
-
-  visibility = None
-  if config.compute_visibility and probe is None:
-    # visibility = probe column 0's cotangent under a zero image cotangent
-    # (the sum of compositing weights, independent of any loss)
-    with torch.enable_grad():
-      probe0 = torch.zeros((gaussians2d.shape[0], pw),
-                           dtype=gaussians2d.dtype, device=gaussians2d.device,
-                           requires_grad=True)
-      it_p = stream_rasterize_with_mapping(
+    median_depth = None
+    if render_median_depth:
+      med = stream_rasterize_with_mapping(
           gaussians2d.detach(), feats_all.detach(), mapping, image_size,
-          config, probe=probe0, tiled=True)
-      (gpr,) = torch.autograd.grad(it_p, probe0, torch.zeros_like(it_p))
-    visibility = gpr[:, 0]
+          median_cfg, tiled=tiled)
+      median_depth = med[:, f, :] if tiled else med[0][..., f]
+
+    visibility = None
+    if config.compute_visibility and probe is None:
+      # visibility = probe column 0's cotangent under a zero image
+      # cotangent (the sum of compositing weights, independent of any loss)
+      with torch.enable_grad():
+        probe0 = torch.zeros((gaussians2d.shape[0], pw),
+                             dtype=gaussians2d.dtype,
+                             device=gaussians2d.device, requires_grad=True)
+        it_p = stream_rasterize_with_mapping(
+            gaussians2d.detach(), feats_all.detach(), mapping, image_size,
+            config, probe=probe0, tiled=True)
+        (gpr,) = torch.autograd.grad(it_p, probe0, torch.zeros_like(it_p))
+      visibility = gpr[:, 0]
+    overflow_by_cause = mapping.overflow
 
   points = RenderedPoints(
       in_view=in_view,
@@ -166,7 +196,7 @@ def render_projected(
       camera=camera_params,
       config=config,
       num_overflow=mapping.num_overflow,
-      overflow_by_cause=mapping.overflow,
+      overflow_by_cause=overflow_by_cause,
       tiled=tiled,
   )
 
@@ -181,26 +211,32 @@ def render_with_heuristics(loss_fn, gaussians: Gaussians3D,
 
   The heuristics are the gradient of a zero-valued probe input, computed
   in the same backward as ``grads`` (a ``Gaussians3D`` of the gradients of
-  every leaf).  ``gaussians`` is not modified: the step differentiates
-  detached copies of its leaves.  ``render_kwargs`` go to
-  ``render_gaussians``."""
+  every leaf).  On the stream pipeline the probe is [visibility,
+  prune_cost, split_score]; on the sorted pipeline it is the (N, 2)
+  ``heuristic_probe`` and visibility comes from the forward.
+  ``gaussians`` is not modified: the step differentiates detached copies
+  of its leaves.  ``render_kwargs`` go to ``render_gaussians``."""
   assert config.compute_point_heuristic, (
       "render_with_heuristics requires config.compute_point_heuristic")
+  use_stream = stream_eligible(config, camera_params.image_size)
   leaves = [getattr(gaussians, f.name).detach().requires_grad_(True)
             for f in dataclasses.fields(gaussians)]
-  # [visibility, prune_cost, split_score]: heuristics imply visibility
-  probe = torch.zeros((leaves[0].shape[0], 3), dtype=leaves[0].dtype,
+  pw = probe_width(config) if use_stream else 2
+  probe = torch.zeros((leaves[0].shape[0], pw), dtype=leaves[0].dtype,
                       device=leaves[0].device, requires_grad=True)
+  kw = {"probe": probe} if use_stream else {"heuristic_probe": probe}
   with torch.enable_grad():
     rendering = render_gaussians(Gaussians3D(*leaves), camera_params, config,
-                                 probe=probe, **render_kwargs)
+                                 **kw, **render_kwargs)
     loss = loss_fn(rendering)
     grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
   grads = [torch.zeros_like(x) if g is None else g
            for x, g in zip(leaves + [probe], grads)]
   gpr = grads[-1]
-  points = rendering.points.replace(
-      _visibility=gpr[:, 0], _prune_cost=gpr[:, 1], _split_score=gpr[:, 2])
+  points = rendering.points.replace(_prune_cost=gpr[:, pw - 2],
+                                    _split_score=gpr[:, pw - 1])
+  if use_stream:
+    points = points.replace(_visibility=gpr[:, 0])
   return (loss.detach(), rendering.replace(points=points),
           Gaussians3D(*grads[:-1]))
 
