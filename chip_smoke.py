@@ -9,7 +9,9 @@ Phases (any failure raises and exits non-zero):
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2,
    the sorted forward K4 and backward K5, the layout kernels K6 and K7)
-   and prints their registers and spills.
+   and prints each kernel instantiation's registers and spills (K2's as
+   stream_backward_kernel<most features, reduction width V, pixels a
+   thread P>).
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
@@ -19,21 +21,24 @@ Phases (any failure raises and exits non-zero):
    ``stream_map``; plus one small 3D scene mapped on the card and on the
    CPU (identical mapping), composited by the kernel and by the twin on
    the CPU, and trained one ``render_with_heuristics`` step on each
-   (loss, gradients and heuristics agree).  K2's home-major buffer is compared column by column:
-   max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6 (its atomics sum
-   in a varying order).
+   (loss, gradients and heuristics agree).  K2's home-major buffer is
+   compared column by column: max |kernel - twin| <= 1e-4 * max |twin
+   column| + 1e-6 (its atomics sum in a varying order), at one pixel a
+   thread (the default) and at two.
 3. The forward render at full size: 2M splats at 2048x1536, SH degree 3
    (``scenes.uniform_scene`` lifted to 3D), five ``render_gaussians``
    requests under ``torch.no_grad()`` (the last with the median-depth
    pass), checked for zero overflow, finite images and weights in [0, 1],
    with the K1 launch count of that run; then a staged timing of one
-   render, and K1 against its twin at the full-size shapes.
+   render (by CUDA events, then with each stage alone between
+   synchronisations), and K1 against its twin at the full-size shapes.
 4. Five training steps at full size, one pose each:
    ``render_with_heuristics`` (SH 3, tiled masked L2 loss, visibility and
    point heuristics) and a ``VisibilityAwareAdam`` step on the SH
    features, checked for zero overflow, finite loss and gradients,
-   visibility >= 0, and K2 launches; then a staged timing of one step and
-   K2 against its twin at the full-size shapes.
+   visibility >= 0, and K2 launches; then a staged timing of one step (as
+   in phase 3) and K2 against its twin at the full-size shapes, at one and
+   two pixels a thread.
 5. The sorted-overlap pipeline's kernels against their twins on the card:
    200k splats at 1024x768 with ``scenes.uniform_scene`` and with
    ``scenes.heavy_scene`` statistics, each mapped on the card by the
@@ -55,13 +60,18 @@ Phases (any failure raises and exits non-zero):
    [0, 1 + 1e-6] and visibility >= 0, with the launches of K4-K7 per
    render and per step; staged timings of a render and a step; K4-K7
    against their twins and K6 / K7 against one PyTorch call at the
-   full-size shapes; and, for information, the sorted image against the
+   full-size shapes, where K6, K7, torch indexing and ``index_add_`` are
+   each timed as calls (CUDA events over back-to-back calls) and by device
+   time (the kernels' own time under ``torch.profiler`` over 20 calls, so
+   that a kernel of tens of microseconds is not judged by its Python
+   wrapper); and, for information, the sorted image against the
    stream image of the same pose (the stream pipeline composites in 14-bit
    depth order, the sorted one in exact f32 depth order).
 
 The last two lines of standard output are one JSON object with the
-kernels' launches, errors, times and bounds, and
-``{"ok": true, "device": ...}``.
+kernels' launches, errors, times and bounds (K6 and K7 with
+``device_ms`` and ``library_device_ms`` too, K2 with ``two_pixel_ms``),
+and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +128,56 @@ def cuda_ms(fn, reps=3):
   return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20):
+  """Device time of one fn() call, in ms, without the host's work around
+  its launches (argument checks, the Python wrapper, the launch itself),
+  which cuda_ms's events over back-to-back calls include wherever the
+  device waits for the host: the CUDA kernels' own time under
+  torch.profiler, summed over reps calls and divided by reps."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  us = sum(e.device_time_total for e in prof.events()
+           if e.device_type == DeviceType.CUDA)
+  assert us > 0, "torch.profiler recorded no device time"
+  return us / reps / 1e3
+
+
+class Stages:
+  """Boundaries of one staged pass.  Each mark() records a CUDA event; the
+  gaps between events are stages on the device's timeline, where a stage
+  also carries the device's waits for the host's launches.  With
+  sync=True each mark() first synchronises and reads the host clock, so
+  that each stage is timed alone: its host work and its device work, with
+  no overlap with its neighbours."""
+
+  def __init__(self, sync=False):
+    self.sync, self.events, self.clock = sync, [], []
+
+  def mark(self):
+    if self.sync:
+      torch.cuda.synchronize()
+      self.clock.append(time.perf_counter())
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    self.events.append(ev)
+
+  def log(self, label, names):
+    torch.cuda.synchronize()
+    if self.sync:
+      ms = [(b - a) * 1e3 for a, b in zip(self.clock, self.clock[1:])]
+    else:
+      ms = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+    log(f"  {label} (ms): " + "  ".join(f"{n} {t:.3f}"
+                                        for n, t in zip(names, ms)))
+
+
 def bound_ms(ops, nbytes):
   """(least time in ms, "operations" or "bytes"): the larger of the
   operations over the f32 peak and the bytes over the memory rate."""
@@ -152,32 +213,37 @@ def kernel_vs_twin(mapping, config, label, reps=3):
   return err, k_ms, t_ms
 
 
-def backward_vs_twin(mapping, config, label, reps=3):
+def backward_vs_twin(mapping, config, label, reps=3, per_thread=(1, 2)):
   """K2 against stream_backward_reference on one cotangent, column by
-  column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6), and
-  both times.  Returns (max abs error, kernel ms, twin ms)."""
+  column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6), at
+  each number of pixels a thread in per_thread.  Returns (max abs error,
+  {P: kernel ms}, twin ms)."""
   from tpu_splatting_torch.rasterizer.stream_kernels import (
       stream_backward, stream_backward_reference, stream_forward)
   img = stream_forward(mapping, config)
   gen = torch.Generator(device=img.device).manual_seed(5)
   gimg = torch.randn(img.shape, generator=gen, device=img.device)
-  got = stream_backward(mapping, img, gimg, config)
   want = stream_backward_reference(mapping, img, gimg, config)
-  torch.cuda.synchronize()
-  assert torch.isfinite(got).all(), f"{label}: non-finite kernel output"
-  err_col = (got - want).abs().amax(0)
-  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
-  err = float(err_col.max())
-  k_ms = cuda_ms(lambda: stream_backward(mapping, img, gimg, config), reps)
   t_ms = cuda_ms(lambda: stream_backward_reference(mapping, img, gimg,
                                                    config), 1)
-  log(f"  {label} K2: max_abs_err {err:.3e}, worst column at "
-      f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
-      f"{k_ms:.3f} ms  twin {t_ms:.3f} ms")
-  assert bool((err_col <= tol_col).all()), (
-      f"{label}: K2 disagrees with its twin", err_col.tolist(),
-      tol_col.tolist())
-  return err, k_ms, t_ms
+  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+  errs, times = [], {}
+  for p in per_thread:
+    got = stream_backward(mapping, img, gimg, config, p)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all(), f"{label}: non-finite kernel output"
+    err_col = (got - want).abs().amax(0)
+    errs.append(float(err_col.max()))
+    times[p] = cuda_ms(lambda p=p: stream_backward(mapping, img, gimg,
+                                                   config, p), reps)
+    log(f"  {label} K2 at {p} pixel(s) a thread: max_abs_err "
+        f"{errs[-1]:.3e}, worst column at "
+        f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
+        f"{times[p]:.3f} ms  twin {t_ms:.3f} ms")
+    assert bool((err_col <= tol_col).all()), (
+        f"{label}: K2 disagrees with its twin at P = {p}", err_col.tolist(),
+        tol_col.tolist())
+  return max(errs), times, t_ms
 
 
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
@@ -186,6 +252,18 @@ SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
 # f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
 # count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
 K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
+
+
+def entry_label(ptxas_line):
+  """'stream_backward_kernel<6, 16, 1>' from ptxas's mangled name in its
+  'Compiling entry function' line."""
+  m = re.search(r"\d([A-Za-z_]+_kernel)I(.+?)EEv", ptxas_line)
+  if m is None:
+    return ptxas_line.strip()
+  args = re.findall(r"Li(\d+)E", m.group(2)) or [
+      {"j": "uint32", "m": "uint64", "f": "float", "d": "double"}.get(
+          m.group(2), m.group(2))]
+  return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def phase_device():
@@ -208,8 +286,10 @@ def phase_device():
     info = build_info[src]
     log(f"{name} build ({src}): {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
-      if "registers" in line or "spill" in line:
-        log(f"  ptxas: {line.strip()}")
+      if "Compiling entry function" in line:
+        log(f"  {entry_label(line)}")
+      elif "registers" in line or "spill" in line:
+        log(f"    ptxas: {line.strip()}")
   return card
 
 
@@ -272,6 +352,15 @@ def phase_twin(dev):
     errs.append(kernel_vs_twin(m, cfg, "heavy blending", reps=1)[0])
     errs2.append(backward_vs_twin(
         m, dataclasses.replace(cfg, **HEUR), "heavy heuristics", reps=1)[0])
+
+  # the heavy scene's calibration at 2M splats asks for slab_cap 1792:
+  # K2 must still fit one block's shared memory there at F = 3 with
+  # heuristics (13 columns; w_max as in the 32-slab mapping above)
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  smem = sk._bwd_kernel().tpu_splat_stream_backward_smem(1792, m.w_max, 3, 13)
+  log(f"  K2 shared memory at slab_cap 1792, w_max {m.w_max}, F 3, 13 "
+      f"columns: {smem} B of {sk._SMEM_LIMIT}")
+  assert smem <= sk._SMEM_LIMIT, smem
   return max(errs), max(errs2)
 
 
@@ -451,29 +540,30 @@ def phase_full(dev):
   log(f"  end-to-end ms per render: {[round(t, 3) for t in times]}")
   log(f"  peak device memory: {peak:.3f} GiB")
 
-  # staged timing of one render (same public functions, CUDA events)
+  # staged timing of one render (same public functions): warm once, then
+  # by CUDA events and with each stage alone
   cam = cams[0]
+  runs = []
   with torch.no_grad():
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    for _ in range(2):                        # warm once, time the second
-      ev[0].record()
+    for sync in (False, False, True):
+      st = Stages(sync)
+      st.mark()
       g2d, depths, _ = project_to_image(g3d, cam, cfg)
-      ev[1].record()
+      st.mark()
       feats = evaluate_sh_at(g3d.feature, g3d.position, cam.camera_position)
-      ev[2].record()
+      st.mark()
       nd = torch.where(depths > 0,
                        ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
       m = stream_map_with_config(g2d, nd, feats, SIZE_FULL, cfg)
-      ev[3].record()
+      st.mark()
       it = sk.stream_forward(m, cfg)
-      ev[4].record()
+      st.mark()
       detile(it, m.tiles_wide, m.tiles_high, cfg.tile_size, SIZE_FULL)
-      ev[5].record()
-      torch.cuda.synchronize()
+      st.mark()
+      runs.append(st)
     names = ("project", "SH", "map", "K1", "detile")
-    stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    log("  stages (ms): " + "  ".join(f"{n} {t:.3f}"
-                                      for n, t in stages.items()))
+    runs[1].log("stages", names)
+    runs[2].log("stages, each alone", names)
 
     log("  K1 vs twin at the full-size shapes")
     err_b, k_ms, t_ms = kernel_vs_twin(m, cfg, "full blending", reps=5)
@@ -562,9 +652,10 @@ def phase_train(dev, g3d, cams, cfg_caps):
   # taken apart (K2, stage 2, autograd tail through SH and projection)
   cam = cams[0]
   names = ("forward", "K2", "reduce stage 2", "autograd tail", "optimizer")
-  for _ in range(2):                          # warm once, time the second
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
+  runs = []
+  for sync in (False, False, True):    # warm once, events, each alone
+    st = Stages(sync)
+    st.mark()
     leaves = [getattr(g3d, f.name).detach().requires_grad_(True)
               for f in dataclasses.fields(g3d)]
     g = g3d.replace(**{f.name: x for f, x in
@@ -580,24 +671,24 @@ def phase_train(dev, g3d, cams, cfg_caps):
                                        tiled=True)
     loss = (mask * (it[:, :3] - tgt) ** 2).sum()
     (g_it,) = torch.autograd.grad(loss, it, retain_graph=True)
-    ev[1].record()
+    st.mark()
     buf = sk.stream_backward(m, it.detach(), g_it, cfg)
-    ev[2].record()
+    st.mark()
     gcols = reduce_stage2(buf, m)
-    ev[3].record()
+    st.mark()
     tail = torch.autograd.grad([g2d, feats], leaves,
                                [gcols[:, :7], gcols[:, 7:10]])
-    ev[4].record()
+    st.mark()
     opt.step({"feature": g3d.feature}, {"feature": tail[4]}, state,
              gcols[:, 10])
-    ev[5].record()
-    torch.cuda.synchronize()
-  stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-  log("  step stages (ms): " + "  ".join(f"{n} {t:.3f}"
-                                         for n, t in stages.items()))
+    st.mark()
+    runs.append(st)
+  runs[1].log("step stages", names)
+  runs[2].log("step stages, each alone", names)
 
   log("  K2 vs twin at the full-size shapes")
-  err, k_ms, t_ms = backward_vs_twin(m, cfg, "full heuristics", reps=5)
+  err, k_times, t_ms = backward_vs_twin(m, cfg, "full heuristics", reps=5)
+  k_ms = k_times[1]
   slabw = sk.slab_width(cfg, m.feature_size)
   pairs = pairs_of(m, cfg)
   b_ms, b_by = bound_ms(
@@ -606,7 +697,8 @@ def phase_train(dev, g3d, cams, cfg_caps):
   log(f"  K2 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; {pairs} "
       f"(row, pixel) pairs, {k2_ops_per_pair(slabw)} operations each)")
   k2 = {"launches": launches["stream_backward"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "two_pixel_ms": k_times.get(2)}
 
   # K3's function on its own: sum every (tile, slab) window row's
   # gradient row into its home-major row.  Its plain version and its one
@@ -955,38 +1047,39 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   ts = cfg.tile_size
   tw, th = tile_shape(SIZE_FULL, ts)
   t_all = tw * th
+  runs = []
   with torch.no_grad():
-    for _ in range(2):                        # warm once, time the second
-      ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-      ev[0].record()
+    for sync in (False, False, True):  # warm once, events, each alone
+      st = Stages(sync)
+      st.mark()
       g2d, depths, _ = project_to_image(g3d, cam, cfg)
-      ev[1].record()
+      st.mark()
       feats = evaluate_sh_at(g3d.feature, g3d.position, cam.camera_position)
-      ev[2].record()
+      st.mark()
       nd = torch.where(depths > 0,
                        ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
       m = map_to_tiles(g2d, nd, SIZE_FULL, cfg, max_overlaps=cap,
                        features=feats)
-      ev[3].record()
+      st.mark()
       it, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
                          m.chunk_to_tile, cfg, t_all, tw, with_vis=False)
-      ev[4].record()
+      st.mark()
       detile(it[:t_all], tw, th, ts, SIZE_FULL)
-      ev[5].record()
-      torch.cuda.synchronize()
+      st.mark()
+      runs.append(st)
   names = ("project", "SH", "map", "K4", "detile")
-  stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
-  log("  render stages (ms): " + "  ".join(f"{nm} {t:.3f}"
-                                           for nm, t in stages.items()))
+  runs[1].log("render stages", names)
+  runs[2].log("render stages, each alone", names)
   log(f"  full mapping: {int(m.chunk_cnt.sum())} overlaps in "
       f"{m.num_chunks} chunks of {m.chunk_size}")
 
   names = ("forward to map", "K4 + visibility", "visibility reduce",
            "loss gradient", "K5", "backward reduce", "autograd tail",
            "optimizer")
-  for _ in range(2):
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
-    ev[0].record()
+  runs = []
+  for sync in (False, False, True):    # warm once, events, each alone
+    st = Stages(sync)
+    st.mark()
     leaves = [getattr(g3d, f.name).detach().requires_grad_(True)
               for f in dataclasses.fields(g3d)]
     g = g3d.replace(**{f.name: x for f, x in
@@ -998,31 +1091,30 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
                      ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
     m = map_to_tiles(g2d.detach(), nd.detach(), SIZE_FULL, tcfg,
                      max_overlaps=cap, features=feats.detach())
-    ev[1].record()
+    st.mark()
     it, vis_c = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
                            m.chunk_to_tile, tcfg, t_all, tw, with_vis=True)
-    ev[2].record()
+    st.mark()
     pid = fn._pid_chunked(m)
     vis = fn.reduce_chunked_to_points(vis_c, pid, n)[:, 0]
-    ev[3].record()
+    st.mark()
     it_g = it.detach().requires_grad_(True)
     full = detile(it_g[:t_all], tw, th, ts, SIZE_FULL)
     (g_it,) = torch.autograd.grad(((full[..., :3] - tgt) ** 2).sum(), it_g)
-    ev[4].record()
+    st.mark()
     gout = kk.backward(m.sorted_payload, it, g_it, m.chunk_src, m.chunk_cnt,
                        m.chunk_to_tile, tcfg, t_all, tw)
-    ev[5].record()
+    st.mark()
     red = fn.reduce_chunked_to_points(gout, fn._pid_chunked(m), n)
-    ev[6].record()
+    st.mark()
     tail = torch.autograd.grad([g2d, feats], leaves,
                                [red[:, :7], red[:, 7:10]])
-    ev[7].record()
+    st.mark()
     opt.step({"feature": g3d.feature}, {"feature": tail[4]}, state, vis)
-    ev[8].record()
-    torch.cuda.synchronize()
-  stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
-  log("  step stages (ms): " + "  ".join(f"{nm} {t:.3f}"
-                                         for nm, t in stages.items()))
+    st.mark()
+    runs.append(st)
+  runs[1].log("step stages", names)
+  runs[2].log("step stages, each alone", names)
 
   # K4-K7 at the full-size shapes: kernel, twin, bound, library call
   log("  K4-K7 vs twins at the full-size shapes")
@@ -1045,39 +1137,50 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   log(f"  K4 bound {b4[0]:.4f} ms ({b4[1]}), K5 bound {b5[0]:.4f} ms "
       f"({b5[1]}): {pairs} (row, pixel) pairs")
 
+  # K6 and K7 take tens of microseconds: each is timed twice, as calls
+  # (events over back-to-back calls, the wrapper's host work included
+  # where the device waits for it) and by device time (device_ms)
   o2p, src, cnt = m.overlap_to_point, m.chunk_src, m.chunk_cnt
-  k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 5)
+  k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 20)
+  k6_dev = device_ms(lambda: layout.window_copy(o2p, src, cnt, g))
   t6_ms = cuda_ms(lambda: layout.window_copy_reference(o2p, src, cnt, g), 5)
   r = torch.arange(g, device=dev)
   flat = torch.where(r < cnt[:, None], src.long()[:, None] + r,
                      o2p.shape[0]).reshape(-1)
   o2p_ext = torch.cat([o2p, o2p.new_zeros(1)])
   assert torch.equal(o2p_ext[flat], layout.window_copy(o2p, src, cnt, g))
-  l6_ms = cuda_ms(lambda: o2p_ext[flat], 5)
+  l6_ms = cuda_ms(lambda: o2p_ext[flat], 20)
+  l6_dev = device_ms(lambda: o2p_ext[flat])
   b6 = bound_ms(0, nbytes(src, cnt) + valid * 4 + flat.numel() * 4)
-  log(f"  K6 (overlap ids, {flat.numel()} slots): kernel {k6_ms:.3f} ms  "
-      f"twin {t6_ms:.3f} ms  torch indexing {l6_ms:.3f} ms  bound "
-      f"{b6[0]:.4f} ms ({b6[1]})")
+  log(f"  K6 (overlap ids, {flat.numel()} slots): kernel {k6_ms:.4f} ms a "
+      f"call, {k6_dev:.4f} ms of device time; torch indexing "
+      f"{l6_ms:.4f} ms a call, {l6_dev:.4f} ms of device time; twin "
+      f"{t6_ms:.3f} ms; bound {b6[0]:.4f} ms ({b6[1]}), device time at "
+      f"{b6[0] / k6_dev:.1%} of it")
 
   ids, order = torch.sort(fn._pid_chunked(m), stable=True)
   rows = gout[order]
-  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 5)
+  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 20)
+  k7_dev = device_ms(lambda: layout.segment_sum_sorted(rows, ids, n))
   t7_ms = cuda_ms(lambda: layout.segment_sum_sorted_reference(rows, ids, n),
                   5)
   acc = torch.zeros((n + 1, out_w), device=dev)
   ids_c = torch.clamp(ids, max=n)
-  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 5)
+  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 20)
+  l7_dev = device_ms(lambda: acc.index_add_(0, ids_c, rows))
   b7 = bound_ms(0, nbytes(rows, ids) + (n + 1) * 4 + n * out_w * 4)
   log(f"  K7 ({rows.shape[0]} rows x {out_w} columns -> {n} points): kernel "
-      f"{k7_ms:.3f} ms  twin {t7_ms:.3f} ms  index_add_ {l7_ms:.3f} ms  "
-      f"bound {b7[0]:.4f} ms ({b7[1]})")
+      f"{k7_ms:.4f} ms a call, {k7_dev:.4f} ms of device time (its "
+      f"searchsorted included); index_add_ {l7_ms:.4f} ms a call, "
+      f"{l7_dev:.4f} ms of device time; twin {t7_ms:.3f} ms; bound "
+      f"{b7[0]:.4f} ms ({b7[1]})")
 
-  def entry(name, src_file, line, count, err, ms, plain, b, lib):
+  def entry(name, src_file, line, count, err, ms, plain, b, lib, **extra):
     return dict(name=name, route="cuda",
                 source="tpu_splatting_torch/csrc/" + src_file,
                 replaces=line, launches=count, max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                library_ms=lib)
+                library_ms=lib, **extra)
   ref = "tpu_splatting/rasterizer/"
   return [
       entry("sorted_forward", "sorted_forward.cu", ref + "kernels.py:216",
@@ -1085,9 +1188,11 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
       entry("sorted_backward", "sorted_backward.cu", ref + "kernels.py:393",
             launches["sorted_backward"], err5, k5_ms, t5_ms, b5, None),
       entry("window_copy", "layout.cu", ref + "layout.py:56",
-            launches["window_copy"], 0.0, k6_ms, t6_ms, b6, l6_ms),
+            launches["window_copy"], 0.0, k6_ms, t6_ms, b6, l6_ms,
+            device_ms=k6_dev, library_device_ms=l6_dev),
       entry("segment_sum_sorted", "layout.cu", ref + "layout.py:105",
-            launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms),
+            launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms,
+            device_ms=k7_dev, library_device_ms=l7_dev),
   ]
 
 

@@ -40,12 +40,16 @@ BWD_MODES = {
 }
 
 
-def mapping_for(dev, config, n=4000, size=(128, 96), depth_features=False):
+def mapping_for(dev, config, n=4000, size=(128, 96), depth_features=False,
+                num_features=None):
   packed, depth, feats = (
       torch.from_numpy(x).to(dev)
       for x in uniform_scene(np.random.default_rng(0), n, size))
   if depth_features:
     feats = depth[:, None]
+  if num_features is not None:
+    feats = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.0, 1.0, (n, num_features)).astype(np.float32)).to(dev)
   cal = calibrate_stream(packed, depth, feats, size, config, group_width=8)
   m = stream_map(packed, depth, feats, size, config, group_width=8,
                  **{k: cal[k] for k in ("num_slabs", "strip_cap", "slab_cap",
@@ -88,24 +92,50 @@ def columns_close(got, want):
   assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
 
 
+def check_backward(dev, m, config, pixels_per_thread=1):
+  """K2 on a random cotangent against its twin, column by column."""
+  img = sk.stream_forward(m, config)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  gimg = torch.randn(img.shape, generator=gen, device=dev)
+  sk.reset_launch_counts()
+  got = sk.stream_backward(m, img, gimg, config, pixels_per_thread)
+  torch.cuda.synchronize()
+  assert sk.launch_counts["stream_backward"] == 1
+  want = sk.stream_backward_reference(m, img, gimg, config)
+  assert got.shape == want.shape == (
+      m.num_tiles * m.run_cap + 1, sk.slab_width(config, m.feature_size))
+  assert float(want.abs().max()) > 0.1
+  assert not bool(got[-1].any())
+  columns_close(got, want)
+
+
 @pytest.mark.parametrize("mode", sorted(BWD_MODES))
 @pytest.mark.parametrize("tile_size", [16, 8])
 def test_backward_kernel_matches_twin(cuda, mode, tile_size):
   config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
-  m = mapping_for(cuda, config)
-  img = sk.stream_forward(m, config)
-  gen = torch.Generator(device=cuda).manual_seed(0)
-  gimg = torch.randn(img.shape, generator=gen, device=cuda)
-  sk.reset_launch_counts()
-  got = sk.stream_backward(m, img, gimg, config)
-  torch.cuda.synchronize()
-  assert sk.launch_counts["stream_backward"] == 1
-  want = sk.stream_backward_reference(m, img, gimg, config)
-  assert got.shape == want.shape == (m.num_tiles * m.run_cap + 1,
-                                     sk.slab_width(config, 3))
-  assert float(want.abs().max()) > 0.1
-  assert not bool(got[-1].any())
-  columns_close(got, want)
+  check_backward(cuda, mapping_for(cuda, config), config)
+
+
+@pytest.mark.parametrize("mode", sorted(BWD_MODES))
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_backward_kernel_two_pixels_per_thread(cuda, mode, tile_size):
+  """The P = 2 instantiation (each thread walks two pixels) against the
+  twin."""
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
+  check_backward(cuda, mapping_for(cuda, config), config, 2)
+
+
+@pytest.mark.parametrize("num_features", [16, 40])
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_backward_kernel_wide_features(cuda, num_features, tile_size):
+  """The 32-wide reductions: one batch (16 features, the 22-feature
+  instantiation) and two batches (40 features, the 56-feature one)."""
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES["heuristics"])
+  maxf, width, _ = sk.backward_variant(num_features, config.tile_area)
+  assert width == 32 and maxf == (22 if num_features == 16 else 56)
+  m = mapping_for(cuda, config, num_features=num_features)
+  assert m.feature_size == num_features
+  check_backward(cuda, m, config)
 
 
 def test_backward_kernel_rejects_bad_inputs(cuda):
@@ -238,6 +268,38 @@ def test_layout_kernels_match_twins(cuda):
   assert layout.launch_counts == {"window_copy": 3, "segment_sum_sorted": 3}
   with pytest.raises(TypeError):
     layout.segment_sum_sorted(rows, ids.long(), n)
+
+
+@pytest.mark.parametrize("columns", [1, 12])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.float64])
+def test_window_copy_kernel_edge_windows(cuda, columns, dtype):
+  """K6 bit for bit against its twin on empty, full and ragged windows and
+  on windows that end on the last row of ``rows``."""
+  from tpu_splatting_torch.rasterizer import layout
+  rng = np.random.default_rng(3)
+  g, m, k = 128, 5000, 300
+  shape = (m,) if columns == 1 else (m, columns)
+  rows = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape)
+                          .astype(np.int64)).to(cuda)
+  rows = rows.to(dtype) if dtype != torch.float64 else rows.double() / 7
+  cnt = rng.integers(1, g, k)
+  cnt[0::5] = 0                      # empty
+  cnt[1::5] = g                      # full
+  src = rng.integers(0, m - g + 1, k)
+  src[2::5] = m - cnt[2::5]          # ragged, ending on the last row
+  src[3::5] = m - g                  # full or ragged near the end
+  cnt[3::5] = g
+  src[-1], cnt[-1] = m - g, g        # the last window ends on the last row
+  src_t, cnt_t = (torch.from_numpy(x.astype(np.int32)).to(cuda)
+                  for x in (src, cnt))
+  layout.reset_launch_counts()
+  got = layout.window_copy(rows, src_t, cnt_t, g)
+  want = layout.window_copy_reference(rows, src_t, cnt_t, g)
+  torch.cuda.synchronize()
+  assert layout.launch_counts["window_copy"] == 1
+  assert got.dtype == dtype and got.shape == (k * g, *shape[1:])
+  assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
 
 
 def test_sorted_step_never_takes_a_twin(cuda, monkeypatch):

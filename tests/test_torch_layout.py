@@ -105,3 +105,20 @@ def test_segment_sum_sorted_wide_rows():
   got = tlay.segment_sum_sorted(torch.from_numpy(rows),
                                 torch.from_numpy(ids), n)
   np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("k, g, c, m, ok", [
+    (54_028, 128, 1, 5_342_976, True),       # full-size overlap ids
+    (54_028, 128, 12, 5_342_976, True),      # full-size gradient rows
+    ((2 ** 31 - 1) // 128, 128, 1, 10, True),
+    (2 ** 24, 128, 1, 10, False),            # 2^31 output elements
+    (10, 128, 12, 2 ** 31 // 12 + 1, False),  # rows past 2^31 elements
+])
+def test_window_copy_range_guard(k, g, c, m, ok):
+  """The CUDA window copy indexes in 32 bits; its wrapper raises on
+  shapes past 2^31 elements rather than wrapping around."""
+  if ok:
+    tlay.check_window_copy_range(k, g, c, m)
+  else:
+    with pytest.raises(ValueError, match="32-bit"):
+      tlay.check_window_copy_range(k, g, c, m)

@@ -24,19 +24,38 @@
 //
 // What bounds it on this card: the per-(row, pixel) arithmetic (one exp
 // for alpha, one for the transmittance, one log1p, the gradient chain)
-// and, per row and warp, the shuffle reduction of slabw gradient terms
-// over the warp's 32 pixels.  Bytes are few (the table rows, the image
-// and its cotangent, the buffer).  The design keeps every per-row
-// gradient out of device memory: a warp reduces its pixels' terms with
-// __shfl_xor_sync, adds them to a per-slab shared accumulator
-// (slab_cap x slabw), and the slab's rows are flushed to the buffer with
-// one global atomicAdd per nonzero value.  Warps with no live pixel for a
-// row skip the reduction.
+// and, per row and warp, the reduction of the gradient terms over the
+// warp's pixels.  Bytes are few (the table rows, the image and its
+// cotangent, the buffer).  Every per-row gradient stays out of device
+// memory: a warp reduces its pixels' terms, adds them to a per-slab shared
+// accumulator (slabw x slab_cap), and the slab's rows are flushed to the
+// buffer with one global atomicAdd per nonzero value.  Warps with no live
+// pixel for a row skip the reduction.
 //
-// Design: one block per tile, one thread per pixel (K1's shape).  The log
+// The reduction is a reduce-scatter (a transposed butterfly).  A thread's
+// terms sit in V slots: the 7 packed-gaussian terms, visibility, prune and
+// split at slots 7-9, feature c at slot 10 + c; features past V - 10 go
+// in further batches of V.  At each butterfly offset a lane sends its
+// partner the half of its slots the partner keeps and adds the partner's
+// half into its own: V/2 + V/4 + ... shuffles (16 at V = 16, 31 at V = 32)
+// in place of 5 per column.  Then lane l holds the warp's sum of slot l
+// (V = 32) or of slot l / 2 (V = 16), and the lanes that own a column add
+// it to the shared accumulator in one atomicAdd instruction.  The
+// accumulator's column stride is slab_cap rounded up to 32, plus one, so
+// the columns of one slot fall in different banks.
+//
+// Design: one block per tile, P pixels per thread (tile_area / P threads;
+// thread t owns pixels t, t + tile_area / P, ...).  A thread walks the rows
+// once for its P pixels, each with its own log transmittance, carries and
+// freeze, in the order a one-pixel thread would; it adds its pixels' terms
+// in registers before the warp reduction, so P = 2 halves the shuffles,
+// the shared atomics and the threads in each block-wide vote.  It also
+// halves the warps an SM holds (shared memory caps the blocks, not the
+// threads), and on the H100 P = 1 is the faster at the headline shapes,
+// so the wrapper launches P = 1 unless asked for P = 2.  The log
 // transmittance and the remaining-feature carry stay in registers across
-// slabs; a block stops once every pixel is frozen and skips the
-// remaining slabs, as the forward does.
+// slabs; a block stops once every pixel is frozen and skips the remaining
+// slabs, as the forward does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +65,8 @@ namespace {
 constexpr int kStripSlack = 512;        // rasterizer/stream.py STRIP_SLACK
 constexpr int kKeyInvalid = 0x7fffffff;  // invalid slots sort last
 constexpr int kGeo = 12;                 // per-row coefficients in smem
+constexpr int kLead = 10;                // slots before the features
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTau = 6.283185307179586f;
 
 struct Params {
@@ -60,6 +81,11 @@ struct Params {
   int slabw, with_vis, heur;
   float alpha_threshold, clamp_max_alpha, lcut;
 };
+
+// column stride of the shared accumulator
+__host__ __device__ __forceinline__ int acc_stride(int slab_cap) {
+  return ((slab_cap + 31) & ~31) + 1;
+}
 
 __device__ __forceinline__ float s_sig(float x, float s) {
   float z = x / s;
@@ -76,68 +102,116 @@ __device__ __forceinline__ void s_grads(float x, float sig, float& s_val,
   d_dxs = d_dx * -z;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// One butterfly stage at offset `off`: a lane holding N slots keeps the
+// upper half if its `off` bit is set, else the lower, in v[0, N/2).
+template <int N, int V>
+__device__ __forceinline__ void scatter_stage(float (&v)[V], int lane,
+                                              int off) {
+  const bool up = (lane & off) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, off);
+  }
 }
 
-template <int MAXF>
+// Reduce-scatter of V slots over the warp: returns the warp's sum of slot
+// `lane` (V = 32) or of slot `lane >> 1` (V = 16).  v is overwritten.
+template <int V>
+__device__ __forceinline__ float reduce_scatter(float (&v)[V], int lane) {
+  static_assert(V == 16 || V == 32, "reduction width");
+  scatter_stage<V>(v, lane, 16);
+  scatter_stage<V / 2>(v, lane, 8);
+  scatter_stage<V / 4>(v, lane, 4);
+  scatter_stage<V / 8>(v, lane, 2);
+  if (V == 32) scatter_stage<2>(v, lane, 1);
+  else v[0] += __shfl_xor_sync(kFull, v[0], 1);
+  return v[0];
+}
+
+template <int MAXF, int V, int P>
 __global__ void stream_backward_kernel(Params p) {
+  constexpr int NB = (kLead + MAXF + V - 1) / V;   // reduction batches
   extern __shared__ __align__(16) unsigned char smem[];
+  const int sc = p.slab_cap;
+  const int sa = acc_stride(sc);
   int* s_key = reinterpret_cast<int*>(smem);
   float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);
-  float* s_feat = s_geo + kGeo * p.slab_cap;
-  float* s_acc = s_feat + p.f * p.slab_cap;     // [column][slot]
-  int* s_desc = reinterpret_cast<int*>(s_acc + p.slabw * p.slab_cap);
+  float* s_feat = s_geo + kGeo * sc;
+  float* s_acc = s_feat + p.f * sc;      // [column][slot], stride sa
+  int* s_desc = reinterpret_cast<int*>(s_acc + p.slabw * sa);
   int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0, grad row0]
   int* s_cnt = s_win + 4 * p.w_max;      // [slots used, valid rows]
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
+  const int nthr = blockDim.x;           // tile_area / P
   const int lane = tid & 31;
   const int ts = p.tile_size;
   const int pix = ts * ts;
-  const int sc = p.slab_cap;
   const int g = tile / p.group_width;
   const int ti = tile % p.group_width;
   const int tx = tile % p.tiles_wide, ty = tile / p.tiles_wide;
   const float half = ts * 0.5f;
   const float ox = static_cast<float>(tx * ts) + half;
   const float oy = static_cast<float>(ty * ts) + half;
-  const float px = static_cast<float>(tid % ts) + 0.5f - half;
-  const float py = static_cast<float>(tid / ts) + 0.5f - half;
-  const float px2 = px * px, pxy = px * py, py2 = py * py;
   const int band_stride = 2 * p.strip_cap + kStripSlack;
   const int r_rows = p.num_tiles * p.run_cap;
   const int c_vis = 7 + p.f;             // visibility, prune, split columns
 
-  // this pixel's image cotangent, and s_total = sum_c g_image * image over
-  // all F+1 channels (the weight channel included)
-  const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
-  float gi[MAXF];
-  float s_total = 0.0f;
+  // the buffer column this lane adds after each batch's reduction, or -1
+  int dst[NB];
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c) {
-    gi[c] = 0.0f;
-    if (c < p.f) {
-      gi[c] = p.gimg[ib + static_cast<size_t>(c) * pix];
-      s_total += gi[c] * p.img[ib + static_cast<size_t>(c) * pix];
-    }
+  for (int b = 0; b < NB; ++b) {
+    const int k = b * V + (V == 16 ? lane >> 1 : lane);
+    int c = -1;
+    if (V == 16 && (lane & 1)) c = -1;
+    else if (k < 7) c = k;
+    else if (k == 7) c = p.with_vis ? c_vis : -1;
+    else if (k < kLead) c = p.heur ? c_vis + k - 7 : -1;
+    else if (k - kLead < p.f) c = 7 + k - kLead;
+    dst[b] = c;
   }
-  const float gi_w = p.gimg[ib + static_cast<size_t>(p.f) * pix];
-  s_total += gi_w * p.img[ib + static_cast<size_t>(p.f) * pix];
 
-  float lt = 0.0f;        // log transmittance, carried across slabs
-  float s_prev = 0.0f;    // sum of w * g_f over earlier slabs
+  // per pixel: its coordinates, image cotangent, and s_total = sum_c
+  // g_image * image over all F+1 channels (the weight channel included)
+  float px[P], py[P], px2[P], pxy[P], py2[P];
+  float gi[P][MAXF], gi_w[P], s_total[P];
+  float lt[P];        // log transmittance, carried across slabs
+  float s_prev[P];    // sum of w * g_f over earlier slabs
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int pq = tid + q * nthr;
+    px[q] = static_cast<float>(pq % ts) + 0.5f - half;
+    py[q] = static_cast<float>(pq / ts) + 0.5f - half;
+    px2[q] = px[q] * px[q];
+    pxy[q] = px[q] * py[q];
+    py2[q] = py[q] * py[q];
+    const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + pq;
+    s_total[q] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < MAXF; ++c) {
+      gi[q][c] = 0.0f;
+      if (c < p.f) {
+        gi[q][c] = p.gimg[ib + static_cast<size_t>(c) * pix];
+        s_total[q] += gi[q][c] * p.img[ib + static_cast<size_t>(c) * pix];
+      }
+    }
+    gi_w[q] = p.gimg[ib + static_cast<size_t>(p.f) * pix];
+    s_total[q] += gi_w[q] * p.img[ib + static_cast<size_t>(p.f) * pix];
+    lt[q] = 0.0f;
+    s_prev[q] = 0.0f;
+  }
 
   for (int s = 0; s < p.num_slabs; ++s) {
     const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
                                 * p.w_max * 4;
     if (s > 0) {
-      if (__syncthreads_and(lt <= p.lcut)) break;
+      bool frozen = true;
+#pragma unroll
+      for (int q = 0; q < P; ++q) frozen = frozen && lt[q] <= p.lcut;
+      if (__syncthreads_and(frozen)) break;
       if (d[1] <= 0) continue;
     }
     for (int i = tid; i < 4 * p.w_max; i += nthr) s_desc[i] = d[i];
@@ -146,7 +220,7 @@ __global__ void stream_backward_kernel(Params p) {
       int cur = 0, valid = 0;
       for (int w = 0; w < p.w_max; ++w) {
         const int lo = s_desc[4 * w], len = s_desc[4 * w + 1];
-        const int dst = s_desc[4 * w + 2], cls = s_desc[4 * w + 3];
+        const int dst_off = s_desc[4 * w + 2], cls = s_desc[4 * w + 3];
         const int b = cls / 3, k = cls % 3;
         const int head = lo % p.rpb;
         const int ln = max(min(len, p.slab_cap - (cur + head)), 0);
@@ -156,7 +230,7 @@ __global__ void stream_backward_kernel(Params p) {
                            + (lo - b * band_stride);
         // home (band y+b-1, column x+k-1); dst = run offset + (i+k)*run_cap
         const int home = (ty + b - 1) * p.tiles_wide + tx + k - 1;
-        s_win[4 * w + 3] = (home - ti - k) * p.run_cap + dst;
+        s_win[4 * w + 3] = (home - ti - k) * p.run_cap + dst_off;
         if (ln > 0) cur += ((head + ln + p.rpb - 1) / p.rpb) * p.rpb;
         valid += ln;
       }
@@ -170,7 +244,7 @@ __global__ void stream_backward_kernel(Params p) {
     while (n_sort < n_slots) n_sort <<= 1;
     for (int i = tid; i < n_sort; i += nthr) s_key[i] = kKeyInvalid;
     for (int i = tid; i < p.slabw * n_slots; i += nthr)
-      s_acc[(i / n_slots) * sc + i % n_slots] = 0.0f;
+      s_acc[(i / n_slots) * sa + i % n_slots] = 0.0f;
     __syncthreads();
 
     // rows -> per-slot coefficients, features and rank keys
@@ -240,125 +314,148 @@ __global__ void stream_backward_kernel(Params p) {
 
     // front-to-back walk in rank order, the forward's association of the
     // log transmittance (carry + sequential slab sum)
-    const float lt_in = lt;
-    float acc_l = 0.0f, acc_wgf = 0.0f;
-    bool done = lt <= p.lcut;
+    float lt_in[P], acc_l[P], acc_wgf[P];
+    bool done[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      lt_in[q] = lt[q];
+      acc_l[q] = 0.0f;
+      acc_wgf[q] = 0.0f;
+      done[q] = lt[q] <= p.lcut;
+    }
     for (int j = 0; j < n_valid; ++j) {
-      if ((j & 31) == 0 && __syncthreads_and(done)) break;
+      if ((j & 31) == 0) {
+        bool all_done = true;
+#pragma unroll
+        for (int q = 0; q < P; ++q) all_done = all_done && done[q];
+        if (__syncthreads_and(all_done)) break;
+      }
       const int slot = s_key[j] & 2047;
       const float* geo = s_geo + slot;
-      float a_raw;
-      if (p.antialias) {
-        const float ax = geo[0], ay = geo[1 * sc];
-        const float sx = geo[4 * sc], sy = geo[5 * sc];
-        const float tu = ax * px + ay * py + geo[2 * sc];
-        const float tv = -ay * px + ax * py + geo[3 * sc];
-        const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
-        const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
-        a_raw = geo[6 * sc] * (kTau * ix * iy);
-      } else {
-        a_raw = expf(geo[0] * px2 + geo[1 * sc] * pxy + geo[2 * sc] * py2
-                     + geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc]);
-      }
-      const float a = a_raw > p.alpha_threshold
-                          ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
-      const float lt_j = acc_l + lt_in;
-      const bool live = lt_j > p.lcut && a > 0.0f;
+      const float mlx = geo[10 * sc], mly = geo[11 * sc];
 
-      float g7[7], gfeat[MAXF];
-      float g_vis = 0.0f, g_prune = 0.0f, g_split = 0.0f;
+      // per pixel: slots 0-6 the packed-gaussian terms, then w, ag^2 and
+      // the split term; the features' terms are w * gi
+      float t7[P][7], tw[P], tprune[P], tsplit[P];
+      bool live_any = false;
 #pragma unroll
-      for (int c = 0; c < 7; ++c) g7[c] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < MAXF; ++c) gfeat[c] = 0.0f;
-      if (live) {
-        const float t = expf(lt_j);
-        const float w = a * t;
-        float gf = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXF; ++c)
-          if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
-        gf += gi_w;
-        const float wgf = w * gf;
-        acc_wgf += wgf;
-        const float s_i = s_total - (acc_wgf + s_prev);
-        const float ag = t * gf - s_i / (1.0f - a);
-        acc_l += log1pf(-a);
-        const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
-        const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
+      for (int q = 0; q < P; ++q) {
+        float a_raw;
         if (p.antialias) {
           const float ax = geo[0], ay = geo[1 * sc];
           const float sx = geo[4 * sc], sy = geo[5 * sc];
-          const float pa = geo[6 * sc];
-          const float tu = ax * px + ay * py + geo[2 * sc];
-          const float tv = -ay * px + ax * py + geo[3 * sc];
-          float sx1, dx1, dx1s, sx2, dx2, dx2s;
-          float sy1, dy1, dy1s, sy2, dy2, dy2s;
-          s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
-          s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
-          s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
-          s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
-          const float ix = sx * (sx1 - sx2);
-          const float iy = sy * (sy1 - sy2);
-          const float dsx_t = iy * sx * (dx1 - dx2);
-          const float dsy_t = ix * sy * (dy1 - dy2);
-          const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
-          g7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
-          g7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
-          g7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
-          g7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
-          g7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
-          g7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+          const float tu = ax * px[q] + ay * py[q] + geo[2 * sc];
+          const float tv = -ay * px[q] + ax * py[q] + geo[3 * sc];
+          const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
+          const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
+          a_raw = geo[6 * sc] * (kTau * ix * iy);
         } else {
-          const float ax = geo[6 * sc], ay = geo[7 * sc];
-          const float isx = geo[8 * sc], isy = geo[9 * sc];
-          const float u = (ax * dx + ay * dy) * isx;
-          const float v = (-ay * dx + ax * dy) * isy;
-          const float zu = z0 * u, zv = z0 * v;
-          g7[0] = ax * isx * zu - ay * isy * zv;
-          g7[1] = ay * isx * zu + ax * isy * zv;
-          g7[2] = -isx * zu * dx - isy * zv * dy;
-          g7[3] = -isx * zu * dy + isy * zv * dx;
-          g7[4] = isx * zu * u;
-          g7[5] = isy * zv * v;
+          a_raw = expf(geo[0] * px2[q] + geo[1 * sc] * pxy[q]
+                       + geo[2 * sc] * py2[q] + geo[3 * sc] * px[q]
+                       + geo[4 * sc] * py[q] + geo[5 * sc]);
         }
-        g7[6] = z0;                            // / pa at the flush
-#pragma unroll
-        for (int c = 0; c < MAXF; ++c) gfeat[c] = w * gi[c];
-        g_vis = w;
-        g_prune = ag * ag;                     // * pa^2 at the flush
-        g_split = fabsf(g7[0]) + fabsf(g7[1]);
-      }
-      done = acc_l + lt_in <= p.lcut;
+        const float a = a_raw > p.alpha_threshold
+                            ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
+        const float lt_j = acc_l[q] + lt_in[q];
+        const bool live = lt_j > p.lcut && a > 0.0f;
+        live_any = live_any || live;
 
-      if (__any_sync(0xffffffffu, live)) {
+#pragma unroll
+        for (int c = 0; c < 7; ++c) t7[q][c] = 0.0f;
+        tw[q] = 0.0f;
+        tprune[q] = 0.0f;
+        tsplit[q] = 0.0f;
+        if (live) {
+          const float t = expf(lt_j);
+          const float w = a * t;
+          float gf = 0.0f;
+#pragma unroll
+          for (int c = 0; c < MAXF; ++c)
+            if (c < p.f) gf += s_feat[c * sc + slot] * gi[q][c];
+          gf += gi_w[q];
+          const float wgf = w * gf;
+          acc_wgf[q] += wgf;
+          const float s_i = s_total[q] - (acc_wgf[q] + s_prev[q]);
+          const float ag = t * gf - s_i / (1.0f - a);
+          acc_l[q] += log1pf(-a);
+          const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
+          const float dx = px[q] - mlx, dy = py[q] - mly;
+          if (p.antialias) {
+            const float ax = geo[0], ay = geo[1 * sc];
+            const float sx = geo[4 * sc], sy = geo[5 * sc];
+            const float pa = geo[6 * sc];
+            const float tu = ax * px[q] + ay * py[q] + geo[2 * sc];
+            const float tv = -ay * px[q] + ax * py[q] + geo[3 * sc];
+            float sx1, dx1, dx1s, sx2, dx2, dx2s;
+            float sy1, dy1, dy1s, sy2, dy2, dy2s;
+            s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
+            s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
+            s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
+            s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
+            const float ix = sx * (sx1 - sx2);
+            const float iy = sy * (sy1 - sy2);
+            const float dsx_t = iy * sx * (dx1 - dx2);
+            const float dsy_t = ix * sy * (dy1 - dy2);
+            const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
+            t7[q][0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
+            t7[q][1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
+            t7[q][2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
+            t7[q][3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
+            t7[q][4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
+            t7[q][5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+          } else {
+            const float ax = geo[6 * sc], ay = geo[7 * sc];
+            const float isx = geo[8 * sc], isy = geo[9 * sc];
+            const float u = (ax * dx + ay * dy) * isx;
+            const float v = (-ay * dx + ax * dy) * isy;
+            const float zu = z0 * u, zv = z0 * v;
+            t7[q][0] = ax * isx * zu - ay * isy * zv;
+            t7[q][1] = ay * isx * zu + ax * isy * zv;
+            t7[q][2] = -isx * zu * dx - isy * zv * dy;
+            t7[q][3] = -isx * zu * dy + isy * zv * dx;
+            t7[q][4] = isx * zu * u;
+            t7[q][5] = isy * zv * v;
+          }
+          t7[q][6] = z0;                       // / pa at the flush
+          tw[q] = w;
+          tprune[q] = ag * ag;                 // * pa^2 at the flush
+          tsplit[q] = fabsf(t7[q][0]) + fabsf(t7[q][1]);
+        }
+        done[q] = acc_l[q] + lt_in[q] <= p.lcut;
+      }
+
+      if (__any_sync(kFull, live_any)) {
         float* acc = s_acc + slot;
 #pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          const float x = warp_sum(g7[c]);
-          if (lane == 0 && x != 0.0f) atomicAdd(acc + c * sc, x);
-        }
+        for (int b = 0; b < NB; ++b) {
+          if (b > 0 && b * V >= kLead + p.f) break;
+          float v[V];
 #pragma unroll
-        for (int c = 0; c < MAXF; ++c) {
-          if (c < p.f) {
-            const float x = warp_sum(gfeat[c]);
-            if (lane == 0 && x != 0.0f) atomicAdd(acc + (7 + c) * sc, x);
+          for (int i = 0; i < V; ++i) {
+            const int k = b * V + i;          // slot
+            const int c = k - kLead;          // feature of the slot
+            float x = 0.0f;
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+              if (k < 7) x += t7[q][k < 7 ? k : 0];
+              else if (k == 7) x += tw[q];
+              else if (k == 8) x += tprune[q];
+              else if (k == 9) x += tsplit[q];
+              else if (c < MAXF)
+                x += tw[q] * gi[q][c >= 0 && c < MAXF ? c : 0];
+            }
+            v[i] = x;
           }
-        }
-        if (p.with_vis) {
-          const float x = warp_sum(g_vis);
-          if (lane == 0 && x != 0.0f) atomicAdd(acc + c_vis * sc, x);
-        }
-        if (p.heur) {
-          const float x = warp_sum(g_prune);
-          const float y = warp_sum(g_split);
-          if (lane == 0 && x != 0.0f) atomicAdd(acc + (c_vis + 1) * sc, x);
-          if (lane == 0 && y != 0.0f) atomicAdd(acc + (c_vis + 2) * sc, y);
+          const float x = reduce_scatter<V>(v, lane);
+          if (dst[b] >= 0 && x != 0.0f) atomicAdd(acc + dst[b] * sa, x);
         }
       }
     }
-    lt = acc_l + lt_in;
-    s_prev += acc_wgf;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      lt[q] = acc_l[q] + lt_in[q];
+      s_prev[q] += acc_wgf[q];
+    }
     __syncthreads();
 
     // flush the slab's rows into the home-major buffer
@@ -372,7 +469,7 @@ __global__ void stream_backward_kernel(Params p) {
         const float* acc = s_acc + slot0 + r;
         float* o = p.out + static_cast<size_t>(grow) * p.slabw;
         for (int c = 0; c < p.slabw; ++c) {
-          float x = acc[c * sc];
+          float x = acc[c * sa];
           if (c == 6) x = x / fmaxf(pa, 1e-20f);
           if (p.heur && c == c_vis + 1) x = x * (pa * pa);
           if (x != 0.0f) atomicAdd(o + c, x);
@@ -383,14 +480,14 @@ __global__ void stream_backward_kernel(Params p) {
   }
 }
 
-template <int MAXF>
+template <int MAXF, int V, int P>
 int launch(const Params& p, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      stream_backward_kernel<MAXF>,
+      stream_backward_kernel<MAXF, V, P>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  stream_backward_kernel<MAXF><<<p.num_tiles, p.tile_size * p.tile_size,
-                                 smem, st>>>(p);
+  stream_backward_kernel<MAXF, V, P>
+      <<<p.num_tiles, p.tile_size * p.tile_size / P, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,20 +500,23 @@ extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
   int sort_cap = 1;
   while (sort_cap < slab_cap) sort_cap <<= 1;
   return 4LL * (sort_cap
-                + static_cast<long long>(kGeo + feature_size + slabw)
-                      * slab_cap
+                + static_cast<long long>(kGeo + feature_size) * slab_cap
+                + static_cast<long long>(slabw) * acc_stride(slab_cap)
                 + 8 * w_max + 2);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `out`
-// must be zero-initialised: the kernel only adds to it.
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a (max_features, width, pixels_per_thread)
+// that has no instantiation.  `out` must be zero-initialised: the kernel
+// only adds to it.
 extern "C" int tpu_splat_stream_backward(
     const float* table, const int* desc, const int* strip_blk,
     const float* img, const float* gimg, float* out, int num_tiles,
     int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
     int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
     int antialias, int run_cap, int slabw, int with_vis, int heur,
-    float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
+    float alpha_threshold, float clamp_max_alpha, float lcut,
+    int max_features, int width, int pixels_per_thread, void* stream) {
   Params p;
   p.table = table;
   p.desc = desc;
@@ -448,7 +548,15 @@ extern "C" int tpu_splat_stream_backward(
   const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
       slab_cap, w_max, feature_size, slabw));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feature_size <= 8) return launch<8>(p, smem, st);
-  if (feature_size <= 24) return launch<24>(p, smem, st);
-  return launch<56>(p, smem, st);
+  if (feature_size > max_features)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (max_features == 6 && width == 16 && pixels_per_thread == 1)
+    return launch<6, 16, 1>(p, smem, st);
+  if (max_features == 6 && width == 16 && pixels_per_thread == 2)
+    return launch<6, 16, 2>(p, smem, st);
+  if (max_features == 22 && width == 32 && pixels_per_thread == 1)
+    return launch<22, 32, 1>(p, smem, st);
+  if (max_features == 56 && width == 32 && pixels_per_thread == 1)
+    return launch<56, 32, 1>(p, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,6 +21,7 @@ tensor to the ``*_reference`` twin.  There is no fallback between the two.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -63,7 +64,7 @@ def _kernel():
   lib = load_kernel_library("layout.cu")
   lib.tpu_splat_window_copy.restype = ctypes.c_int
   lib.tpu_splat_window_copy.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
   lib.tpu_splat_segment_sum_sorted.restype = ctypes.c_int
   lib.tpu_splat_segment_sum_sorted.argtypes = (
       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -80,8 +81,26 @@ def _check(name, x, dev, dtypes, dim):
                      f"{tuple(x.shape)}")
 
 
+# K6's device time is about as short as its wrapper's host work, so the
+# launch helpers skip the device guard when ``dev`` is current and read
+# the raw stream handle without building a torch.cuda.Stream
+def _launch_guard(dev):
+  if dev.index == torch.cuda.current_device():
+    return contextlib.nullcontext()
+  return torch.cuda.device(dev)
+
+
 def _stream(dev):
-  return torch.cuda.current_stream(dev).cuda_stream
+  return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def check_window_copy_range(k: int, g: int, c: int, m: int):
+  """The window-copy kernel indexes in 32 bits: raise ValueError unless
+  the k*g*c output elements and the m*c elements of ``rows`` are each
+  below 2^31."""
+  if k * g * c >= 2 ** 31 or m * c >= 2 ** 31:
+    raise ValueError(f"window_copy kernel: {k} windows of {g} x {c} from "
+                     f"{m} rows exceed 32-bit element indices")
 
 
 def window_copy(rows: torch.Tensor, chunk_src: torch.Tensor,
@@ -91,7 +110,8 @@ def window_copy(rows: torch.Tensor, chunk_src: torch.Tensor,
   ``rows`` is (M, C) (or (M,)); every window must lie inside it (the
   mapper pads its sorted buffers with two chunks of slack).  CPU tensors
   go to ``window_copy_reference``, CUDA tensors to the ``csrc/layout.cu``
-  kernel (4- and 8-byte elements, copied bit for bit)."""
+  kernel (4- and 8-byte elements, copied bit for bit; a window outside
+  ``rows`` faults on the device)."""
   dev = rows.device
   if dev.type == "cpu":
     return window_copy_reference(rows, chunk_src, chunk_cnt, g)
@@ -104,17 +124,19 @@ def window_copy(rows: torch.Tensor, chunk_src: torch.Tensor,
     _check(f"window_copy {name}", x, dev, (torch.int32,), 1)
   if chunk_src.shape != chunk_cnt.shape:
     raise ValueError("window_copy: chunk_src and chunk_cnt differ in shape")
+  k = chunk_src.shape[0]
+  m = rows.shape[0]
+  c = rows.shape[1] if rows.dim() == 2 else 1
+  check_window_copy_range(k, g, c, m)
   rows = rows.contiguous()
   chunk_src, chunk_cnt = chunk_src.contiguous(), chunk_cnt.contiguous()
-  k = chunk_src.shape[0]
-  c = rows.shape[1] if rows.dim() == 2 else 1
   out = torch.empty((k * g, *rows.shape[1:]), dtype=rows.dtype, device=dev)
   if out.numel() == 0:
     return out
-  with torch.cuda.device(dev):
+  with _launch_guard(dev):
     err = _kernel().tpu_splat_window_copy(
         rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
-        out.data_ptr(), k, g, c, rows.element_size(), _stream(dev))
+        out.data_ptr(), k, g, c, m, rows.element_size(), _stream(dev))
   if err != 0:
     raise RuntimeError(f"window_copy kernel launch failed: CUDA error {err}")
   launch_counts["window_copy"] += 1
@@ -148,7 +170,7 @@ def segment_sum_sorted(rows: torch.Tensor, ids: torch.Tensor,
   bounds = torch.searchsorted(
       ids, torch.arange(num_segments + 1, dtype=torch.int32, device=dev),
       side="left", out_int32=True)
-  with torch.cuda.device(dev):
+  with _launch_guard(dev):
     err = _kernel().tpu_splat_segment_sum_sorted(
         rows.data_ptr(), bounds.data_ptr(), out.data_ptr(), num_segments, c,
         rows.element_size(), _stream(dev))

@@ -483,6 +483,30 @@ def stream_forward(mapping: StreamMapping,
   return out
 
 
+# The instantiations of csrc/stream_backward.cu: (most features, reduction
+# width V, pixels per thread P).  A thread's gradient terms take 10 + F
+# slots (7 packed-gaussian, visibility, prune, split, the features),
+# reduced in batches of V.  P = 2 exists for the headline's features only:
+# on the H100 it is slower than P = 1 at the headline shapes (PERF.md).
+BACKWARD_VARIANTS = ((6, 16, 1), (6, 16, 2), (22, 32, 1), (56, 32, 1))
+
+
+def backward_variant(f: int, tile_area: int,
+                     pixels_per_thread: int = 1) -> tuple:
+  """The K2 instantiation (max features, V, P) for f features, tile_area
+  pixels a tile and P pixels a thread; ValueError when none takes the
+  shape."""
+  if tile_area % (32 * pixels_per_thread):
+    raise ValueError(f"stream_backward kernel: tile_area {tile_area} is not "
+                     f"a whole number of warps at {pixels_per_thread} "
+                     "pixels a thread")
+  for variant in BACKWARD_VARIANTS:
+    if f <= variant[0] and variant[2] == pixels_per_thread:
+      return variant
+  raise ValueError(f"stream_backward kernel: no instantiation takes {f} "
+                   f"features at {pixels_per_thread} pixels a thread")
+
+
 @functools.cache
 def _bwd_kernel():
   from ..utils.cuda_build import load_kernel_library
@@ -490,20 +514,22 @@ def _bwd_kernel():
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_float] * 3
-      + [ctypes.c_void_p])
+      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
   lib.tpu_splat_stream_backward_smem.restype = ctypes.c_longlong
   lib.tpu_splat_stream_backward_smem.argtypes = [ctypes.c_int] * 4
   return lib
 
 
 def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
-                    g_image_tiled: torch.Tensor,
-                    config: RasterConfig) -> torch.Tensor:
+                    g_image_tiled: torch.Tensor, config: RasterConfig,
+                    pixels_per_thread: int = 1) -> torch.Tensor:
   """Backward rasterization: the (T*run_cap + 1, slabw) home-major
   gradient buffer of ``stream_forward``'s image cotangent.
 
   CPU mapping -> ``stream_backward_reference``; CUDA mapping -> the
-  ``csrc/stream_backward.cu`` kernel, or an exception."""
+  ``csrc/stream_backward.cu`` kernel (the instantiation
+  ``backward_variant`` picks for ``pixels_per_thread``), or an
+  exception."""
   dev = mapping.table.device
   if dev.type == "cpu":
     return stream_backward_reference(mapping, image_tiled, g_image_tiled,
@@ -515,9 +541,7 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   w_pad = _check_kernel_inputs(mapping, config, "stream_backward")
   f = mapping.feature_size
   t, pix = mapping.num_tiles, config.tile_area
-  if pix % 32:
-    raise ValueError(f"stream_backward kernel: tile_area {pix} is not a "
-                     "whole number of warps")
+  variant = backward_variant(f, pix, pixels_per_thread)
   for name, x in (("image_tiled", image_tiled),
                   ("g_image_tiled", g_image_tiled)):
     if x.device != dev:
@@ -554,7 +578,7 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
         int(heur), config.alpha_threshold, config.clamp_max_alpha,
-        _log_cut(config), stream)
+        _log_cut(config), *variant, stream)
   if err != 0:
     raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
                        f"{err}")
