@@ -10,8 +10,7 @@ Phases (any failure raises and exits non-zero):
    per source, all in parallel: the stream forward K1 and backward K2,
    the sorted forward K4 and backward K5, the layout kernels K6 and K7)
    and prints each kernel instantiation's registers and spills (K2's as
-   stream_backward_kernel<most features, reduction width V, pixels a
-   thread P>).
+   stream_backward_kernel<most features, reduction width V>).
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
@@ -23,8 +22,7 @@ Phases (any failure raises and exits non-zero):
    the CPU, and trained one ``render_with_heuristics`` step on each
    (loss, gradients and heuristics agree).  K2's home-major buffer is
    compared column by column: max |kernel - twin| <= 1e-4 * max |twin
-   column| + 1e-6 (its atomics sum in a varying order), at one pixel a
-   thread (the default) and at two.
+   column| + 1e-6 (its atomics sum in a varying order).
 3. The forward render at full size: 2M splats at 2048x1536, SH degree 3
    (``scenes.uniform_scene`` lifted to 3D), five ``render_gaussians``
    requests under ``torch.no_grad()`` (the last with the median-depth
@@ -37,8 +35,7 @@ Phases (any failure raises and exits non-zero):
    point heuristics) and a ``VisibilityAwareAdam`` step on the SH
    features, checked for zero overflow, finite loss and gradients,
    visibility >= 0, and K2 launches; then a staged timing of one step (as
-   in phase 3) and K2 against its twin at the full-size shapes, at one and
-   two pixels a thread.
+   in phase 3) and K2 against its twin at the full-size shapes.
 5. The sorted-overlap pipeline's kernels against their twins on the card:
    200k splats at 1024x768 with ``scenes.uniform_scene`` and with
    ``scenes.heavy_scene`` statistics, each mapped on the card by the
@@ -61,17 +58,17 @@ Phases (any failure raises and exits non-zero):
    render and per step; staged timings of a render and a step; K4-K7
    against their twins and K6 / K7 against one PyTorch call at the
    full-size shapes, where K6, K7, torch indexing and ``index_add_`` are
-   each timed as calls (CUDA events over back-to-back calls) and by device
-   time (the kernels' own time under ``torch.profiler`` over 20 calls, so
-   that a kernel of tens of microseconds is not judged by its Python
-   wrapper); and, for information, the sorted image against the
+   each timed as calls (CUDA events over 5 back-to-back calls) and by
+   device time (the kernels' own time under ``torch.profiler`` over 20
+   calls, so that a kernel of tens of microseconds is not judged by its
+   Python wrapper); and, for information, the sorted image against the
    stream image of the same pose (the stream pipeline composites in 14-bit
    depth order, the sorted one in exact f32 depth order).
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times and bounds (K6 and K7 with
-``device_ms`` and ``library_device_ms`` too, K2 with ``two_pixel_ms``),
-and ``{"ok": true, "device": ...}``.
+``device_ms`` and ``library_device_ms`` too), and ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -213,11 +210,10 @@ def kernel_vs_twin(mapping, config, label, reps=3):
   return err, k_ms, t_ms
 
 
-def backward_vs_twin(mapping, config, label, reps=3, per_thread=(1, 2)):
+def backward_vs_twin(mapping, config, label, reps=3):
   """K2 against stream_backward_reference on one cotangent, column by
-  column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6), at
-  each number of pixels a thread in per_thread.  Returns (max abs error,
-  {P: kernel ms}, twin ms)."""
+  column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6).
+  Returns (max abs error, kernel ms, twin ms)."""
   from tpu_splatting_torch.rasterizer.stream_kernels import (
       stream_backward, stream_backward_reference, stream_forward)
   img = stream_forward(mapping, config)
@@ -227,23 +223,19 @@ def backward_vs_twin(mapping, config, label, reps=3, per_thread=(1, 2)):
   t_ms = cuda_ms(lambda: stream_backward_reference(mapping, img, gimg,
                                                    config), 1)
   tol_col = 1e-4 * want.abs().amax(0) + 1e-6
-  errs, times = [], {}
-  for p in per_thread:
-    got = stream_backward(mapping, img, gimg, config, p)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all(), f"{label}: non-finite kernel output"
-    err_col = (got - want).abs().amax(0)
-    errs.append(float(err_col.max()))
-    times[p] = cuda_ms(lambda p=p: stream_backward(mapping, img, gimg,
-                                                   config, p), reps)
-    log(f"  {label} K2 at {p} pixel(s) a thread: max_abs_err "
-        f"{errs[-1]:.3e}, worst column at "
-        f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
-        f"{times[p]:.3f} ms  twin {t_ms:.3f} ms")
-    assert bool((err_col <= tol_col).all()), (
-        f"{label}: K2 disagrees with its twin at P = {p}", err_col.tolist(),
-        tol_col.tolist())
-  return max(errs), times, t_ms
+  got = stream_backward(mapping, img, gimg, config)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all(), f"{label}: non-finite kernel output"
+  err_col = (got - want).abs().amax(0)
+  err = float(err_col.max())
+  k_ms = cuda_ms(lambda: stream_backward(mapping, img, gimg, config), reps)
+  log(f"  {label} K2: max_abs_err {err:.3e}, worst column at "
+      f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
+      f"{k_ms:.3f} ms  twin {t_ms:.3f} ms")
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K2 disagrees with its twin", err_col.tolist(),
+      tol_col.tolist())
+  return err, k_ms, t_ms
 
 
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
@@ -255,7 +247,7 @@ K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
 
 
 def entry_label(ptxas_line):
-  """'stream_backward_kernel<6, 16, 1>' from ptxas's mangled name in its
+  """'stream_backward_kernel<6, 16>' from ptxas's mangled name in its
   'Compiling entry function' line."""
   m = re.search(r"\d([A-Za-z_]+_kernel)I(.+?)EEv", ptxas_line)
   if m is None:
@@ -687,8 +679,7 @@ def phase_train(dev, g3d, cams, cfg_caps):
   runs[2].log("step stages, each alone", names)
 
   log("  K2 vs twin at the full-size shapes")
-  err, k_times, t_ms = backward_vs_twin(m, cfg, "full heuristics", reps=5)
-  k_ms = k_times[1]
+  err, k_ms, t_ms = backward_vs_twin(m, cfg, "full heuristics", reps=5)
   slabw = sk.slab_width(cfg, m.feature_size)
   pairs = pairs_of(m, cfg)
   b_ms, b_by = bound_ms(
@@ -697,8 +688,7 @@ def phase_train(dev, g3d, cams, cfg_caps):
   log(f"  K2 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; {pairs} "
       f"(row, pixel) pairs, {k2_ops_per_pair(slabw)} operations each)")
   k2 = {"launches": launches["stream_backward"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "two_pixel_ms": k_times.get(2)}
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
 
   # K3's function on its own: sum every (tile, slab) window row's
   # gradient row into its home-major row.  Its plain version and its one
@@ -1141,7 +1131,7 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   # (events over back-to-back calls, the wrapper's host work included
   # where the device waits for it) and by device time (device_ms)
   o2p, src, cnt = m.overlap_to_point, m.chunk_src, m.chunk_cnt
-  k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 20)
+  k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 5)
   k6_dev = device_ms(lambda: layout.window_copy(o2p, src, cnt, g))
   t6_ms = cuda_ms(lambda: layout.window_copy_reference(o2p, src, cnt, g), 5)
   r = torch.arange(g, device=dev)
@@ -1149,7 +1139,7 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
                      o2p.shape[0]).reshape(-1)
   o2p_ext = torch.cat([o2p, o2p.new_zeros(1)])
   assert torch.equal(o2p_ext[flat], layout.window_copy(o2p, src, cnt, g))
-  l6_ms = cuda_ms(lambda: o2p_ext[flat], 20)
+  l6_ms = cuda_ms(lambda: o2p_ext[flat], 5)
   l6_dev = device_ms(lambda: o2p_ext[flat])
   b6 = bound_ms(0, nbytes(src, cnt) + valid * 4 + flat.numel() * 4)
   log(f"  K6 (overlap ids, {flat.numel()} slots): kernel {k6_ms:.4f} ms a "
@@ -1160,13 +1150,13 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
 
   ids, order = torch.sort(fn._pid_chunked(m), stable=True)
   rows = gout[order]
-  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 20)
+  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 5)
   k7_dev = device_ms(lambda: layout.segment_sum_sorted(rows, ids, n))
   t7_ms = cuda_ms(lambda: layout.segment_sum_sorted_reference(rows, ids, n),
                   5)
   acc = torch.zeros((n + 1, out_w), device=dev)
   ids_c = torch.clamp(ids, max=n)
-  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 20)
+  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 5)
   l7_dev = device_ms(lambda: acc.index_add_(0, ids_c, rows))
   b7 = bound_ms(0, nbytes(rows, ids) + (n + 1) * 4 + n * out_w * 4)
   log(f"  K7 ({rows.shape[0]} rows x {out_w} columns -> {n} points): kernel "

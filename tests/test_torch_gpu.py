@@ -92,13 +92,13 @@ def columns_close(got, want):
   assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
 
 
-def check_backward(dev, m, config, pixels_per_thread=1):
+def check_backward(dev, m, config):
   """K2 on a random cotangent against its twin, column by column."""
   img = sk.stream_forward(m, config)
   gen = torch.Generator(device=dev).manual_seed(0)
   gimg = torch.randn(img.shape, generator=gen, device=dev)
   sk.reset_launch_counts()
-  got = sk.stream_backward(m, img, gimg, config, pixels_per_thread)
+  got = sk.stream_backward(m, img, gimg, config)
   torch.cuda.synchronize()
   assert sk.launch_counts["stream_backward"] == 1
   want = sk.stream_backward_reference(m, img, gimg, config)
@@ -116,23 +116,12 @@ def test_backward_kernel_matches_twin(cuda, mode, tile_size):
   check_backward(cuda, mapping_for(cuda, config), config)
 
 
-@pytest.mark.parametrize("mode", sorted(BWD_MODES))
-@pytest.mark.parametrize("tile_size", [16, 8])
-def test_backward_kernel_two_pixels_per_thread(cuda, mode, tile_size):
-  """The P = 2 instantiation (each thread walks two pixels) against the
-  twin."""
-  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
-  check_backward(cuda, mapping_for(cuda, config), config, 2)
-
-
 @pytest.mark.parametrize("num_features", [16, 40])
 @pytest.mark.parametrize("tile_size", [16, 8])
 def test_backward_kernel_wide_features(cuda, num_features, tile_size):
   """The 32-wide reductions: one batch (16 features, the 22-feature
   instantiation) and two batches (40 features, the 56-feature one)."""
   config = RasterConfig(tile_size=tile_size, **BWD_MODES["heuristics"])
-  maxf, width, _ = sk.backward_variant(num_features, config.tile_area)
-  assert width == 32 and maxf == (22 if num_features == 16 else 56)
   m = mapping_for(cuda, config, num_features=num_features)
   assert m.feature_size == num_features
   check_backward(cuda, m, config)
@@ -149,6 +138,11 @@ def test_backward_kernel_rejects_bad_inputs(cuda):
   with pytest.raises(ValueError):
     sk.stream_backward(m, img, img, dataclasses.replace(
         config, use_alpha_blending=False))
+  # 16 pixels a tile are half a warp: no instantiation takes them
+  half_warp = img[..., :16].contiguous()
+  with pytest.raises(ValueError, match="instantiation"):
+    sk.stream_backward(m, half_warp, half_warp,
+                       dataclasses.replace(config, tile_size=4))
 
 
 def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):

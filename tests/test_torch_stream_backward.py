@@ -239,27 +239,3 @@ def test_cpu_tensors_take_the_twin():
   with pytest.raises(ValueError, match="quantile"):
     tkern.stream_backward(m, img, gimg, dataclasses.replace(
         tcfg, use_alpha_blending=False))
-
-
-@pytest.mark.parametrize("f, tile_size, per_thread, want", [
-    (3, 16, 1, (6, 16, 1)), (6, 8, 1, (6, 16, 1)), (3, 16, 2, (6, 16, 2)),
-    (7, 16, 1, (22, 32, 1)), (16, 8, 1, (22, 32, 1)),
-    (23, 16, 1, (56, 32, 1)), (56, 8, 1, (56, 32, 1))])
-def test_backward_variant_fits_the_terms(f, tile_size, per_thread, want):
-  """The CUDA wrapper's choice of K2 instantiation: the 10 + F gradient
-  terms of a thread fit the instantiation's batches of V slots, and its
-  P pixels a thread leave whole warps."""
-  variant = tkern.backward_variant(f, tile_size ** 2, per_thread)
-  assert variant == want and variant in tkern.BACKWARD_VARIANTS
-  maxf, width, per_thread = variant
-  assert f <= maxf and (tile_size ** 2 // per_thread) % 32 == 0
-  assert 10 + f <= -(-(10 + maxf) // width) * width
-
-
-def test_backward_variant_rejects_what_no_instantiation_takes():
-  with pytest.raises(ValueError, match="instantiation"):
-    tkern.backward_variant(57, 256)
-  with pytest.raises(ValueError, match="instantiation"):
-    tkern.backward_variant(7, 256, 2)
-  with pytest.raises(ValueError, match="warps"):
-    tkern.backward_variant(3, 32, 2)     # 16 threads at 2 pixels a thread

@@ -44,15 +44,7 @@
 // accumulator's column stride is slab_cap rounded up to 32, plus one, so
 // the columns of one slot fall in different banks.
 //
-// Design: one block per tile, P pixels per thread (tile_area / P threads;
-// thread t owns pixels t, t + tile_area / P, ...).  A thread walks the rows
-// once for its P pixels, each with its own log transmittance, carries and
-// freeze, in the order a one-pixel thread would; it adds its pixels' terms
-// in registers before the warp reduction, so P = 2 halves the shuffles,
-// the shared atomics and the threads in each block-wide vote.  It also
-// halves the warps an SM holds (shared memory caps the blocks, not the
-// threads), and on the H100 P = 1 is the faster at the headline shapes,
-// so the wrapper launches P = 1 unless asked for P = 2.  The log
+// Design: one block per tile, one thread per pixel.  The log
 // transmittance and the remaining-feature carry stay in registers across
 // slabs; a block stops once every pixel is frozen and skips the remaining
 // slabs, as the forward does.
@@ -130,7 +122,7 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[V], int lane) {
   return v[0];
 }
 
-template <int MAXF, int V, int P>
+template <int MAXF, int V>
 __global__ void stream_backward_kernel(Params p) {
   constexpr int NB = (kLead + MAXF + V - 1) / V;   // reduction batches
   extern __shared__ __align__(16) unsigned char smem[];
@@ -146,7 +138,7 @@ __global__ void stream_backward_kernel(Params p) {
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;           // tile_area / P
+  const int nthr = blockDim.x;           // tile_area
   const int lane = tid & 31;
   const int ts = p.tile_size;
   const int pix = ts * ts;
@@ -176,42 +168,30 @@ __global__ void stream_backward_kernel(Params p) {
 
   // per pixel: its coordinates, image cotangent, and s_total = sum_c
   // g_image * image over all F+1 channels (the weight channel included)
-  float px[P], py[P], px2[P], pxy[P], py2[P];
-  float gi[P][MAXF], gi_w[P], s_total[P];
-  float lt[P];        // log transmittance, carried across slabs
-  float s_prev[P];    // sum of w * g_f over earlier slabs
+  const float px = static_cast<float>(tid % ts) + 0.5f - half;
+  const float py = static_cast<float>(tid / ts) + 0.5f - half;
+  const float px2 = px * px, pxy = px * py, py2 = py * py;
+  const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
+  float gi[MAXF];
+  float s_total = 0.0f;
 #pragma unroll
-  for (int q = 0; q < P; ++q) {
-    const int pq = tid + q * nthr;
-    px[q] = static_cast<float>(pq % ts) + 0.5f - half;
-    py[q] = static_cast<float>(pq / ts) + 0.5f - half;
-    px2[q] = px[q] * px[q];
-    pxy[q] = px[q] * py[q];
-    py2[q] = py[q] * py[q];
-    const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + pq;
-    s_total[q] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAXF; ++c) {
-      gi[q][c] = 0.0f;
-      if (c < p.f) {
-        gi[q][c] = p.gimg[ib + static_cast<size_t>(c) * pix];
-        s_total[q] += gi[q][c] * p.img[ib + static_cast<size_t>(c) * pix];
-      }
+  for (int c = 0; c < MAXF; ++c) {
+    gi[c] = 0.0f;
+    if (c < p.f) {
+      gi[c] = p.gimg[ib + static_cast<size_t>(c) * pix];
+      s_total += gi[c] * p.img[ib + static_cast<size_t>(c) * pix];
     }
-    gi_w[q] = p.gimg[ib + static_cast<size_t>(p.f) * pix];
-    s_total[q] += gi_w[q] * p.img[ib + static_cast<size_t>(p.f) * pix];
-    lt[q] = 0.0f;
-    s_prev[q] = 0.0f;
   }
+  const float gi_w = p.gimg[ib + static_cast<size_t>(p.f) * pix];
+  s_total += gi_w * p.img[ib + static_cast<size_t>(p.f) * pix];
+  float lt = 0.0f;       // log transmittance, carried across slabs
+  float s_prev = 0.0f;   // sum of w * g_f over earlier slabs
 
   for (int s = 0; s < p.num_slabs; ++s) {
     const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
                                 * p.w_max * 4;
     if (s > 0) {
-      bool frozen = true;
-#pragma unroll
-      for (int q = 0; q < P; ++q) frozen = frozen && lt[q] <= p.lcut;
-      if (__syncthreads_and(frozen)) break;
+      if (__syncthreads_and(lt <= p.lcut)) break;
       if (d[1] <= 0) continue;
     }
     for (int i = tid; i < 4 * p.w_max; i += nthr) s_desc[i] = d[i];
@@ -314,117 +294,96 @@ __global__ void stream_backward_kernel(Params p) {
 
     // front-to-back walk in rank order, the forward's association of the
     // log transmittance (carry + sequential slab sum)
-    float lt_in[P], acc_l[P], acc_wgf[P];
-    bool done[P];
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-      lt_in[q] = lt[q];
-      acc_l[q] = 0.0f;
-      acc_wgf[q] = 0.0f;
-      done[q] = lt[q] <= p.lcut;
-    }
+    const float lt_in = lt;
+    float acc_l = 0.0f, acc_wgf = 0.0f;
+    bool done = lt <= p.lcut;
     for (int j = 0; j < n_valid; ++j) {
-      if ((j & 31) == 0) {
-        bool all_done = true;
-#pragma unroll
-        for (int q = 0; q < P; ++q) all_done = all_done && done[q];
-        if (__syncthreads_and(all_done)) break;
-      }
+      if ((j & 31) == 0 && __syncthreads_and(done)) break;
       const int slot = s_key[j] & 2047;
       const float* geo = s_geo + slot;
       const float mlx = geo[10 * sc], mly = geo[11 * sc];
 
-      // per pixel: slots 0-6 the packed-gaussian terms, then w, ag^2 and
-      // the split term; the features' terms are w * gi
-      float t7[P][7], tw[P], tprune[P], tsplit[P];
-      bool live_any = false;
+      // slots 0-6 the packed-gaussian terms, then w, ag^2 and the split
+      // term; the features' terms are w * gi
+      float a_raw;
+      if (p.antialias) {
+        const float ax = geo[0], ay = geo[1 * sc];
+        const float sx = geo[4 * sc], sy = geo[5 * sc];
+        const float tu = ax * px + ay * py + geo[2 * sc];
+        const float tv = -ay * px + ax * py + geo[3 * sc];
+        const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
+        const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
+        a_raw = geo[6 * sc] * (kTau * ix * iy);
+      } else {
+        a_raw = expf(geo[0] * px2 + geo[1 * sc] * pxy + geo[2 * sc] * py2
+                     + geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc]);
+      }
+      const float a = a_raw > p.alpha_threshold
+                          ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
+      const float lt_j = acc_l + lt_in;
+      const bool live = lt_j > p.lcut && a > 0.0f;
+
+      float t7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float tw = 0.0f, tprune = 0.0f, tsplit = 0.0f;
+      if (live) {
+        const float t = expf(lt_j);
+        const float w = a * t;
+        float gf = 0.0f;
 #pragma unroll
-      for (int q = 0; q < P; ++q) {
-        float a_raw;
+        for (int c = 0; c < MAXF; ++c)
+          if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
+        gf += gi_w;
+        const float wgf = w * gf;
+        acc_wgf += wgf;
+        const float s_i = s_total - (acc_wgf + s_prev);
+        const float ag = t * gf - s_i / (1.0f - a);
+        acc_l += log1pf(-a);
+        const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
+        const float dx = px - mlx, dy = py - mly;
         if (p.antialias) {
           const float ax = geo[0], ay = geo[1 * sc];
           const float sx = geo[4 * sc], sy = geo[5 * sc];
-          const float tu = ax * px[q] + ay * py[q] + geo[2 * sc];
-          const float tv = -ay * px[q] + ax * py[q] + geo[3 * sc];
-          const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
-          const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
-          a_raw = geo[6 * sc] * (kTau * ix * iy);
+          const float pa = geo[6 * sc];
+          const float tu = ax * px + ay * py + geo[2 * sc];
+          const float tv = -ay * px + ax * py + geo[3 * sc];
+          float sx1, dx1, dx1s, sx2, dx2, dx2s;
+          float sy1, dy1, dy1s, sy2, dy2, dy2s;
+          s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
+          s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
+          s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
+          s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
+          const float ix = sx * (sx1 - sx2);
+          const float iy = sy * (sy1 - sy2);
+          const float dsx_t = iy * sx * (dx1 - dx2);
+          const float dsy_t = ix * sy * (dy1 - dy2);
+          const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
+          t7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
+          t7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
+          t7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
+          t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
+          t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
+          t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
         } else {
-          a_raw = expf(geo[0] * px2[q] + geo[1 * sc] * pxy[q]
-                       + geo[2 * sc] * py2[q] + geo[3 * sc] * px[q]
-                       + geo[4 * sc] * py[q] + geo[5 * sc]);
+          const float ax = geo[6 * sc], ay = geo[7 * sc];
+          const float isx = geo[8 * sc], isy = geo[9 * sc];
+          const float u = (ax * dx + ay * dy) * isx;
+          const float v = (-ay * dx + ax * dy) * isy;
+          const float zu = z0 * u, zv = z0 * v;
+          t7[0] = ax * isx * zu - ay * isy * zv;
+          t7[1] = ay * isx * zu + ax * isy * zv;
+          t7[2] = -isx * zu * dx - isy * zv * dy;
+          t7[3] = -isx * zu * dy + isy * zv * dx;
+          t7[4] = isx * zu * u;
+          t7[5] = isy * zv * v;
         }
-        const float a = a_raw > p.alpha_threshold
-                            ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
-        const float lt_j = acc_l[q] + lt_in[q];
-        const bool live = lt_j > p.lcut && a > 0.0f;
-        live_any = live_any || live;
-
-#pragma unroll
-        for (int c = 0; c < 7; ++c) t7[q][c] = 0.0f;
-        tw[q] = 0.0f;
-        tprune[q] = 0.0f;
-        tsplit[q] = 0.0f;
-        if (live) {
-          const float t = expf(lt_j);
-          const float w = a * t;
-          float gf = 0.0f;
-#pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) gf += s_feat[c * sc + slot] * gi[q][c];
-          gf += gi_w[q];
-          const float wgf = w * gf;
-          acc_wgf[q] += wgf;
-          const float s_i = s_total[q] - (acc_wgf[q] + s_prev[q]);
-          const float ag = t * gf - s_i / (1.0f - a);
-          acc_l[q] += log1pf(-a);
-          const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
-          const float dx = px[q] - mlx, dy = py[q] - mly;
-          if (p.antialias) {
-            const float ax = geo[0], ay = geo[1 * sc];
-            const float sx = geo[4 * sc], sy = geo[5 * sc];
-            const float pa = geo[6 * sc];
-            const float tu = ax * px[q] + ay * py[q] + geo[2 * sc];
-            const float tv = -ay * px[q] + ax * py[q] + geo[3 * sc];
-            float sx1, dx1, dx1s, sx2, dx2, dx2s;
-            float sy1, dy1, dy1s, sy2, dy2, dy2s;
-            s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
-            s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
-            s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
-            s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
-            const float ix = sx * (sx1 - sx2);
-            const float iy = sy * (sy1 - sy2);
-            const float dsx_t = iy * sx * (dx1 - dx2);
-            const float dsy_t = ix * sy * (dy1 - dy2);
-            const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
-            t7[q][0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
-            t7[q][1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
-            t7[q][2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
-            t7[q][3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
-            t7[q][4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
-            t7[q][5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
-          } else {
-            const float ax = geo[6 * sc], ay = geo[7 * sc];
-            const float isx = geo[8 * sc], isy = geo[9 * sc];
-            const float u = (ax * dx + ay * dy) * isx;
-            const float v = (-ay * dx + ax * dy) * isy;
-            const float zu = z0 * u, zv = z0 * v;
-            t7[q][0] = ax * isx * zu - ay * isy * zv;
-            t7[q][1] = ay * isx * zu + ax * isy * zv;
-            t7[q][2] = -isx * zu * dx - isy * zv * dy;
-            t7[q][3] = -isx * zu * dy + isy * zv * dx;
-            t7[q][4] = isx * zu * u;
-            t7[q][5] = isy * zv * v;
-          }
-          t7[q][6] = z0;                       // / pa at the flush
-          tw[q] = w;
-          tprune[q] = ag * ag;                 // * pa^2 at the flush
-          tsplit[q] = fabsf(t7[q][0]) + fabsf(t7[q][1]);
-        }
-        done[q] = acc_l[q] + lt_in[q] <= p.lcut;
+        t7[6] = z0;                            // / pa at the flush
+        tw = w;
+        tprune = ag * ag;                      // * pa^2 at the flush
+        tsplit = fabsf(t7[0]) + fabsf(t7[1]);
       }
+      done = acc_l + lt_in <= p.lcut;
 
-      if (__any_sync(kFull, live_any)) {
+      if (__any_sync(kFull, live)) {
         float* acc = s_acc + slot;
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
@@ -435,15 +394,11 @@ __global__ void stream_backward_kernel(Params p) {
             const int k = b * V + i;          // slot
             const int c = k - kLead;          // feature of the slot
             float x = 0.0f;
-#pragma unroll
-            for (int q = 0; q < P; ++q) {
-              if (k < 7) x += t7[q][k < 7 ? k : 0];
-              else if (k == 7) x += tw[q];
-              else if (k == 8) x += tprune[q];
-              else if (k == 9) x += tsplit[q];
-              else if (c < MAXF)
-                x += tw[q] * gi[q][c >= 0 && c < MAXF ? c : 0];
-            }
+            if (k < 7) x = t7[k < 7 ? k : 0];
+            else if (k == 7) x = tw;
+            else if (k == 8) x = tprune;
+            else if (k == 9) x = tsplit;
+            else if (c < MAXF) x = tw * gi[c >= 0 && c < MAXF ? c : 0];
             v[i] = x;
           }
           const float x = reduce_scatter<V>(v, lane);
@@ -451,11 +406,8 @@ __global__ void stream_backward_kernel(Params p) {
         }
       }
     }
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-      lt[q] = acc_l[q] + lt_in[q];
-      s_prev[q] += acc_wgf[q];
-    }
+    lt = acc_l + lt_in;
+    s_prev += acc_wgf;
     __syncthreads();
 
     // flush the slab's rows into the home-major buffer
@@ -480,14 +432,14 @@ __global__ void stream_backward_kernel(Params p) {
   }
 }
 
-template <int MAXF, int V, int P>
+template <int MAXF, int V>
 int launch(const Params& p, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      stream_backward_kernel<MAXF, V, P>,
+      stream_backward_kernel<MAXF, V>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  stream_backward_kernel<MAXF, V, P>
-      <<<p.num_tiles, p.tile_size * p.tile_size / P, smem, st>>>(p);
+  stream_backward_kernel<MAXF, V>
+      <<<p.num_tiles, p.tile_size * p.tile_size, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,10 +457,12 @@ extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
                 + 8 * w_max + 2);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a (max_features, width, pixels_per_thread)
-// that has no instantiation.  `out` must be zero-initialised: the kernel
-// only adds to it.
+// Launch on `stream` the instantiation <most features, V> that takes
+// feature_size: the 10 + F gradient terms of a thread in batches of V
+// slots.  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue when no instantiation takes feature_size or a
+// tile is not a whole number of warps.  `out` must be zero-initialised:
+// the kernel only adds to it.
 extern "C" int tpu_splat_stream_backward(
     const float* table, const int* desc, const int* strip_blk,
     const float* img, const float* gimg, float* out, int num_tiles,
@@ -516,7 +470,7 @@ extern "C" int tpu_splat_stream_backward(
     int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
     int antialias, int run_cap, int slabw, int with_vis, int heur,
     float alpha_threshold, float clamp_max_alpha, float lcut,
-    int max_features, int width, int pixels_per_thread, void* stream) {
+    void* stream) {
   Params p;
   p.table = table;
   p.desc = desc;
@@ -548,15 +502,10 @@ extern "C" int tpu_splat_stream_backward(
   const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
       slab_cap, w_max, feature_size, slabw));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feature_size > max_features)
+  if ((tile_size * tile_size) % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (max_features == 6 && width == 16 && pixels_per_thread == 1)
-    return launch<6, 16, 1>(p, smem, st);
-  if (max_features == 6 && width == 16 && pixels_per_thread == 2)
-    return launch<6, 16, 2>(p, smem, st);
-  if (max_features == 22 && width == 32 && pixels_per_thread == 1)
-    return launch<22, 32, 1>(p, smem, st);
-  if (max_features == 56 && width == 32 && pixels_per_thread == 1)
-    return launch<56, 32, 1>(p, smem, st);
+  if (feature_size <= 6) return launch<6, 16>(p, smem, st);
+  if (feature_size <= 22) return launch<22, 32>(p, smem, st);
+  if (feature_size <= 56) return launch<56, 32>(p, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,6 +44,7 @@ import math
 import torch
 
 from ..data_types import RasterConfig
+from ..utils.cuda_build import launch_stream, load_kernel_library
 
 _NEG_BIG = -3.0e38   # "log 0" fill that stays finite in f32 arithmetic
 
@@ -396,7 +397,6 @@ def _check_inputs(name, sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
 
 @functools.cache
 def _fwd_kernel():
-  from ..utils.cuda_build import load_kernel_library
   lib = load_kernel_library("sorted_forward.cu")
   lib.tpu_splat_sorted_forward.restype = ctypes.c_int
   lib.tpu_splat_sorted_forward.argtypes = (
@@ -443,8 +443,7 @@ def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
   vis = (torch.zeros((chunk_src.shape[0] * g, 1), dtype=torch.float32,
                      device=dev) if with_vis else None)
   blending = config.use_alpha_blending
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
+  with launch_stream(dev) as stream:
     err = lib.tpu_splat_sorted_forward(
         sorted_rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
         first.data_ptr(), image.data_ptr(),
@@ -462,7 +461,6 @@ def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
 
 @functools.cache
 def _bwd_kernel():
-  from ..utils.cuda_build import load_kernel_library
   lib = load_kernel_library("sorted_backward.cu")
   lib.tpu_splat_sorted_backward.restype = ctypes.c_int
   lib.tpu_splat_sorted_backward.argtypes = (
@@ -522,8 +520,7 @@ def backward(sorted_rows: torch.Tensor, image_tiled: torch.Tensor,
   first = _tile_chunks(chunk_to_tile, num_tiles).to(torch.int32)
   gout = torch.zeros((chunk_src.shape[0] * g, out_w), dtype=torch.float32,
                      device=dev)
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
+  with launch_stream(dev) as stream:
     err = lib.tpu_splat_sorted_backward(
         sorted_rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
         first.data_ptr(), image_tiled.data_ptr(), g_image_tiled.data_ptr(),

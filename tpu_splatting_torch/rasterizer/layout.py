@@ -21,11 +21,12 @@ tensor to the ``*_reference`` twin.  There is no fallback between the two.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
+
+from ..utils.cuda_build import launch_stream, load_kernel_library
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
 launch_counts = {"window_copy": 0, "segment_sum_sorted": 0}
@@ -60,7 +61,6 @@ def segment_sum_sorted_reference(rows: torch.Tensor, ids: torch.Tensor,
 
 @functools.cache
 def _kernel():
-  from ..utils.cuda_build import load_kernel_library
   lib = load_kernel_library("layout.cu")
   lib.tpu_splat_window_copy.restype = ctypes.c_int
   lib.tpu_splat_window_copy.argtypes = (
@@ -79,19 +79,6 @@ def _check(name, x, dev, dtypes, dim):
   if x.dim() != dim:
     raise ValueError(f"{name}: expected {dim} dimensions, got "
                      f"{tuple(x.shape)}")
-
-
-# K6's device time is about as short as its wrapper's host work, so the
-# launch helpers skip the device guard when ``dev`` is current and read
-# the raw stream handle without building a torch.cuda.Stream
-def _launch_guard(dev):
-  if dev.index == torch.cuda.current_device():
-    return contextlib.nullcontext()
-  return torch.cuda.device(dev)
-
-
-def _stream(dev):
-  return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def check_window_copy_range(k: int, g: int, c: int, m: int):
@@ -133,10 +120,10 @@ def window_copy(rows: torch.Tensor, chunk_src: torch.Tensor,
   out = torch.empty((k * g, *rows.shape[1:]), dtype=rows.dtype, device=dev)
   if out.numel() == 0:
     return out
-  with _launch_guard(dev):
+  with launch_stream(dev) as stream:
     err = _kernel().tpu_splat_window_copy(
         rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
-        out.data_ptr(), k, g, c, m, rows.element_size(), _stream(dev))
+        out.data_ptr(), k, g, c, m, rows.element_size(), stream)
   if err != 0:
     raise RuntimeError(f"window_copy kernel launch failed: CUDA error {err}")
   launch_counts["window_copy"] += 1
@@ -170,10 +157,10 @@ def segment_sum_sorted(rows: torch.Tensor, ids: torch.Tensor,
   bounds = torch.searchsorted(
       ids, torch.arange(num_segments + 1, dtype=torch.int32, device=dev),
       side="left", out_int32=True)
-  with _launch_guard(dev):
+  with launch_stream(dev) as stream:
     err = _kernel().tpu_splat_segment_sum_sorted(
         rows.data_ptr(), bounds.data_ptr(), out.data_ptr(), num_segments, c,
-        rows.element_size(), _stream(dev))
+        rows.element_size(), stream)
   if err != 0:
     raise RuntimeError(f"segment_sum_sorted kernel launch failed: CUDA "
                        f"error {err}")

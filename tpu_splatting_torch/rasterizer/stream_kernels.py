@@ -38,6 +38,8 @@ import math
 import torch
 
 from ..data_types import RasterConfig
+from ..utils.cuda_build import (CUDA_ERROR_INVALID_VALUE, launch_stream,
+                                 load_kernel_library)
 from .kernels import _NEG_BIG, _antialias_grads, _s_sig
 from .stream import STRIP_SLACK, StreamMapping
 
@@ -432,7 +434,6 @@ _SMEM_LIMIT = 232448   # dynamic shared memory per block on Hopper
 @functools.cache
 def _kernel():
   """The built library, with its C signatures declared (once)."""
-  from ..utils.cuda_build import load_kernel_library
   lib = load_kernel_library("stream_forward.cu")
   lib.tpu_splat_stream_forward.restype = ctypes.c_int
   lib.tpu_splat_stream_forward.argtypes = (
@@ -464,8 +465,7 @@ def stream_forward(mapping: StreamMapping,
                      f"limit is {_SMEM_LIMIT}")
   out = torch.empty((mapping.num_tiles, f + 1, config.tile_area),
                     dtype=torch.float32, device=dev)
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
+  with launch_stream(dev) as stream:
     err = lib.tpu_splat_stream_forward(
         mapping.table.data_ptr(), mapping.desc.data_ptr(),
         mapping.strip_blk.data_ptr(), out.data_ptr(),
@@ -483,53 +483,26 @@ def stream_forward(mapping: StreamMapping,
   return out
 
 
-# The instantiations of csrc/stream_backward.cu: (most features, reduction
-# width V, pixels per thread P).  A thread's gradient terms take 10 + F
-# slots (7 packed-gaussian, visibility, prune, split, the features),
-# reduced in batches of V.  P = 2 exists for the headline's features only:
-# on the H100 it is slower than P = 1 at the headline shapes (PERF.md).
-BACKWARD_VARIANTS = ((6, 16, 1), (6, 16, 2), (22, 32, 1), (56, 32, 1))
-
-
-def backward_variant(f: int, tile_area: int,
-                     pixels_per_thread: int = 1) -> tuple:
-  """The K2 instantiation (max features, V, P) for f features, tile_area
-  pixels a tile and P pixels a thread; ValueError when none takes the
-  shape."""
-  if tile_area % (32 * pixels_per_thread):
-    raise ValueError(f"stream_backward kernel: tile_area {tile_area} is not "
-                     f"a whole number of warps at {pixels_per_thread} "
-                     "pixels a thread")
-  for variant in BACKWARD_VARIANTS:
-    if f <= variant[0] and variant[2] == pixels_per_thread:
-      return variant
-  raise ValueError(f"stream_backward kernel: no instantiation takes {f} "
-                   f"features at {pixels_per_thread} pixels a thread")
-
-
 @functools.cache
 def _bwd_kernel():
-  from ..utils.cuda_build import load_kernel_library
   lib = load_kernel_library("stream_backward.cu")
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_float] * 3
-      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+      + [ctypes.c_void_p])
   lib.tpu_splat_stream_backward_smem.restype = ctypes.c_longlong
   lib.tpu_splat_stream_backward_smem.argtypes = [ctypes.c_int] * 4
   return lib
 
 
 def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
-                    g_image_tiled: torch.Tensor, config: RasterConfig,
-                    pixels_per_thread: int = 1) -> torch.Tensor:
+                    g_image_tiled: torch.Tensor,
+                    config: RasterConfig) -> torch.Tensor:
   """Backward rasterization: the (T*run_cap + 1, slabw) home-major
   gradient buffer of ``stream_forward``'s image cotangent.
 
   CPU mapping -> ``stream_backward_reference``; CUDA mapping -> the
-  ``csrc/stream_backward.cu`` kernel (the instantiation
-  ``backward_variant`` picks for ``pixels_per_thread``), or an
-  exception."""
+  ``csrc/stream_backward.cu`` kernel, or an exception."""
   dev = mapping.table.device
   if dev.type == "cpu":
     return stream_backward_reference(mapping, image_tiled, g_image_tiled,
@@ -541,7 +514,6 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   w_pad = _check_kernel_inputs(mapping, config, "stream_backward")
   f = mapping.feature_size
   t, pix = mapping.num_tiles, config.tile_area
-  variant = backward_variant(f, pix, pixels_per_thread)
   for name, x in (("image_tiled", image_tiled),
                   ("g_image_tiled", g_image_tiled)):
     if x.device != dev:
@@ -567,8 +539,7 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
                      f"{slabw} gradient columns); the limit is {_SMEM_LIMIT}")
   out = torch.zeros((t * mapping.run_cap + 1, slabw), dtype=torch.float32,
                     device=dev)
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
+  with launch_stream(dev) as stream:
     err = lib.tpu_splat_stream_backward(
         mapping.table.data_ptr(), mapping.desc.data_ptr(),
         mapping.strip_blk.data_ptr(), image_tiled.data_ptr(),
@@ -578,7 +549,11 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
         int(heur), config.alpha_threshold, config.clamp_max_alpha,
-        _log_cut(config), *variant, stream)
+        _log_cut(config), stream)
+  if err == CUDA_ERROR_INVALID_VALUE:
+    raise ValueError(f"stream_backward kernel: no instantiation takes {f} "
+                     f"features at {pix} pixels a tile (whole warps, at "
+                     "most 56 features)")
   if err != 0:
     raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
                        f"{err}")

@@ -10,6 +10,7 @@ wrapper.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -26,6 +29,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+CUDA_ERROR_INVALID_VALUE = 1    # cudaErrorInvalidValue, as the entries return it
 
 _locks_guard = threading.Lock()
 _locks = {}      # one lock per source: different sources build in parallel
@@ -80,3 +85,11 @@ def load_kernel_libraries(sources) -> dict:
   from concurrent.futures import ThreadPoolExecutor
   with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
     return dict(zip(sources, pool.map(load_kernel_library, sources)))
+
+
+@contextlib.contextmanager
+def launch_stream(dev: torch.device):
+  """Make ``dev`` the current device for one kernel launch and yield the
+  handle (a ``cudaStream_t``) of its current stream."""
+  with torch.cuda.device(dev):
+    yield torch.cuda.current_stream(dev).cuda_stream
