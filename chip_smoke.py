@@ -9,12 +9,21 @@ Phases (any failure raises and exits non-zero):
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2,
    the sorted forward K4 and backward K5, the layout kernels K6 and K7)
-   and prints each kernel instantiation's registers and spills (K2's as
-   stream_backward_kernel<most features, reduction width V>).
+   and prints each kernel instantiation's registers and spills (K2's and
+   K5's as <most features, reduction width V>; the generic
+   instantiations, which take any feature count and tile, as
+   *_generic_kernel).  Then, for every kernel at the headline shapes, the
+   instantiation, threads and shared memory the wrapper's plan picks and
+   the resident blocks and warps per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); and the plans'
+   shared-memory formulas (Python) against the kernels' own ``*_smem``
+   entries (C) over a grid of feature counts, tiles and capacities.
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
-   modes) and 200k splats with ``scenes.heavy_scene`` statistics
+   modes; both again at 64 features and at ``tile_size`` 4, past the
+   register instantiations and below a whole warp) and 200k splats with
+   ``scenes.heavy_scene`` statistics
    (calibrated from slab_cap 1024 and from 128: many slabs, duplicate
    rows), each mapped by the port's own ``calibrate_stream`` +
    ``stream_map``; plus one small 3D scene mapped on the card and on the
@@ -43,7 +52,10 @@ Phases (any failure raises and exits non-zero):
    K4 in blending, antialias and quantile modes with visibility (image max
    abs <= 1e-4, visibility per row <= 1e-4 * max + 1e-6), K5 in blending,
    antialias and heuristics modes (per column <= 1e-4 * max |twin column|
-   + 1e-6), K6 bit for bit, K7 per column <= 1e-5 * max + 1e-6; and one
+   + 1e-6), K6 bit for bit, K7 per column <= 1e-5 * max + 1e-6; K4 and
+   K5 (all three modes) again at 64 features and at ``tile_size`` 4; K5
+   twice on the same inputs, printing the largest difference between its
+   two runs (its shared atomics sum in a varying order); and one
    small 3D scene mapped on the card and on the CPU (identical integer
    fields) and trained one sorted ``render_with_heuristics`` step on each
    (equal loss to 1e-4 relative).
@@ -66,9 +78,9 @@ Phases (any failure raises and exits non-zero):
    depth order, the sorted one in exact f32 depth order).
 
 The last two lines of standard output are one JSON object with the
-kernels' launches, errors, times and bounds (K6 and K7 with
-``device_ms`` and ``library_device_ms`` too), and ``{"ok": true,
-"device": ...}``.
+kernels' launches, errors, times, bounds and resident warps per SM at the
+full shapes (K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
+K5 with its run-to-run difference), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -258,6 +270,80 @@ def entry_label(ptxas_line):
   return f"{m.group(1)}<{', '.join(args)}>"
 
 
+# the headline's shapes (PERF.md section 4): F 3 with heuristics, tile 16,
+# stream slab_cap 512 and w_max 27, sorted chunk 128
+HEADLINE = dict(f=3, tile_area=256, slab_cap=512, w_max=27, chunk=128)
+
+
+def kernel_plans(f, tile_area, slab_cap, w_max, chunk, heur=True):
+  """{kernel: (library, C entry stem, plan, the C *_smem arguments but the
+  plan's)} of K1, K2, K4 and K5 at these shapes."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  slabw = 7 + f + (3 if heur else 0)
+  out_w = 7 + f + (2 if heur else 0)
+  return {
+      "K1": (sk._kernel(), "tpu_splat_stream_forward",
+             sk.stream_forward_plan(f, slab_cap, w_max, tile_area),
+             (slab_cap, w_max, f)),
+      "K2": (sk._bwd_kernel(), "tpu_splat_stream_backward",
+             sk.stream_backward_plan(f, slab_cap, w_max, slabw, tile_area),
+             (slab_cap, w_max, f, slabw)),
+      "K4": (kk._fwd_kernel(), "tpu_splat_sorted_forward",
+             kk.sorted_forward_plan(f, chunk, tile_area), (chunk, f)),
+      "K5": (kk._bwd_kernel(), "tpu_splat_sorted_backward",
+             kk.sorted_backward_plan(f, chunk, out_w, tile_area),
+             (chunk, f, out_w))}
+
+
+def occupancy_of(name, plan=None):
+  """Resident blocks and warps per SM, registers and local bytes of a
+  kernel: K1, K2, K4, K5 at a plan, K6 / K7 as they launch (f32 rows,
+  256 threads, no shared memory)."""
+  import ctypes
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.utils.cuda_build import occupancy
+  if name in ("K6", "K7"):
+    out = (ctypes.c_int * 3)()
+    err = layout._kernel().tpu_splat_layout_occupancy(
+        0 if name == "K6" else 1, 4, 256, out)
+    assert err == 0, err
+    return {"blocks_per_sm": out[0], "warps_per_sm": out[0] * 8,
+            "registers": out[1], "local_bytes": out[2]}
+  lib, stem, plan0, _ = kernel_plans(**HEADLINE)[name]
+  return occupancy(lib, stem, plan or plan0)
+
+
+def phase_plans():
+  """Occupancy of every kernel at the headline shapes, and the plans'
+  shared-memory formulas against the C entries'."""
+  occ = {}
+  for name in ("K1", "K2", "K4", "K5", "K6", "K7"):
+    occ[name] = occupancy_of(name)
+    plan = (kernel_plans(**HEADLINE)[name][2] if name not in ("K6", "K7")
+            else None)
+    log(f"  {name} at the headline shapes: "
+        + (f"instantiation {plan.max_features}, {plan.threads} threads, "
+           f"{plan.smem} B of shared memory; " if plan else
+           "256 threads, no shared memory; ")
+        + f"{occ[name]['registers']} registers, {occ[name]['local_bytes']} "
+        f"local bytes, {occ[name]['blocks_per_sm']} blocks = "
+        f"{occ[name]['warps_per_sm']} warps resident per SM")
+  checked = 0
+  for f in (3, 6, 7, 8, 22, 23, 24, 56, 57, 64, 100):
+    for tile_area in (16, 64, 256, 1024):
+      for slab_cap, chunk in ((128, 32), (512, 128), (1792, 128)):
+        for name, (lib, stem, plan, args) in kernel_plans(
+            f, tile_area, slab_cap, 27, chunk).items():
+          c_smem = getattr(lib, f"{stem}_smem")(*args, plan.max_features,
+                                                plan.threads)
+          assert c_smem == plan.smem, (name, f, tile_area, plan, c_smem)
+          checked += 1
+  log(f"  plan shared memory equals the C *_smem entries at {checked} "
+      "shapes (F 3-100, tiles of 16-1024 pixels)")
+  return occ
+
+
 def phase_device():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: CUDA is not available")
@@ -282,7 +368,13 @@ def phase_device():
         log(f"  {entry_label(line)}")
       elif "registers" in line or "spill" in line:
         log(f"    ptxas: {line.strip()}")
-  return card
+  return card, phase_plans()
+
+
+def wide_features(n, num_features):
+  """(n, num_features) f32 features in [0, 1), from a seed."""
+  return np.random.default_rng(11).uniform(
+      0.0, 1.0, (n, num_features)).astype(np.float32)
 
 
 def mapped_scene(packed, depth, feats, image_size, config, dev,
@@ -349,10 +441,34 @@ def phase_twin(dev):
   # K2 must still fit one block's shared memory there at F = 3 with
   # heuristics (13 columns; w_max as in the 32-slab mapping above)
   from tpu_splatting_torch.rasterizer import stream_kernels as sk
-  smem = sk._bwd_kernel().tpu_splat_stream_backward_smem(1792, m.w_max, 3, 13)
+  from tpu_splatting_torch.utils.cuda_build import SMEM_LIMIT
+  smem = sk.stream_backward_plan(3, 1792, m.w_max, 13, 256).smem
   log(f"  K2 shared memory at slab_cap 1792, w_max {m.w_max}, F 3, 13 "
-      f"columns: {smem} B of {sk._SMEM_LIMIT}")
-  assert smem <= sk._SMEM_LIMIT, smem
+      f"columns: {smem} B of {SMEM_LIMIT}")
+  assert smem <= SMEM_LIMIT, smem
+
+  # past the headline: 64 features (the generic instantiations; slabs of
+  # 128 rows, which K2's shared memory holds at that width) and 16-pixel
+  # tiles (half a warp: the block is padded with frozen lanes)
+  scene = uniform_scene(np.random.default_rng(0), N_SMALL, SIZE_SMALL)
+  wide = wide_features(N_SMALL, 64)
+  for num_f, ts in ((64, 16), (3, 4), (64, 4)):
+    log(f"phase 2: K1 and K2 vs twins, uniform {N_SMALL} splats "
+        f"{SIZE_SMALL}, {num_f} features, tile_size {ts}")
+    feats = wide if num_f == 64 else scene[2]
+    cfg, build, f_dev, _ = mapped_scene(
+        scene[0], scene[1], feats, SIZE_SMALL, RasterConfig(tile_size=ts),
+        dev, slab_cap=128 if num_f == 64 else 512)
+    m = build(f_dev)
+    plans = kernel_plans(num_f, cfg.tile_area, m.slab_cap, m.w_max, 128)
+    log(f"  mapping: slab_cap {m.slab_cap} num_slabs {m.num_slabs} w_max "
+        f"{m.w_max}; plans K1 {tuple(plans['K1'][2])} K2 "
+        f"{tuple(plans['K2'][2])}")
+    errs.append(kernel_vs_twin(m, cfg, f"F {num_f} tile {ts} blending",
+                               reps=1)[0])
+    errs2.append(backward_vs_twin(
+        m, dataclasses.replace(cfg, **HEUR),
+        f"F {num_f} tile {ts} heuristics", reps=1)[0])
   return max(errs), max(errs2)
 
 
@@ -568,8 +684,13 @@ def phase_full(dev):
                         nbytes(m.table, m.desc, m.strip_blk, it))
   log(f"  K1 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; "
       f"{pairs_of(m, cfg)} (row, pixel) pairs)")
+  occ1 = occupancy_of("K1", sk.stream_forward_plan(
+      m.feature_size, m.slab_cap, m.w_max, cfg.tile_area))
+  log(f"  K1 at the full shapes (slab_cap {m.slab_cap}, w_max {m.w_max}): "
+      f"{occ1}")
   k1 = {"launches": launches, "max_abs_err": max(err_b, err_q),
-        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "resident_warps_per_sm": occ1["warps_per_sm"]}
   return k1, g3d, cams, cfg
 
 
@@ -687,8 +808,12 @@ def phase_train(dev, g3d, cams, cfg_caps):
       nbytes(m.table, m.desc, m.strip_blk, it, g_it, buf))
   log(f"  K2 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; {pairs} "
       f"(row, pixel) pairs, {k2_ops_per_pair(slabw)} operations each)")
+  occ2 = occupancy_of("K2", sk.stream_backward_plan(
+      m.feature_size, m.slab_cap, m.w_max, slabw, cfg.tile_area))
+  log(f"  K2 at the full shapes: {occ2}")
   k2 = {"launches": launches["stream_backward"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by}
+        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "resident_warps_per_sm": occ2["warps_per_sm"]}
 
   # K3's function on its own: sum every (tile, slab) window row's
   # gradient row into its home-major row.  Its plain version and its one
@@ -707,7 +832,8 @@ def phase_train(dev, g3d, cams, cfg_caps):
       f"{merge_ms:.3f} ms, bound {b3_ms:.4f} ms ({b3_by})")
   k3 = {"launches": launches["stream_backward"], "max_abs_err": err,
         "ms": k_ms, "plain_ms": merge_ms, "bound_ms": b3_ms,
-        "bound_by": b3_by, "library_ms": merge_ms}
+        "bound_by": b3_by, "library_ms": merge_ms,
+        "resident_warps_per_sm": occ2["warps_per_sm"]}
   return k2, k3
 
 
@@ -771,21 +897,25 @@ def sorted_backward_vs_twin(m, config, label, reps=3):
   args = (m.sorted_payload, img, gimg, m.chunk_src, m.chunk_cnt,
           m.chunk_to_tile, config, m.num_tiles, m.tiles_wide)
   got = kk.backward(*args)
+  again = kk.backward(*args)
   want = kk.backward_reference(*args)
   torch.cuda.synchronize()
   assert torch.isfinite(got).all(), f"{label}: non-finite K5 output"
   err_col = (got - want).abs().amax(0)
   tol_col = 1e-4 * want.abs().amax(0) + 1e-6
   err = float(err_col.max())
+  rerun = float((got - again).abs().max())
   k_ms = cuda_ms(lambda: kk.backward(*args), reps)
   t_ms = cuda_ms(lambda: kk.backward_reference(*args), 1)
   log(f"  {label} K5: max_abs_err {err:.3e}, worst column at "
-      f"{float((err_col / tol_col).max()):.3f} of its tolerance  kernel "
-      f"{k_ms:.3f} ms  twin {t_ms:.3f} ms")
+      f"{float((err_col / tol_col).max()):.3f} of its tolerance; two runs "
+      f"differ by {rerun:.3e} at most  kernel {k_ms:.3f} ms  twin "
+      f"{t_ms:.3f} ms")
   assert bool((err_col <= tol_col).all()), (
       f"{label}: K5 disagrees with its twin", err_col.tolist(),
       tol_col.tolist())
-  return err, k_ms, t_ms, got
+  assert bool(((got - again).abs().amax(0) <= tol_col).all()), label
+  return err, k_ms, t_ms, got, rerun
 
 
 def layout_vs_twins(m, gout, label, reps=3):
@@ -848,10 +978,29 @@ def phase_sorted_twin(dev):
     e5.append(sorted_backward_vs_twin(
         m, dataclasses.replace(cfg, antialias=True), f"{name} antialias",
         reps)[0])
-    err, _, _, gout = sorted_backward_vs_twin(
+    err, _, _, gout, _ = sorted_backward_vs_twin(
         m, dataclasses.replace(cfg, **HEUR), f"{name} heuristics", reps)
     e5.append(err)
     e7.append(layout_vs_twins(m, gout, name))
+
+  # past the headline: 64 features (the generic instantiations) and
+  # 16-pixel tiles (half a warp: padded with frozen lanes)
+  packed, depth, feats = uniform_scene(np.random.default_rng(0), N_SMALL,
+                                       SIZE_SMALL)
+  wide = wide_features(N_SMALL, 64)
+  for num_f, ts in ((64, 16), (3, 4), (64, 4)):
+    log(f"phase 5: K4 and K5 vs twins, uniform {N_SMALL} splats "
+        f"{SIZE_SMALL}, {num_f} features, tile_size {ts}")
+    base = RasterConfig(pipeline="sorted", tile_size=ts)
+    cfg, m = sorted_mapped(packed, depth, wide if num_f == 64 else feats,
+                           SIZE_SMALL, base, dev)
+    e4.append(sorted_forward_vs_twin(m, cfg, f"F {num_f} tile {ts} blending",
+                                     1)[0])
+    for label, extra in (("blending", {}), ("antialias", dict(antialias=True)),
+                         ("heuristics", HEUR)):
+      e5.append(sorted_backward_vs_twin(
+          m, dataclasses.replace(cfg, **extra),
+          f"F {num_f} tile {ts} {label}", 1)[0])
   return max(e4), max(e5), max(e7)
 
 
@@ -1110,7 +1259,7 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   log("  K4-K7 vs twins at the full-size shapes")
   err4, k4_ms, t4_ms = sorted_forward_vs_twin(m, tcfg, "full blending",
                                               reps=5)
-  err5, k5_ms, t5_ms, gout = sorted_backward_vs_twin(
+  err5, k5_ms, t5_ms, gout, rerun5 = sorted_backward_vs_twin(
       m, tcfg, "full heuristics", reps=5)
   err7 = layout_vs_twins(m, gout, "full")
   f = m.feature_size
@@ -1126,6 +1275,10 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
                 row_bytes + idx_bytes + 2 * nbytes(it) + nbytes(gout))
   log(f"  K4 bound {b4[0]:.4f} ms ({b4[1]}), K5 bound {b5[0]:.4f} ms "
       f"({b5[1]}): {pairs} (row, pixel) pairs")
+  plans = kernel_plans(f, tcfg.tile_area, 512, 27, g)
+  occ4 = occupancy_of("K4", plans["K4"][2])
+  occ5 = occupancy_of("K5", plans["K5"][2])
+  log(f"  K4 {occ4}, K5 {occ5} at the full shapes")
 
   # K6 and K7 take tens of microseconds: each is timed twice, as calls
   # (events over back-to-back calls, the wrapper's host work included
@@ -1174,22 +1327,27 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   ref = "tpu_splatting/rasterizer/"
   return [
       entry("sorted_forward", "sorted_forward.cu", ref + "kernels.py:216",
-            launches["sorted_forward"], err4, k4_ms, t4_ms, b4, None),
+            launches["sorted_forward"], err4, k4_ms, t4_ms, b4, None,
+            resident_warps_per_sm=occ4["warps_per_sm"]),
       entry("sorted_backward", "sorted_backward.cu", ref + "kernels.py:393",
-            launches["sorted_backward"], err5, k5_ms, t5_ms, b5, None),
+            launches["sorted_backward"], err5, k5_ms, t5_ms, b5, None,
+            resident_warps_per_sm=occ5["warps_per_sm"],
+            run_to_run_max_abs=rerun5),
       entry("window_copy", "layout.cu", ref + "layout.py:56",
             launches["window_copy"], 0.0, k6_ms, t6_ms, b6, l6_ms,
-            device_ms=k6_dev, library_device_ms=l6_dev),
+            device_ms=k6_dev, library_device_ms=l6_dev,
+            resident_warps_per_sm=occupancy_of("K6")["warps_per_sm"]),
       entry("segment_sum_sorted", "layout.cu", ref + "layout.py:105",
             launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms,
-            device_ms=k7_dev, library_device_ms=l7_dev),
+            device_ms=k7_dev, library_device_ms=l7_dev,
+            resident_warps_per_sm=occupancy_of("K7")["warps_per_sm"]),
   ]
 
 
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
-  card = phase_device()
+  card, _ = phase_device()
   dev = torch.device("cuda", 0)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False

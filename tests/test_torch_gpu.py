@@ -40,18 +40,23 @@ BWD_MODES = {
 }
 
 
+def random_features(dev, n, num_features):
+  return torch.from_numpy(np.random.default_rng(1).uniform(
+      0.0, 1.0, (n, num_features)).astype(np.float32)).to(dev)
+
+
 def mapping_for(dev, config, n=4000, size=(128, 96), depth_features=False,
-                num_features=None):
+                num_features=None, slab_cap=512, group_width=8):
   packed, depth, feats = (
       torch.from_numpy(x).to(dev)
       for x in uniform_scene(np.random.default_rng(0), n, size))
   if depth_features:
     feats = depth[:, None]
   if num_features is not None:
-    feats = torch.from_numpy(np.random.default_rng(1).uniform(
-        0.0, 1.0, (n, num_features)).astype(np.float32)).to(dev)
-  cal = calibrate_stream(packed, depth, feats, size, config, group_width=8)
-  m = stream_map(packed, depth, feats, size, config, group_width=8,
+    feats = random_features(dev, n, num_features)
+  cal = calibrate_stream(packed, depth, feats, size, config,
+                         group_width=group_width, slab_cap=slab_cap)
+  m = stream_map(packed, depth, feats, size, config, group_width=group_width,
                  **{k: cal[k] for k in ("num_slabs", "strip_cap", "slab_cap",
                                         "w_max", "run_cap", "wide_cap",
                                         "dup_cap")})
@@ -138,11 +143,57 @@ def test_backward_kernel_rejects_bad_inputs(cuda):
   with pytest.raises(ValueError):
     sk.stream_backward(m, img, img, dataclasses.replace(
         config, use_alpha_blending=False))
-  # 16 pixels a tile are half a warp: no instantiation takes them
-  half_warp = img[..., :16].contiguous()
-  with pytest.raises(ValueError, match="instantiation"):
-    sk.stream_backward(m, half_warp, half_warp,
-                       dataclasses.replace(config, tile_size=4))
+  # 16 pixels a tile (half a warp) render: the block is padded with
+  # frozen lanes
+  config4 = dataclasses.replace(config, tile_size=4)
+  check_backward(cuda, mapping_for(cuda, config4), config4)
+
+
+# Past the headline's shapes: feature counts above the largest register
+# instantiation (56: the generic one), tiles that are not whole warps
+# (tile 4), tiles of more than 256 pixels (tile 32: the generic one), with
+# the capacities the kernels' shared memory holds.  (features, tile_size,
+# stream slab_cap, stream group width, sorted chunk_size)
+SHAPES = [(3, 4, 512, 8, 128), (64, 4, 128, 8, 128), (56, 16, 128, 8, 128),
+          (57, 16, 128, 8, 128), (64, 16, 128, 8, 128),
+          (100, 8, 128, 8, 32), (100, 16, 128, 8, 32), (3, 32, 512, 4, 128)]
+# K5's other register instantiations, <23, 32> and <56, 32> (K2's are
+# covered by test_backward_kernel_wide_features)
+SORTED_SHAPES = SHAPES + [(16, 8, 0, 0, 128), (40, 16, 0, 0, 128)]
+
+
+def shape_id(shape):
+  return f"F{shape[0]}-tile{shape[1]}"
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=shape_id)
+def test_stream_kernels_any_shape(cuda, shape):
+  """K1 (blending) and K2 (heuristics) against their twins."""
+  num_features, tile_size, slab_cap, group_width, _ = shape
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES["heuristics"])
+  m = mapping_for(cuda, config, num_features=num_features,
+                  slab_cap=slab_cap, group_width=group_width)
+  sk.reset_launch_counts()
+  got = sk.stream_forward(m, config)
+  torch.cuda.synchronize()
+  assert sk.launch_counts["stream_forward"] == 1
+  want = sk.stream_forward_reference(m, config)
+  assert float(want.abs().max()) > 0.1
+  torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+  check_backward(cuda, m, config)
+
+
+def test_stream_kernels_raise_only_past_shared_memory(cuda):
+  """At 100 features a slab of 2048 rows needs more shared memory than
+  one block has: both kernels raise ValueError with the bytes."""
+  config = RasterConfig(**BWD_MODES["heuristics"])
+  m = mapping_for(cuda, config, num_features=100, slab_cap=128)
+  img = sk.stream_forward(m, config)
+  big = dataclasses.replace(m, slab_cap=2048)
+  with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
+    sk.stream_forward(big, config)
+  with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
+    sk.stream_backward(big, img, img, config)
 
 
 def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
@@ -180,7 +231,7 @@ SORTED_MODES = {
 
 
 def sorted_mapping_for(dev, config, n=4000, size=(128, 96),
-                       depth_features=False):
+                       depth_features=False, num_features=None):
   from tpu_splatting_torch import map_to_tiles
   from tpu_splatting_torch.mapper.tile_mapper import calibrate_mapper
   packed, depth, feats = (
@@ -188,6 +239,8 @@ def sorted_mapping_for(dev, config, n=4000, size=(128, 96),
       for x in uniform_scene(np.random.default_rng(0), n, size))
   if depth_features:
     feats = depth[:, None]
+  if num_features is not None:
+    feats = random_features(dev, n, num_features)
   cal = calibrate_mapper(packed, depth, size, config)
   config = dataclasses.replace(config, tile_window=cal["tile_window"],
                                big_capacity=cal["big_capacity"])
@@ -217,17 +270,14 @@ def test_sorted_forward_kernel_matches_twin(cuda, mode, tile_size):
       vis_t.abs().max()) + 1e-6
 
 
-@pytest.mark.parametrize("mode", sorted(BWD_MODES))
-@pytest.mark.parametrize("tile_size", [16, 8])
-def test_sorted_backward_kernel_matches_twin(cuda, mode, tile_size):
+def check_sorted_backward(dev, m, config):
+  """K5 on a random cotangent against its twin, column by column."""
   from tpu_splatting_torch.rasterizer import kernels as kk
-  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
-  m, config = sorted_mapping_for(cuda, config)
   img, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
                       m.chunk_to_tile, config, m.num_tiles, m.tiles_wide,
                       with_vis=False)
-  gen = torch.Generator(device=cuda).manual_seed(0)
-  gimg = torch.randn(img.shape, generator=gen, device=cuda)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  gimg = torch.randn(img.shape, generator=gen, device=dev)
   args = (m.sorted_payload, img, gimg, m.chunk_src, m.chunk_cnt,
           m.chunk_to_tile, config, m.num_tiles, m.tiles_wide)
   kk.reset_launch_counts()
@@ -237,6 +287,56 @@ def test_sorted_backward_kernel_matches_twin(cuda, mode, tile_size):
   want = kk.backward_reference(*args)
   assert float(want.abs().max()) > 0.1
   columns_close(got, want)
+
+
+@pytest.mark.parametrize("mode", sorted(BWD_MODES))
+@pytest.mark.parametrize("tile_size", [16, 8])
+def test_sorted_backward_kernel_matches_twin(cuda, mode, tile_size):
+  config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
+  m, config = sorted_mapping_for(cuda, config)
+  check_sorted_backward(cuda, m, config)
+
+
+@pytest.mark.parametrize("shape", SORTED_SHAPES, ids=shape_id)
+def test_sorted_kernels_any_shape(cuda, shape):
+  """K4 (blending, with visibility) and K5 in blending, antialias and
+  heuristics modes against their twins."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  num_features, tile_size, _, _, chunk = shape
+  config = RasterConfig(tile_size=tile_size, chunk_size=chunk)
+  m, config = sorted_mapping_for(cuda, config, num_features=num_features)
+  assert m.feature_size == num_features
+  args = (m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile,
+          config, m.num_tiles, m.tiles_wide)
+  kk.reset_launch_counts()
+  img, vis = kk.forward(*args)
+  torch.cuda.synchronize()
+  assert kk.launch_counts["sorted_forward"] == 1
+  img_t, vis_t = kk.forward_reference(*args)
+  assert float(img_t.abs().max()) > 0.1
+  torch.testing.assert_close(img, img_t, atol=1e-4, rtol=0)
+  assert float((vis - vis_t).abs().max()) <= 1e-4 * float(
+      vis_t.abs().max()) + 1e-6
+  for mode in sorted(BWD_MODES):
+    check_sorted_backward(cuda, m, dataclasses.replace(config,
+                                                       **BWD_MODES[mode]))
+
+
+def test_sorted_kernels_raise_only_past_shared_memory(cuda):
+  """At 100 features chunks of 2048 rows need more shared memory than one
+  block has: K4 and K5 raise ValueError with the bytes."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  config = RasterConfig(chunk_size=32, **BWD_MODES["heuristics"])
+  m, config = sorted_mapping_for(cuda, config, num_features=100)
+  img, _ = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
+                      m.chunk_to_tile, config, m.num_tiles, m.tiles_wide)
+  big = dataclasses.replace(config, chunk_size=2048)
+  with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
+    kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile,
+               big, m.num_tiles, m.tiles_wide)
+  with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
+    kk.backward(m.sorted_payload, img, img, m.chunk_src, m.chunk_cnt,
+                m.chunk_to_tile, big, m.num_tiles, m.tiles_wide)
 
 
 def test_layout_kernels_match_twins(cuda):

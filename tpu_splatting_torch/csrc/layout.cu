@@ -36,6 +36,8 @@
 
 #include <algorithm>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 // block (tpw, windows per block); m: rows of `rows`
@@ -132,4 +134,18 @@ extern "C" int tpu_splat_segment_sum_sorted(const void* rows,
     return launch_segment_sum<double>(rows, bounds, out, num_segments, c,
                                       st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// {resident blocks per SM, registers, local bytes} of the window copy
+// (kernel 0) or the segment sum (kernel 1) on elements of elem_bytes (4 or
+// 8), at `threads` threads a block and no shared memory, as they launch.
+extern "C" int tpu_splat_layout_occupancy(int kernel, int elem_bytes,
+                                          int threads, int* out) {
+  const bool wide = elem_bytes == 8;
+  const void* fn =
+      kernel == 0 ? (wide ? (const void*)&window_copy_kernel<uint64_t>
+                          : (const void*)&window_copy_kernel<uint32_t>)
+                  : (wide ? (const void*)&segment_sum_kernel<double>
+                          : (const void*)&segment_sum_kernel<float>);
+  return kernel_occupancy(fn, threads, 0, out);
 }

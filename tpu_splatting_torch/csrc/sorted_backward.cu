@@ -18,28 +18,45 @@
 //
 // What bounds it on this card: operations.  Every live (row, pixel) pair
 // costs the forward's alpha, the gradient chain (four more exps in
-// antialias mode) and a warp reduction of 7 + F (+ 2) terms.
+// antialias mode) and its share of the warp reduction of 9 + F terms.
 //
-// Design: one block per tile, one thread per pixel, the tile's chunks in
-// order with the log transmittance and s in registers across chunks.  Each
-// chunk's rows become per-row coefficients in shared memory (alpha's six
-// and the linear forms of u and v), every thread walks the rows in order,
-// and for each row each warp reduces its 32 pixels' terms with shuffles
-// into a per-warp partial in shared memory (skipped when no lane of the
-// warp is live: the terms are then exactly zero).  After the chunk one
-// thread per row sums the warps' partials in a fixed order, turns the
-// moments into the row's gradients and writes the row to its own slot,
-// so no atomics are needed and the result is deterministic.  The
-// transmittance and s use the association of the plain twin's cumsums
-// (carry + sequential sum), so freeze decisions agree bit for bit.
+// Design: one block per tile, one thread per pixel (a tile that is not whole
+// warps runs in the generic instantiation, padded with frozen lanes:
+// kernel_common.cuh), the tile's chunks in order with the log transmittance
+// and s in registers across chunks.  Each chunk's rows become per-row
+// coefficients in shared memory (alpha's six and the linear forms of u and
+// v), and every thread walks the rows in order.  For each row each warp
+// reduces its 32 pixels' terms with a reduce-scatter (a transposed
+// butterfly, as the stream backward does): a thread's terms sit in V slots —
+// the 7 geometry moments, prune, split, then the features, in further
+// batches of V past V - 9 — and at each butterfly offset a lane sends its
+// partner the half of its slots the partner keeps.  That is V/2 + V/4 + ...
+// shuffles a batch (16 at V = 16: the headline's 12 terms), after which each
+// lane holds one slot's warp sum and the lanes that own a column add it to
+// one shared [column][row] accumulator in a single atomicAdd instruction.
+// Warps with no live pixel for a row skip the reduction (its terms are
+// exactly zero).  After the chunk one thread per row reads its row's column
+// sums, turns the moments into the row's gradients and writes the row to its
+// own slot of gout.  The shared atomics make the sum order over the warps
+// vary from run to run (a few ulps).  The transmittance and s use the
+// association of the plain twin's cumsums (carry + sequential sum), so
+// freeze decisions agree bit for bit.
+//
+// Instantiations <most features, V>: <7, 16>, <23, 32> and <56, 32> keep a
+// pixel's image cotangent in registers; sorted_backward_generic_kernel<16>
+// (V = 16) keeps it in shared memory ([feature][thread]) and takes any F
+// and any tile up to 1024 pixels.  The wrapper (rasterizer/kernels.py,
+// sorted_backward_plan) picks one and the C entry launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 constexpr int kGeo = 13;         // per-row coefficients in shared memory
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLead = 9;         // slots before the features
 
 struct Params {
   const float* rows;     // (M, width): [mean, axis, sigma, alpha, F]
@@ -58,12 +75,6 @@ __device__ __forceinline__ float s_sig(float x, float s) {
   return 1.0f / (1.0f + expf(-1.6f * z - 0.07f * z * z * z));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // s_grads of the reference's _antialias_grads: (s, d s/dx, d s/d sigma)
 __device__ __forceinline__ void s_grads(float x, float sig, float& s_val,
                                         float& d_dx, float& d_ds) {
@@ -74,21 +85,36 @@ __device__ __forceinline__ void s_grads(float x, float sig, float& s_val,
   d_ds = d_dx * -z;
 }
 
-template <int MAXF>
-__global__ void sorted_backward_kernel(Params p) {
+// gout column of reduction slot k (7 moments, prune, split, features), or
+// -1 where the slot holds no column
+__device__ __forceinline__ int slot_column(int k, int f, int heur) {
+  if (k < 7) return k;
+  if (k < kLead) return heur ? f + k : -1;
+  return k - kLead < f ? 7 + k - kLead : -1;
+}
+
+template <int MAXF, int V>
+__device__ __forceinline__ void sorted_backward_body(const Params& p) {
+  constexpr bool kRegs = MAXF > 0;      // image cotangent in registers
+  constexpr int NB = (kLead + (kRegs ? MAXF : 0) + V - 1) / V;
   extern __shared__ __align__(16) float smem[];
   const int g = p.g;
   const int ncol = p.out_w;
+  const int sa = acc_stride(g);
   float* s_geo = smem;                       // kGeo * g
   float* s_feat = s_geo + kGeo * g;          // f * g
-  float* s_part = s_feat + p.f * g;          // nwarps * g * ncol
+  float* s_acc = s_feat + p.f * g;           // [column][row], stride sa
+  float* s_gim = s_acc + ncol * sa;          // generic: [feature][thread]
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int lane = tid & 31;
   const int ts = p.tile_size;
   const int pix = ts * ts;
+  // register instantiations run whole-warp tiles only; the generic one
+  // pads a tile to whole warps (kernel_common.cuh)
+  const bool inside = kRegs || tid < pix;
   const int f = p.f;
   const float ox = static_cast<float>((tile % p.tiles_wide) * ts);
   const float oy = static_cast<float>((tile / p.tiles_wide) * ts);
@@ -97,21 +123,44 @@ __global__ void sorted_backward_kernel(Params p) {
   const float pxx = px * px, pxy = px * py, pyy = py * py;
   const float tau = 6.283185307179586f;
 
-  // this pixel's image cotangent (F+1 channels) and s at the first chunk
-  float gim[MAXF + 1];
-  const size_t base = static_cast<size_t>(tile) * (f + 1) * pix + tid;
-  float s_in = 0.0f;
+  // the gout column this lane adds after each batch's reduction, or -1
+  int dst[kRegs ? NB : 1];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c <= MAXF; ++c) {
-    if (c <= f) {
-      gim[c] = p.gimage[base + static_cast<size_t>(c) * pix];
-      s_in += gim[c] * p.image[base + static_cast<size_t>(c) * pix];
-    } else {
-      gim[c] = 0.0f;
+    for (int b = 0; b < NB; ++b) {
+      const int slot = scatter_slot<V>(lane);
+      dst[b] = slot < 0 ? -1 : slot_column(b * V + slot, f, p.heur);
     }
   }
-  const float g_alpha = p.gimage[base + static_cast<size_t>(f) * pix];
-  float lt = 0.0f;
+
+  // this pixel's image cotangent (F+1 channels) and s at the first chunk
+  float gim[kRegs ? MAXF : 1];
+  const size_t base = static_cast<size_t>(tile) * (f + 1) * pix + tid;
+  float s_in = 0.0f, g_alpha = 0.0f;
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int c = 0; c < MAXF; ++c) {
+      gim[c] = 0.0f;
+      if (c < f && inside) {
+        gim[c] = p.gimage[base + static_cast<size_t>(c) * pix];
+        s_in += gim[c] * p.image[base + static_cast<size_t>(c) * pix];
+      }
+    }
+  } else {
+    for (int c = 0; c < f; ++c) {
+      float gc = 0.0f;
+      if (inside) {
+        gc = p.gimage[base + static_cast<size_t>(c) * pix];
+        s_in += gc * p.image[base + static_cast<size_t>(c) * pix];
+      }
+      s_gim[c * nthr + tid] = gc;
+    }
+  }
+  if (inside) {
+    g_alpha = p.gimage[base + static_cast<size_t>(f) * pix];
+    s_in += g_alpha * p.image[base + static_cast<size_t>(f) * pix];
+  }
+  float lt = inside ? 0.0f : frozen_lt();
 
   const int k0 = p.first[tile], k1 = p.first[tile + 1];
   for (int k = k0; k < k1; ++k) {
@@ -160,7 +209,7 @@ __global__ void sorted_backward_kernel(Params p) {
       }
       for (int c = 0; c < f; ++c) s_feat[c * g + r] = row[7 + c];
     }
-    for (int i = tid; i < nwarps * g * ncol; i += nthr) s_part[i] = 0.0f;
+    for (int i = tid; i < ncol * sa; i += nthr) s_acc[i] = 0.0f;
     __syncthreads();
 
     const float lt_in = lt;
@@ -193,9 +242,14 @@ __global__ void sorted_backward_kernel(Params p) {
         const float t = expf(lt_j);
         w = a * t;
         float gf = 0.0f;
+        if constexpr (kRegs) {
 #pragma unroll
-        for (int c = 0; c < MAXF; ++c)
-          if (c < f) gf += s_feat[c * g + j] * gim[c];
+          for (int c = 0; c < MAXF; ++c)
+            if (c < f) gf += s_feat[c * g + j] * gim[c];
+        } else {
+          for (int c = 0; c < f; ++c)
+            gf += s_feat[c * g + j] * s_gim[c * nthr + tid];
+        }
         gf += g_alpha;
         acc_s += w * gf;
         const float s_i = s_in - acc_s;   // inclusive of this row
@@ -205,11 +259,9 @@ __global__ void sorted_backward_kernel(Params p) {
       done = acc_l + lt_in <= p.lcut;
 
       if (!__any_sync(kFull, live)) continue;   // every term is zero
-      float* part = s_part + (static_cast<size_t>(warp) * g + j) * ncol;
-      auto put = [&](int c, float v) {
-        v = warp_sum(v);
-        if (lane == 0) part[c] = v;
-      };
+
+      // slots 0-6 the geometry moments, 7 prune, 8 split
+      float lead[kLead];
       const float clamp_live = a_raw < p.clamp_max_alpha ? 1.0f : 0.0f;
       const float z0 = live ? alpha_grad * clamp_live * a_raw : 0.0f;
       const float pa = p.antialias ? geo[6 * g] : geo[12 * g];
@@ -241,22 +293,22 @@ __global__ void sorted_backward_kernel(Params p) {
           dsy = aag * (tau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
           split = fabsf(dmx) + fabsf(dmy);
         }
-        put(0, dmx);
-        put(1, dmy);
-        put(2, dax);
-        put(3, day);
-        put(4, dsx);
-        put(5, dsy);
+        lead[0] = dmx;
+        lead[1] = dmy;
+        lead[2] = dax;
+        lead[3] = day;
+        lead[4] = dsx;
+        lead[5] = dsy;
       } else {
         const float u = geo[6 * g] * px + geo[7 * g] * py + geo[8 * g];
         const float v = geo[9 * g] * px + geo[10 * g] * py + geo[11 * g];
         const float zu = z0 * u, zv = z0 * v;
-        put(0, zu * px);
-        put(1, zu * py);
-        put(2, zu);
-        put(3, zv * px);
-        put(4, zv * py);
-        put(5, zv);
+        lead[0] = zu * px;
+        lead[1] = zu * py;
+        lead[2] = zu;
+        lead[3] = zv * px;
+        lead[4] = zv * py;
+        lead[5] = zv;
         if (p.heur) {
           // d mean / d pdf per pixel: u isx ax - v isy ay, u isx ay + v isy ax
           const float dmx_u = u * geo[6 * g] + v * geo[9 * g];
@@ -264,40 +316,66 @@ __global__ void sorted_backward_kernel(Params p) {
           split = fabsf(z0 * dmx_u) + fabsf(z0 * dmy_u);
         }
       }
-      put(6, z0);
+      lead[6] = z0;
+      const float aag_h = pa * alpha_grad;
+      lead[7] = aag_h * aag_h;
+      lead[8] = split;
+
+      // the features' terms are w * g_image; reduce in batches of V
+      float* acc = s_acc + j;
+      auto batch = [&](int b) {
+        float v[V];
 #pragma unroll
-      for (int c = 0; c < MAXF; ++c)
-        if (c < f) put(7 + c, w * gim[c]);
-      if (p.heur) {
-        const float aag_h = pa * alpha_grad;
-        put(7 + f, aag_h * aag_h);
-        put(8 + f, split);
+        for (int i = 0; i < V; ++i) {
+          const int c = b * V + i - kLead;   // feature of the slot
+          float x = 0.0f;
+          if (b == 0 && i < kLead) {
+            x = lead[i < kLead ? i : 0];
+          } else if constexpr (kRegs) {
+            if (c < MAXF) x = w * gim[c >= 0 && c < MAXF ? c : 0];
+          } else {
+            if (c < f) x = w * s_gim[c * nthr + tid];
+          }
+          v[i] = x;
+        }
+        const float x = reduce_scatter<V>(v, lane);
+        int col;
+        if constexpr (kRegs) {
+          col = dst[b];
+        } else {
+          const int slot = scatter_slot<V>(lane);
+          col = slot < 0 ? -1 : slot_column(b * V + slot, f, p.heur);
+        }
+        if (col >= 0 && x != 0.0f) atomicAdd(acc + col * sa, x);
+      };
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          if (b > 0 && b * V >= kLead + f) break;
+          batch(b);
+        }
+      } else {
+        for (int b = 0; b * V < kLead + f; ++b) batch(b);
       }
     }
     lt = acc_l + lt_in;
     s_in = s_in - acc_s;
     __syncthreads();
 
-    // one thread per row: sum the warps' partials, moments -> gradients
+    // one thread per row: its column sums, moments -> gradients
     for (int r = tid; r < cnt; r += nthr) {
-      float m[7];
-      for (int c = 0; c < 7; ++c) {
-        float s = 0.0f;
-        for (int w = 0; w < nwarps; ++w)
-          s += s_part[(static_cast<size_t>(w) * g + r) * ncol + c];
-        m[c] = s;
-      }
+      const float* m = s_acc + r;
       const float* row = rows + static_cast<size_t>(r) * p.width;
       float* out = p.gout + (static_cast<size_t>(k) * g + r) * ncol;
       if (p.antialias) {
-        for (int c = 0; c < 6; ++c) out[c] = m[c];
+        for (int c = 0; c < 6; ++c) out[c] = m[c * sa];
       } else {
         const float mlx = row[0] - ox, mly = row[1] - oy;
         const float ax = row[2], ay = row[3];
         const float isx = 1.0f / fmaxf(row[4], 1e-12f);
         const float isy = 1.0f / fmaxf(row[5], 1e-12f);
-        const float su_px = m[0], su_py = m[1], su = m[2];
-        const float sv_px = m[3], sv_py = m[4], sv = m[5];
+        const float su_px = m[0], su_py = m[1 * sa], su = m[2 * sa];
+        const float sv_px = m[3 * sa], sv_py = m[4 * sa], sv = m[5 * sa];
         const float su_dx = su_px - mlx * su, su_dy = su_py - mly * su;
         const float sv_dx = sv_px - mlx * sv, sv_dy = sv_py - mly * sv;
         const float* geo = s_geo + r;
@@ -312,48 +390,73 @@ __global__ void sorted_backward_kernel(Params p) {
         out[4] = isx * suu;
         out[5] = isy * svv;
       }
-      out[6] = m[6] / fmaxf(row[6], 1e-20f);
-      for (int c = 7; c < ncol; ++c) {
-        float s = 0.0f;
-        for (int w = 0; w < nwarps; ++w)
-          s += s_part[(static_cast<size_t>(w) * g + r) * ncol + c];
-        out[c] = s;
-      }
+      out[6] = m[6 * sa] / fmaxf(row[6], 1e-20f);
+      for (int c = 7; c < ncol; ++c) out[c] = m[c * sa];
     }
     __syncthreads();   // shared buffers are rewritten by the next chunk
   }
 }
 
-template <int MAXF>
-int launch(const Params& p, int num_tiles, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      sorted_backward_kernel<MAXF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sorted_backward_kernel<MAXF><<<num_tiles, p.tile_size * p.tile_size, smem,
-                                 st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// register instantiations, for blocks of up to 256 threads; the
+// headline's <7, 16> is held to 64 registers (4 blocks an SM)
+template <int MAXF, int V>
+__global__ void __launch_bounds__(256, MAXF <= 7 ? 4 : 1)
+sorted_backward_kernel(Params p) {
+  sorted_backward_body<MAXF, V>(p);
+}
+
+// the generic instantiation, for blocks of up to 1024 threads
+template <int V>
+__global__ void __launch_bounds__(1024)
+sorted_backward_generic_kernel(Params p) {
+  sorted_backward_body<0, V>(p);
+}
+
+// the instantiation that keeps `max_features` features in registers, or
+// the generic one for 0; null for any other value
+const void* kernel_for(int max_features) {
+  switch (max_features) {
+    case 7: return (const void*)&sorted_backward_kernel<7, 16>;
+    case 23: return (const void*)&sorted_backward_kernel<23, 32>;
+    case 56: return (const void*)&sorted_backward_kernel<56, 32>;
+    case 0: return (const void*)&sorted_backward_generic_kernel<16>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block, in bytes: per-row coefficients and
+// features, the [column][row] accumulator, and (generic instantiation,
+// max_features 0) the image cotangent of every thread.
 extern "C" long long tpu_splat_sorted_backward_smem(int chunk_size,
                                                     int feature_size,
                                                     int out_width,
-                                                    int num_warps) {
-  return 4LL * chunk_size
-         * (kGeo + feature_size + static_cast<long long>(num_warps)
-            * out_width);
+                                                    int max_features,
+                                                    int threads) {
+  return 4LL * (static_cast<long long>(chunk_size) * (kGeo + feature_size)
+                + static_cast<long long>(out_width) * acc_stride(chunk_size)
+                + (max_features == 0
+                       ? static_cast<long long>(feature_size) * threads : 0));
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// {resident blocks per SM, registers, local bytes} of an instantiation.
+extern "C" int tpu_splat_sorted_backward_occupancy(int max_features,
+                                                   int threads,
+                                                   long long smem, int* out) {
+  return kernel_occupancy(kernel_for(max_features), threads,
+                          static_cast<size_t>(smem), out);
+}
+
+// Launch the instantiation `max_features` (7, 23, 56, or 0: generic) with
+// `threads` threads a block on `stream`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue where no instantiation matches.
 extern "C" int tpu_splat_sorted_backward(
     const float* rows, const int* src, const int* cnt, const int* first,
     const float* image, const float* gimage, float* gout, int num_tiles,
     int tiles_wide, int width, int feature_size, int chunk_size,
-    int tile_size, int antialias, int heur, float alpha_threshold,
-    float clamp_max_alpha, float lcut, void* stream) {
+    int tile_size, int antialias, int heur, int max_features, int threads,
+    float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
   Params p;
   p.rows = rows;
   p.src = src;
@@ -373,10 +476,10 @@ extern "C" int tpu_splat_sorted_backward(
   p.alpha_threshold = alpha_threshold;
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
+  if (max_features > 0 && feature_size > max_features)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(tpu_splat_sorted_backward_smem(
-      chunk_size, feature_size, p.out_w, tile_size * tile_size / 32));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feature_size <= 8) return launch<8>(p, num_tiles, smem, st);
-  if (feature_size <= 24) return launch<24>(p, num_tiles, smem, st);
-  return launch<56>(p, num_tiles, smem, st);
+      chunk_size, feature_size, p.out_w, max_features, threads));
+  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -18,27 +18,36 @@
 // feature updates and, with visibility, a warp reduction of the weight;
 // the rows themselves are read once per tile (7 + F floats each).
 //
-// Design: one block per tile, one thread per pixel.  For each of the
-// tile's chunks the block turns the chunk's rows into per-row alpha
-// coefficients in shared memory (once per row, not once per pixel), then
-// every thread walks the rows in order with its log transmittance in a
-// register, carried from chunk to chunk.  The transmittance is the carry
-// plus the sequential sum of the chunk's log1p(-a), the association of
-// the plain twin's exclusive cumsum, so threshold and freeze decisions
-// agree bit for bit.  A block stops walking once every pixel is frozen
-// (__syncthreads_and every 32 rows) and skips the tile's remaining chunks,
-// except in quantile mode, as the reference does.  Visibility: each warp
-// reduces a row's weight with shuffles (only where a lane has one) into a
-// per-warp partial in shared memory, summed over the warps in a fixed
-// order after the chunk, so the result is deterministic.
+// Design: one block per tile, one thread per pixel (a tile that is not whole
+// warps runs in the generic instantiation, padded with frozen lanes:
+// kernel_common.cuh).  For each of the tile's chunks the block turns the
+// chunk's rows into per-row alpha coefficients in shared memory (once per
+// row, not once per pixel), then every thread walks the rows in order with
+// its log transmittance in a register, carried from chunk to chunk.  The
+// transmittance is the carry plus the sequential sum of the chunk's
+// log1p(-a), the association of the plain twin's exclusive cumsum, so
+// threshold and freeze decisions agree bit for bit.  A block stops walking
+// once every pixel is frozen (__syncthreads_and every 32 rows) and skips the
+// tile's remaining chunks, except in quantile mode, as the reference does.
+// Visibility: each warp reduces a row's weight with shuffles (only where a
+// lane has one) into a per-warp partial in shared memory, summed over the
+// warps in a fixed order after the chunk, so the result is deterministic.
+//
+// Instantiations by most features: <8>, <24> and <56> accumulate a
+// pixel's features in registers; sorted_forward_generic_kernel<0>
+// accumulates them in shared memory ([feature][thread], each thread its own
+// column) and takes any F and any tile up to 1024 pixels.  The wrapper
+// (rasterizer/kernels.py, sorted_forward_plan) picks one and the C entry
+// launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_common.cuh"
+
 namespace {
 
 constexpr int kGeo = 7;          // per-row alpha coefficients in shared memory
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const float* rows;   // (M, width) row-major: [mean, axis, sigma, alpha, F]
@@ -63,17 +72,24 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 template <int MAXF>
-__global__ void sorted_forward_kernel(Params p) {
+__device__ __forceinline__ void sorted_forward_body(const Params& p) {
+  constexpr bool kRegs = MAXF > 0;           // accumulators in registers
   extern __shared__ __align__(16) float smem[];
   float* s_geo = smem;                       // kGeo * g
   float* s_feat = s_geo + kGeo * p.g;        // f * g
   float* s_part = s_feat + p.f * p.g;        // nwarps * g
+  // generic: this thread's feature accumulators, stride nthr
+  float* s_acc = s_part + (blockDim.x >> 5) * p.g + threadIdx.x;
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int ts = p.tile_size;
+  const int pix = ts * ts;
+  // register instantiations run whole-warp tiles only; the generic one
+  // pads a tile to whole warps (kernel_common.cuh)
+  const bool inside = kRegs || tid < pix;
   const int g = p.g;
   const float ox = static_cast<float>((tile % p.tiles_wide) * ts);
   const float oy = static_cast<float>((tile / p.tiles_wide) * ts);
@@ -83,11 +99,16 @@ __global__ void sorted_forward_kernel(Params p) {
   const float pxx = px * px, pxy = px * py, pyy = py * py;
   const bool with_vis = p.vis != nullptr;
 
-  float acc[MAXF];
+  float acc[kRegs ? MAXF : 1];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < MAXF; ++c) acc[c] = 0.0f;
+  } else {
+    for (int c = 0; c < p.f; ++c) s_acc[c * nthr] = 0.0f;
+  }
   float acc_w = 0.0f;
-  float lt = 0.0f;          // log transmittance, carried across chunks
+  // log transmittance, carried across chunks
+  float lt = inside ? 0.0f : frozen_lt();
 
   const int k0 = p.first[tile], k1 = p.first[tile + 1];
   for (int k = k0; k < k1; ++k) {
@@ -156,9 +177,14 @@ __global__ void sorted_forward_kernel(Params p) {
       if (p.blending) {
         if (lt_j > p.lcut) {
           wgt = a * expf(lt_j);
+          if constexpr (kRegs) {
 #pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) acc[c] += wgt * s_feat[c * g + j];
+            for (int c = 0; c < MAXF; ++c)
+              if (c < p.f) acc[c] += wgt * s_feat[c * g + j];
+          } else {
+            for (int c = 0; c < p.f; ++c)
+              s_acc[c * nthr] += wgt * s_feat[c * g + j];
+          }
           acc_w += wgt;
           acc_l += log1pf(-a);
         }
@@ -166,9 +192,13 @@ __global__ void sorted_forward_kernel(Params p) {
       } else {
         const float t = expf(lt_j);
         if (t * (1.0f - a) <= p.quantile_thr && t > p.quantile_thr) {
+          if constexpr (kRegs) {
 #pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) acc[c] += s_feat[c * g + j];
+            for (int c = 0; c < MAXF; ++c)
+              if (c < p.f) acc[c] += s_feat[c * g + j];
+          } else {
+            for (int c = 0; c < p.f; ++c) s_acc[c * nthr] += s_feat[c * g + j];
+          }
         }
         wgt = a * t;
         acc_l += log1pf(-a);
@@ -191,41 +221,77 @@ __global__ void sorted_forward_kernel(Params p) {
     __syncthreads();   // shared buffers are rewritten by the next chunk
   }
 
-  const int pix = ts * ts;
+  if (!inside) return;
   float* o = p.image + static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c)
-    if (c < p.f) o[c * pix] = acc[c];
+    for (int c = 0; c < MAXF; ++c)
+      if (c < p.f) o[c * pix] = acc[c];
+  } else {
+    for (int c = 0; c < p.f; ++c) o[c * pix] = s_acc[c * nthr];
+  }
   o[p.f * pix] = p.blending ? acc_w : (lt < 0.0f ? 1.0f : 0.0f);
 }
 
+// register instantiations: no launch bounds, so the compiler keeps its
+// own register choice (blocks of up to 256 threads)
 template <int MAXF>
-int launch(const Params& p, int num_tiles, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      sorted_forward_kernel<MAXF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sorted_forward_kernel<MAXF><<<num_tiles, p.tile_size * p.tile_size, smem,
-                                st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+__global__ void sorted_forward_kernel(Params p) {
+  sorted_forward_body<MAXF>(p);
+}
+
+// the generic instantiation, for blocks of up to 1024 threads
+template <int MAXF>
+__global__ void __launch_bounds__(1024)
+sorted_forward_generic_kernel(Params p) {
+  sorted_forward_body<MAXF>(p);
+}
+
+// the instantiation that keeps `max_features` accumulators in registers,
+// or the generic one for 0; null for any other value
+const void* kernel_for(int max_features) {
+  switch (max_features) {
+    case 8: return (const void*)&sorted_forward_kernel<8>;
+    case 24: return (const void*)&sorted_forward_kernel<24>;
+    case 56: return (const void*)&sorted_forward_kernel<56>;
+    case 0: return (const void*)&sorted_forward_generic_kernel<0>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block, in bytes: per-row coefficients and
+// features, the per-warp visibility partials, and (generic
+// instantiation, max_features 0) every thread's feature accumulators.
 extern "C" long long tpu_splat_sorted_forward_smem(int chunk_size,
                                                    int feature_size,
-                                                   int num_warps) {
-  return 4LL * chunk_size * (kGeo + feature_size + num_warps);
+                                                   int max_features,
+                                                   int threads) {
+  return 4LL * (static_cast<long long>(chunk_size)
+                    * (kGeo + feature_size + threads / 32)
+                + (max_features == 0
+                       ? static_cast<long long>(feature_size) * threads : 0));
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// {resident blocks per SM, registers, local bytes} of an instantiation.
+extern "C" int tpu_splat_sorted_forward_occupancy(int max_features,
+                                                  int threads,
+                                                  long long smem, int* out) {
+  return kernel_occupancy(kernel_for(max_features), threads,
+                          static_cast<size_t>(smem), out);
+}
+
+// Launch the instantiation `max_features` (8, 24, 56, or 0: generic) with
+// `threads` threads a block (the tile's pixels in whole warps) on
+// `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue where no instantiation matches.
 extern "C" int tpu_splat_sorted_forward(
     const float* rows, const int* src, const int* cnt, const int* first,
     float* image, float* vis, int num_tiles, int tiles_wide, int width,
     int feature_size, int chunk_size, int tile_size, int antialias,
-    int blending, float alpha_threshold, float clamp_max_alpha, float lcut,
-    float quantile_thr, void* stream) {
+    int blending, int max_features, int threads, float alpha_threshold,
+    float clamp_max_alpha, float lcut, float quantile_thr, void* stream) {
   Params p;
   p.rows = rows;
   p.src = src;
@@ -244,10 +310,10 @@ extern "C" int tpu_splat_sorted_forward(
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
   p.quantile_thr = quantile_thr;
+  if (max_features > 0 && feature_size > max_features)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(tpu_splat_sorted_forward_smem(
-      chunk_size, feature_size, tile_size * tile_size / 32));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feature_size <= 8) return launch<8>(p, num_tiles, smem, st);
-  if (feature_size <= 24) return launch<24>(p, num_tiles, smem, st);
-  return launch<56>(p, num_tiles, smem, st);
+      chunk_size, feature_size, max_features, threads));
+  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
+                       static_cast<cudaStream_t>(stream));
 }

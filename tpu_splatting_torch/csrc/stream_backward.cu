@@ -44,13 +44,23 @@
 // accumulator's column stride is slab_cap rounded up to 32, plus one, so
 // the columns of one slot fall in different banks.
 //
-// Design: one block per tile, one thread per pixel.  The log
-// transmittance and the remaining-feature carry stay in registers across
-// slabs; a block stops once every pixel is frozen and skips the remaining
-// slabs, as the forward does.
+// Design: one block per tile, one thread per pixel (a tile that is not whole
+// warps runs in the generic instantiation, padded with frozen lanes:
+// kernel_common.cuh).  The log transmittance and the remaining-feature carry
+// stay in registers across slabs; a block stops once every pixel is frozen
+// and skips the remaining slabs, as the forward does.
+//
+// Instantiations <most features, V>: <6, 16>, <22, 32> and <56, 32> keep a
+// pixel's image cotangent in registers; stream_backward_generic_kernel<16>
+// (V = 16) keeps it in shared memory ([feature][thread]) and takes any F
+// and any tile up to 1024 pixels.  The wrapper
+// (rasterizer/stream_kernels.py, stream_backward_plan) picks one and the C
+// entry launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernel_common.cuh"
 
 namespace {
 
@@ -58,7 +68,6 @@ constexpr int kStripSlack = 512;        // rasterizer/stream.py STRIP_SLACK
 constexpr int kKeyInvalid = 0x7fffffff;  // invalid slots sort last
 constexpr int kGeo = 12;                 // per-row coefficients in smem
 constexpr int kLead = 10;                // slots before the features
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTau = 6.283185307179586f;
 
 struct Params {
@@ -73,11 +82,6 @@ struct Params {
   int slabw, with_vis, heur;
   float alpha_threshold, clamp_max_alpha, lcut;
 };
-
-// column stride of the shared accumulator
-__host__ __device__ __forceinline__ int acc_stride(int slab_cap) {
-  return ((slab_cap + 31) & ~31) + 1;
-}
 
 __device__ __forceinline__ float s_sig(float x, float s) {
   float z = x / s;
@@ -94,36 +98,20 @@ __device__ __forceinline__ void s_grads(float x, float sig, float& s_val,
   d_dxs = d_dx * -z;
 }
 
-// One butterfly stage at offset `off`: a lane holding N slots keeps the
-// upper half if its `off` bit is set, else the lower, in v[0, N/2).
-template <int N, int V>
-__device__ __forceinline__ void scatter_stage(float (&v)[V], int lane,
-                                              int off) {
-  const bool up = (lane & off) != 0;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float send = up ? v[i] : v[i + N / 2];
-    const float keep = up ? v[i + N / 2] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, off);
-  }
-}
-
-// Reduce-scatter of V slots over the warp: returns the warp's sum of slot
-// `lane` (V = 32) or of slot `lane >> 1` (V = 16).  v is overwritten.
-template <int V>
-__device__ __forceinline__ float reduce_scatter(float (&v)[V], int lane) {
-  static_assert(V == 16 || V == 32, "reduction width");
-  scatter_stage<V>(v, lane, 16);
-  scatter_stage<V / 2>(v, lane, 8);
-  scatter_stage<V / 4>(v, lane, 4);
-  scatter_stage<V / 8>(v, lane, 2);
-  if (V == 32) scatter_stage<2>(v, lane, 1);
-  else v[0] += __shfl_xor_sync(kFull, v[0], 1);
-  return v[0];
+// buffer column of reduction slot k (7 packed-gaussian terms, visibility,
+// prune, split, features), or -1 where the slot holds no column
+__device__ __forceinline__ int slot_column(int k, int f, int with_vis,
+                                           int heur) {
+  const int c_vis = 7 + f;               // visibility, prune, split columns
+  if (k < 7) return k;
+  if (k == 7) return with_vis ? c_vis : -1;
+  if (k < kLead) return heur ? c_vis + k - 7 : -1;
+  return k - kLead < f ? 7 + k - kLead : -1;
 }
 
 template <int MAXF, int V>
-__global__ void stream_backward_kernel(Params p) {
+__device__ __forceinline__ void stream_backward_body(const Params& p) {
+  constexpr bool kRegs = MAXF > 0;       // image cotangent in registers
   constexpr int NB = (kLead + MAXF + V - 1) / V;   // reduction batches
   extern __shared__ __align__(16) unsigned char smem[];
   const int sc = p.slab_cap;
@@ -135,13 +123,17 @@ __global__ void stream_backward_kernel(Params p) {
   int* s_desc = reinterpret_cast<int*>(s_acc + p.slabw * sa);
   int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0, grad row0]
   int* s_cnt = s_win + 4 * p.w_max;      // [slots used, valid rows]
+  float* s_gi = reinterpret_cast<float*>(s_cnt + 2);  // generic: [c][tid]
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;           // tile_area
+  const int nthr = blockDim.x;           // tile_area in whole warps
   const int lane = tid & 31;
   const int ts = p.tile_size;
   const int pix = ts * ts;
+  // register instantiations run whole-warp tiles only; the generic one
+  // pads a tile to whole warps (kernel_common.cuh)
+  const bool inside = kRegs || tid < pix;
   const int g = tile / p.group_width;
   const int ti = tile % p.group_width;
   const int tx = tile % p.tiles_wide, ty = tile / p.tiles_wide;
@@ -153,6 +145,7 @@ __global__ void stream_backward_kernel(Params p) {
   const int c_vis = 7 + p.f;             // visibility, prune, split columns
 
   // the buffer column this lane adds after each batch's reduction, or -1
+  // (slot_column's map, computed once for the register instantiations)
   int dst[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
@@ -172,19 +165,33 @@ __global__ void stream_backward_kernel(Params p) {
   const float py = static_cast<float>(tid / ts) + 0.5f - half;
   const float px2 = px * px, pxy = px * py, py2 = py * py;
   const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
-  float gi[MAXF];
-  float s_total = 0.0f;
+  float gi[kRegs ? MAXF : 1];
+  float s_total = 0.0f, gi_w = 0.0f;
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c) {
-    gi[c] = 0.0f;
-    if (c < p.f) {
-      gi[c] = p.gimg[ib + static_cast<size_t>(c) * pix];
-      s_total += gi[c] * p.img[ib + static_cast<size_t>(c) * pix];
+    for (int c = 0; c < MAXF; ++c) {
+      gi[c] = 0.0f;
+      if (c < p.f && inside) {
+        gi[c] = p.gimg[ib + static_cast<size_t>(c) * pix];
+        s_total += gi[c] * p.img[ib + static_cast<size_t>(c) * pix];
+      }
+    }
+  } else {
+    for (int c = 0; c < p.f; ++c) {
+      float gc = 0.0f;
+      if (inside) {
+        gc = p.gimg[ib + static_cast<size_t>(c) * pix];
+        s_total += gc * p.img[ib + static_cast<size_t>(c) * pix];
+      }
+      s_gi[c * nthr + tid] = gc;
     }
   }
-  const float gi_w = p.gimg[ib + static_cast<size_t>(p.f) * pix];
-  s_total += gi_w * p.img[ib + static_cast<size_t>(p.f) * pix];
-  float lt = 0.0f;       // log transmittance, carried across slabs
+  if (inside) {
+    gi_w = p.gimg[ib + static_cast<size_t>(p.f) * pix];
+    s_total += gi_w * p.img[ib + static_cast<size_t>(p.f) * pix];
+  }
+  // log transmittance, carried across slabs
+  float lt = inside ? 0.0f : frozen_lt();
   float s_prev = 0.0f;   // sum of w * g_f over earlier slabs
 
   for (int s = 0; s < p.num_slabs; ++s) {
@@ -329,9 +336,14 @@ __global__ void stream_backward_kernel(Params p) {
         const float t = expf(lt_j);
         const float w = a * t;
         float gf = 0.0f;
+        if constexpr (kRegs) {
 #pragma unroll
-        for (int c = 0; c < MAXF; ++c)
-          if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
+          for (int c = 0; c < MAXF; ++c)
+            if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
+        } else {
+          for (int c = 0; c < p.f; ++c)
+            gf += s_feat[c * sc + slot] * s_gi[c * nthr + tid];
+        }
         gf += gi_w;
         const float wgf = w * gf;
         acc_wgf += wgf;
@@ -385,24 +397,47 @@ __global__ void stream_backward_kernel(Params p) {
 
       if (__any_sync(kFull, live)) {
         float* acc = s_acc + slot;
+        if constexpr (kRegs) {
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          if (b > 0 && b * V >= kLead + p.f) break;
-          float v[V];
+          for (int b = 0; b < NB; ++b) {
+            if (b > 0 && b * V >= kLead + p.f) break;
+            float v[V];
 #pragma unroll
-          for (int i = 0; i < V; ++i) {
-            const int k = b * V + i;          // slot
-            const int c = k - kLead;          // feature of the slot
-            float x = 0.0f;
-            if (k < 7) x = t7[k < 7 ? k : 0];
-            else if (k == 7) x = tw;
-            else if (k == 8) x = tprune;
-            else if (k == 9) x = tsplit;
-            else if (c < MAXF) x = tw * gi[c >= 0 && c < MAXF ? c : 0];
-            v[i] = x;
+            for (int i = 0; i < V; ++i) {
+              const int k = b * V + i;          // slot
+              const int c = k - kLead;          // feature of the slot
+              float x = 0.0f;
+              if (k < 7) x = t7[k < 7 ? k : 0];
+              else if (k == 7) x = tw;
+              else if (k == 8) x = tprune;
+              else if (k == 9) x = tsplit;
+              else if (c < MAXF) x = tw * gi[c >= 0 && c < MAXF ? c : 0];
+              v[i] = x;
+            }
+            const float x = reduce_scatter<V>(v, lane);
+            if (dst[b] >= 0 && x != 0.0f) atomicAdd(acc + dst[b] * sa, x);
           }
-          const float x = reduce_scatter<V>(v, lane);
-          if (dst[b] >= 0 && x != 0.0f) atomicAdd(acc + dst[b] * sa, x);
+        } else {
+          // batch 0 holds the lead slots (index i, compile-time), every
+          // batch the features from shared memory
+          const float lead[kLead] = {t7[0], t7[1], t7[2], t7[3], t7[4],
+                                     t7[5], t7[6], tw, tprune, tsplit};
+          for (int b = 0; b * V < kLead + p.f; ++b) {
+            float v[V];
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              const int c = b * V + i - kLead;
+              float x = 0.0f;
+              if (b == 0 && i < kLead) x = lead[i < kLead ? i : 0];
+              else if (c < p.f) x = tw * s_gi[c * nthr + tid];
+              v[i] = x;
+            }
+            const float x = reduce_scatter<V>(v, lane);
+            const int slot = scatter_slot<V>(lane);
+            const int col = slot < 0 ? -1 : slot_column(b * V + slot, p.f,
+                                                        p.with_vis, p.heur);
+            if (col >= 0 && x != 0.0f) atomicAdd(acc + col * sa, x);
+          }
         }
       }
     }
@@ -432,45 +467,74 @@ __global__ void stream_backward_kernel(Params p) {
   }
 }
 
+// register instantiations: no launch bounds, so the compiler keeps its
+// own register choice (blocks of up to 256 threads)
 template <int MAXF, int V>
-int launch(const Params& p, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_backward_kernel<MAXF, V>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream_backward_kernel<MAXF, V>
-      <<<p.num_tiles, p.tile_size * p.tile_size, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+__global__ void stream_backward_kernel(Params p) {
+  stream_backward_body<MAXF, V>(p);
+}
+
+// the generic instantiation, for blocks of up to 1024 threads
+template <int V>
+__global__ void __launch_bounds__(1024)
+stream_backward_generic_kernel(Params p) {
+  stream_backward_body<0, V>(p);
+}
+
+// the instantiation that keeps `max_features` features in registers, or
+// the generic one for 0; null for any other value
+const void* kernel_for(int max_features) {
+  switch (max_features) {
+    case 6: return (const void*)&stream_backward_kernel<6, 16>;
+    case 22: return (const void*)&stream_backward_kernel<22, 32>;
+    case 56: return (const void*)&stream_backward_kernel<56, 32>;
+    case 0: return (const void*)&stream_backward_generic_kernel<16>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block, in bytes: rank keys, per-row
+// coefficients and features, the [column][slot] accumulator, window
+// descriptors, and (generic instantiation, max_features 0) the image
+// cotangent of every thread.
 extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
                                                     int feature_size,
-                                                    int slabw) {
+                                                    int slabw,
+                                                    int max_features,
+                                                    int threads) {
   int sort_cap = 1;
   while (sort_cap < slab_cap) sort_cap <<= 1;
   return 4LL * (sort_cap
                 + static_cast<long long>(kGeo + feature_size) * slab_cap
                 + static_cast<long long>(slabw) * acc_stride(slab_cap)
-                + 8 * w_max + 2);
+                + 8 * w_max + 2
+                + (max_features == 0
+                       ? static_cast<long long>(feature_size) * threads : 0));
 }
 
-// Launch on `stream` the instantiation <most features, V> that takes
-// feature_size: the 10 + F gradient terms of a thread in batches of V
-// slots.  Returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue when no instantiation takes feature_size or a
-// tile is not a whole number of warps.  `out` must be zero-initialised:
-// the kernel only adds to it.
+// {resident blocks per SM, registers, local bytes} of an instantiation.
+extern "C" int tpu_splat_stream_backward_occupancy(int max_features,
+                                                   int threads,
+                                                   long long smem, int* out) {
+  return kernel_occupancy(kernel_for(max_features), threads,
+                          static_cast<size_t>(smem), out);
+}
+
+// Launch on `stream` the instantiation `max_features` (6, 22, 56, or 0:
+// generic) with `threads` threads a block: the 10 + F gradient terms of a
+// thread in batches of V slots.  Returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue where no instantiation matches.
+// `out` must be zero-initialised: the kernel only adds to it.
 extern "C" int tpu_splat_stream_backward(
     const float* table, const int* desc, const int* strip_blk,
     const float* img, const float* gimg, float* out, int num_tiles,
     int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
     int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
     int antialias, int run_cap, int slabw, int with_vis, int heur,
-    float alpha_threshold, float clamp_max_alpha, float lcut,
-    void* stream) {
+    int max_features, int threads, float alpha_threshold,
+    float clamp_max_alpha, float lcut, void* stream) {
   Params p;
   p.table = table;
   p.desc = desc;
@@ -499,13 +563,10 @@ extern "C" int tpu_splat_stream_backward(
   p.alpha_threshold = alpha_threshold;
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
-  const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
-      slab_cap, w_max, feature_size, slabw));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((tile_size * tile_size) % 32 != 0)
+  if (max_features > 0 && feature_size > max_features)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (feature_size <= 6) return launch<6, 16>(p, smem, st);
-  if (feature_size <= 22) return launch<22, 32>(p, smem, st);
-  if (feature_size <= 56) return launch<56, 32>(p, smem, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
+      slab_cap, w_max, feature_size, slabw, max_features, threads));
+  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
+                       static_cast<cudaStream_t>(stream));
 }

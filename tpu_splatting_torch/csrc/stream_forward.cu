@@ -28,9 +28,20 @@
 // walking once every pixel is frozen (__syncthreads_and) and skips the
 // remaining slabs.  Row reads are one thread per row, so a window's rows
 // are read as whole 128-byte lines.
+//
+// Instantiations by most features: <8>, <24> and <56> accumulate a
+// pixel's features in registers, for tiles of whole warps up to 256
+// pixels; stream_forward_generic_kernel<0> accumulates them in shared
+// memory ([feature][thread], each thread its own column) and takes any F
+// and any tile up to 1024 pixels (one thread a pixel: the kernel has no
+// warp-wide operations, so it needs no padding lanes).  The wrapper
+// (rasterizer/stream_kernels.py, stream_forward_plan) picks one and the C
+// entry launches it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernel_common.cuh"
 
 namespace {
 
@@ -54,7 +65,8 @@ __device__ __forceinline__ float s_sig(float x, float s) {
 }
 
 template <int MAXF>
-__global__ void stream_forward_kernel(Params p) {
+__device__ __forceinline__ void stream_forward_body(const Params& p) {
+  constexpr bool kRegs = MAXF > 0;       // accumulators in registers
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_key = reinterpret_cast<int*>(smem);
   float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);
@@ -62,6 +74,8 @@ __global__ void stream_forward_kernel(Params p) {
   int* s_desc = reinterpret_cast<int*>(s_feat + p.f * p.slab_cap);
   int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0] per window
   int* s_cnt = s_win + 3 * p.w_max;      // [slots used, valid rows]
+  // generic: this thread's feature accumulators, stride nthr
+  float* s_acc = reinterpret_cast<float*>(s_cnt + 2) + threadIdx.x;
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -77,9 +91,13 @@ __global__ void stream_forward_kernel(Params p) {
   const float px2 = px * px, pxy = px * py, py2 = py * py;
   const int band_stride = 2 * p.strip_cap + kStripSlack;
 
-  float acc[MAXF];
+  float acc[kRegs ? MAXF : 1];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < MAXF; ++c) acc[c] = 0.0f;
+  } else {
+    for (int c = 0; c < p.f; ++c) s_acc[c * nthr] = 0.0f;
+  }
   float acc_w = 0.0f;
   float lt = 0.0f;        // log transmittance, carried across slabs
 
@@ -210,9 +228,14 @@ __global__ void stream_forward_kernel(Params p) {
       if (p.blending) {
         if (lt_j > p.lcut) {
           const float wgt = a * expf(lt_j);
+          if constexpr (kRegs) {
 #pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) acc[c] += wgt * s_feat[c * p.slab_cap + slot];
+            for (int c = 0; c < MAXF; ++c)
+              if (c < p.f) acc[c] += wgt * s_feat[c * p.slab_cap + slot];
+          } else {
+            for (int c = 0; c < p.f; ++c)
+              s_acc[c * nthr] += wgt * s_feat[c * p.slab_cap + slot];
+          }
           acc_w += wgt;
           acc_l += log1pf(-a);
         }
@@ -223,9 +246,14 @@ __global__ void stream_forward_kernel(Params p) {
         const float t = expf(lt_j);
         const float t_incl = t * (1.0f - a);
         if (t_incl <= p.quantile_thr && t > p.quantile_thr) {
+          if constexpr (kRegs) {
 #pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) acc[c] += s_feat[c * p.slab_cap + slot];
+            for (int c = 0; c < MAXF; ++c)
+              if (c < p.f) acc[c] += s_feat[c * p.slab_cap + slot];
+          } else {
+            for (int c = 0; c < p.f; ++c)
+              s_acc[c * nthr] += s_feat[c * p.slab_cap + slot];
+          }
         }
         acc_l += log1pf(-a);
         const float lt_next = acc_l + lt_in;
@@ -238,39 +266,77 @@ __global__ void stream_forward_kernel(Params p) {
 
   const int pix = ts * ts;
   float* o = p.out + static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int c = 0; c < MAXF; ++c)
-    if (c < p.f) o[c * pix] = acc[c];
+    for (int c = 0; c < MAXF; ++c)
+      if (c < p.f) o[c * pix] = acc[c];
+  } else {
+    for (int c = 0; c < p.f; ++c) o[c * pix] = s_acc[c * nthr];
+  }
   o[p.f * pix] = p.blending ? acc_w : (lt < 0.0f ? 1.0f : 0.0f);
 }
 
+// register instantiations: no launch bounds, so the compiler keeps its
+// own register choice (blocks of up to 256 threads)
 template <int MAXF>
-int launch(const Params& p, int num_tiles, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_forward_kernel<MAXF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream_forward_kernel<MAXF><<<num_tiles, p.tile_size * p.tile_size, smem,
-                                st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+__global__ void stream_forward_kernel(Params p) {
+  stream_forward_body<MAXF>(p);
+}
+
+// the generic instantiation, for blocks of up to 1024 threads
+template <int MAXF>
+__global__ void __launch_bounds__(1024)
+stream_forward_generic_kernel(Params p) {
+  stream_forward_body<MAXF>(p);
+}
+
+// the instantiation that keeps `max_features` accumulators in registers,
+// or the generic one for 0; null for any other value
+const void* kernel_for(int max_features) {
+  switch (max_features) {
+    case 8: return (const void*)&stream_forward_kernel<8>;
+    case 24: return (const void*)&stream_forward_kernel<24>;
+    case 56: return (const void*)&stream_forward_kernel<56>;
+    case 0: return (const void*)&stream_forward_generic_kernel<0>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes.
+// Dynamic shared memory of one block, in bytes: rank keys, per-row
+// coefficients and features, window descriptors, and (generic
+// instantiation, max_features 0) every thread's feature accumulators.
 extern "C" long long tpu_splat_stream_forward_smem(int slab_cap, int w_max,
-                                                   int feature_size) {
+                                                   int feature_size,
+                                                   int max_features,
+                                                   int threads) {
   int sort_cap = 1;
   while (sort_cap < slab_cap) sort_cap <<= 1;
-  return 4LL * (sort_cap + (kGeo + feature_size) * slab_cap + 7 * w_max + 2);
+  return 4LL * (sort_cap
+                + static_cast<long long>(kGeo + feature_size) * slab_cap
+                + 7 * w_max + 2
+                + (max_features == 0
+                       ? static_cast<long long>(feature_size) * threads : 0));
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// {resident blocks per SM, registers, local bytes} of an instantiation.
+extern "C" int tpu_splat_stream_forward_occupancy(int max_features,
+                                                  int threads,
+                                                  long long smem, int* out) {
+  return kernel_occupancy(kernel_for(max_features), threads,
+                          static_cast<size_t>(smem), out);
+}
+
+// Launch the instantiation `max_features` (8, 24, 56, or 0: generic) with
+// one thread per pixel on `stream`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue where no instantiation matches.
 extern "C" int tpu_splat_stream_forward(
     const float* table, const int* desc, const int* strip_blk, float* out,
     int num_tiles, int tiles_wide, int group_width, int num_slabs, int w_max,
     int strip_cap, int slab_cap, int rpb, int w_pad, int feature_size,
-    int tile_size, int antialias, int blending, float alpha_threshold,
+    int tile_size, int antialias, int blending, int max_features,
+    float alpha_threshold,
     float clamp_max_alpha, float lcut, float quantile_thr, void* stream) {
   Params p;
   p.table = table;
@@ -295,10 +361,11 @@ extern "C" int tpu_splat_stream_forward(
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
   p.quantile_thr = quantile_thr;
-  const size_t smem = static_cast<size_t>(
-      tpu_splat_stream_forward_smem(slab_cap, w_max, feature_size));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feature_size <= 8) return launch<8>(p, num_tiles, smem, st);
-  if (feature_size <= 24) return launch<24>(p, num_tiles, smem, st);
-  return launch<56>(p, num_tiles, smem, st);
+  if (max_features > 0 && feature_size > max_features)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = tile_size * tile_size;
+  const size_t smem = static_cast<size_t>(tpu_splat_stream_forward_smem(
+      slab_cap, w_max, feature_size, max_features, threads));
+  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
+                       static_cast<cudaStream_t>(stream));
 }

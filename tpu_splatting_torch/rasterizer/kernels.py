@@ -21,8 +21,11 @@ transmittance is at or below ``log(1 - saturate_threshold)`` nothing
 behind it composites, in both passes.
 
 A CUDA tensor goes to the hand-written kernels in ``csrc/sorted_forward.cu``
-and ``csrc/sorted_backward.cu`` (built at first use; each launch counted
-in ``launch_counts``), a CPU tensor to the ``*_reference`` twin, the same
+and ``csrc/sorted_backward.cu`` (built at first use; the instantiation and
+block from ``sorted_forward_plan`` / ``sorted_backward_plan``, any feature
+count and tile size up to 32, a ValueError with the bytes only where one
+block's shared memory cannot hold the shapes; each launch counted in
+``launch_counts``), a CPU tensor to the ``*_reference`` twin, the same
 function in plain torch vectorised over tiles with a loop over each
 tile's chunks.  There is no fallback between the two.
 
@@ -44,7 +47,10 @@ import math
 import torch
 
 from ..data_types import RasterConfig
-from ..utils.cuda_build import launch_stream, load_kernel_library
+from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
+                                 check_smem, declare_plan_entries,
+                                 instantiation, launch_stream,
+                                 load_kernel_library)
 
 _NEG_BIG = -3.0e38   # "log 0" fill that stays finite in f32 arithmetic
 
@@ -366,7 +372,36 @@ def backward_reference(sorted_rows, image_tiled, g_image_tiled, chunk_src,
   return gout
 
 
-_SMEM_LIMIT = 232448   # dynamic shared memory per block on Hopper
+# register instantiations (most features) of csrc/sorted_forward.cu and
+# csrc/sorted_backward.cu; more features take the generic one
+K4_WIDTHS = (8, 24, 56)
+K5_WIDTHS = (7, 23, 56)
+
+
+def sorted_forward_plan(f: int, chunk_size: int,
+                        tile_area: int) -> KernelPlan:
+  """K4's instantiation, threads (the tile's pixels in whole warps) and
+  shared memory: per-row coefficients and features, one visibility
+  partial per warp and row and, generic, every thread's F accumulators
+  (``tpu_splat_sorted_forward_smem``)."""
+  threads = block_threads(tile_area)
+  mf = instantiation(f, tile_area, K4_WIDTHS)
+  smem = 4 * (chunk_size * (7 + f + threads // 32)
+              + (f * threads if mf == 0 else 0))
+  return KernelPlan(mf, threads, smem)
+
+
+def sorted_backward_plan(f: int, chunk_size: int, out_w: int,
+                         tile_area: int) -> KernelPlan:
+  """K5's instantiation, threads (the tile's pixels in whole warps) and
+  shared memory: per-row coefficients and features, the [column][row]
+  accumulator and, generic, every thread's F image cotangents
+  (``tpu_splat_sorted_backward_smem``)."""
+  threads = block_threads(tile_area)
+  mf = instantiation(f, tile_area, K5_WIDTHS)
+  smem = 4 * (chunk_size * (13 + f) + out_w * acc_stride(chunk_size)
+              + (f * threads if mf == 0 else 0))
+  return KernelPlan(mf, threads, smem)
 
 
 def _check_inputs(name, sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
@@ -387,10 +422,9 @@ def _check_inputs(name, sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
     if tuple(x.shape) != (k,):
       raise ValueError(f"{name}: {field} shape {tuple(x.shape)}, expected "
                        f"({k},)")
-  pix = config.tile_area
-  if pix > 1024 or pix % 32:
+  if config.tile_area > 1024:
     raise ValueError(f"{name} kernel: tile_size {config.tile_size}: one "
-                     "thread per pixel needs whole warps, at most 1024")
+                     "thread per pixel allows at most 1024 pixels per tile")
   if num_tiles <= 0:
     raise ValueError(f"{name}: num_tiles {num_tiles}")
 
@@ -400,10 +434,9 @@ def _fwd_kernel():
   lib = load_kernel_library("sorted_forward.cu")
   lib.tpu_splat_sorted_forward.restype = ctypes.c_int
   lib.tpu_splat_sorted_forward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
-  lib.tpu_splat_sorted_forward_smem.restype = ctypes.c_longlong
-  lib.tpu_splat_sorted_forward_smem.argtypes = [ctypes.c_int] * 3
+  declare_plan_entries(lib, "tpu_splat_sorted_forward", 4)
   return lib
 
 
@@ -428,14 +461,10 @@ def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
   sorted_rows = sorted_rows.contiguous()
   f = sorted_rows.shape[1] - 7
   g, pix = config.chunk_size, config.tile_area
-  if f > 56:
-    raise ValueError(f"sorted forward kernel: {f} features (at most 56)")
+  plan = sorted_forward_plan(f, g, pix)
+  check_smem("sorted forward", plan, f"chunk_size {g}, {f} features, {pix} "
+             "pixels")
   lib = _fwd_kernel()
-  smem = lib.tpu_splat_sorted_forward_smem(g, f, pix // 32)
-  if smem > _SMEM_LIMIT:
-    raise ValueError(f"sorted forward kernel needs {smem} B of shared "
-                     f"memory (chunk_size {g}, {f} features); the limit is "
-                     f"{_SMEM_LIMIT}")
   first = _tile_chunks(chunk_to_tile, num_tiles).to(torch.int32)
   image = torch.empty((num_tiles + 1, f + 1, pix), dtype=torch.float32,
                       device=dev)
@@ -449,7 +478,8 @@ def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
         first.data_ptr(), image.data_ptr(),
         vis.data_ptr() if with_vis else None,
         num_tiles, tiles_wide, sorted_rows.shape[1], f, g, config.tile_size,
-        int(config.antialias), int(blending), config.alpha_threshold,
+        int(config.antialias), int(blending), plan.max_features,
+        plan.threads, config.alpha_threshold,
         config.clamp_max_alpha, _log_cut(config) if blending else _NEG_BIG,
         config.saturate_threshold, stream)
   if err != 0:
@@ -464,10 +494,9 @@ def _bwd_kernel():
   lib = load_kernel_library("sorted_backward.cu")
   lib.tpu_splat_sorted_backward.restype = ctypes.c_int
   lib.tpu_splat_sorted_backward.argtypes = (
-      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
       + [ctypes.c_void_p])
-  lib.tpu_splat_sorted_backward_smem.restype = ctypes.c_longlong
-  lib.tpu_splat_sorted_backward_smem.argtypes = [ctypes.c_int] * 4
+  declare_plan_entries(lib, "tpu_splat_sorted_backward", 5)
   return lib
 
 
@@ -493,8 +522,6 @@ def backward(sorted_rows: torch.Tensor, image_tiled: torch.Tensor,
                 chunk_to_tile, config, num_tiles)
   f = sorted_rows.shape[1] - 7
   g, pix = config.chunk_size, config.tile_area
-  if f > 56:
-    raise ValueError(f"sorted backward kernel: {f} features (at most 56)")
   for name, x in (("image_tiled", image_tiled),
                   ("g_image_tiled", g_image_tiled)):
     if x.device != dev:
@@ -508,12 +535,10 @@ def backward(sorted_rows: torch.Tensor, image_tiled: torch.Tensor,
                        f"expected {(num_tiles + 1, f + 1, pix)}")
   heur = config.compute_point_heuristic
   out_w = 7 + f + (2 if heur else 0)
+  plan = sorted_backward_plan(f, g, out_w, pix)
+  check_smem("sorted backward", plan, f"chunk_size {g}, {f} features, "
+             f"{out_w} gradient columns, {pix} pixels")
   lib = _bwd_kernel()
-  smem = lib.tpu_splat_sorted_backward_smem(g, f, out_w, pix // 32)
-  if smem > _SMEM_LIMIT:
-    raise ValueError(f"sorted backward kernel needs {smem} B of shared "
-                     f"memory (chunk_size {g}, {f} features, {out_w} "
-                     f"gradient columns); the limit is {_SMEM_LIMIT}")
   sorted_rows = sorted_rows.contiguous()
   image_tiled = image_tiled.contiguous()
   g_image_tiled = g_image_tiled.contiguous()
@@ -526,8 +551,8 @@ def backward(sorted_rows: torch.Tensor, image_tiled: torch.Tensor,
         first.data_ptr(), image_tiled.data_ptr(), g_image_tiled.data_ptr(),
         gout.data_ptr(), num_tiles, tiles_wide, sorted_rows.shape[1], f, g,
         config.tile_size, int(config.antialias), int(heur),
-        config.alpha_threshold, config.clamp_max_alpha, _log_cut(config),
-        stream)
+        plan.max_features, plan.threads, config.alpha_threshold,
+        config.clamp_max_alpha, _log_cut(config), stream)
   if err != 0:
     raise RuntimeError(f"sorted backward kernel launch failed: CUDA error "
                        f"{err}")

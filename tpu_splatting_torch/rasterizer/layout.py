@@ -68,6 +68,9 @@ def _kernel():
   lib.tpu_splat_segment_sum_sorted.restype = ctypes.c_int
   lib.tpu_splat_segment_sum_sorted.argtypes = (
       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+  lib.tpu_splat_layout_occupancy.restype = ctypes.c_int
+  lib.tpu_splat_layout_occupancy.argtypes = (
+      [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
   return lib
 
 

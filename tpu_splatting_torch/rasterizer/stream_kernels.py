@@ -16,10 +16,13 @@ Counterpart of ``tpu_splatting/rasterizer/stream_kernels.py``.
 
 A mapping on a CUDA device goes to the hand-written Hopper kernels in
 ``csrc/`` (built at first use); each wrapper checks shapes and types,
-launches on the current stream, raises on a launch error and counts the
-launch in ``launch_counts``.  A mapping on the CPU goes to the
-``*_reference`` twin, the same function in plain torch.  There is no
-fallback between the two.
+picks the kernel's instantiation and block (``stream_forward_plan``,
+``stream_backward_plan``: any feature count and tile size up to 32, a
+ValueError with the bytes only where one block's shared memory cannot
+hold the shapes), launches on the current stream, raises on a launch
+error and counts the launch in ``launch_counts``.  A mapping on the CPU
+goes to the ``*_reference`` twin, the same function in plain torch.
+There is no fallback between the two.
 
 Both passes compute alpha with the forward's formula (``_alpha_raw``:
 the quadratic form with log(point alpha) folded in), so the forward and
@@ -38,7 +41,9 @@ import math
 import torch
 
 from ..data_types import RasterConfig
-from ..utils.cuda_build import (CUDA_ERROR_INVALID_VALUE, launch_stream,
+from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
+                                 check_smem, declare_plan_entries,
+                                 instantiation, launch_stream,
                                  load_kernel_library)
 from .kernels import _NEG_BIG, _antialias_grads, _s_sig
 from .stream import STRIP_SLACK, StreamMapping
@@ -409,9 +414,9 @@ def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
   w_pad = table.shape[1] // mapping.rows_per_block
   f = mapping.feature_size
   t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
-  if f > w_pad - 8 or f > 56:
+  if f > w_pad - 8:
     raise ValueError(f"{name} kernel: {f} features exceed the row "
-                     f"stride {w_pad} (at most {min(w_pad - 8, 56)})")
+                     f"stride {w_pad} (at most {w_pad - 8})")
   if tuple(desc.shape) != (mapping.num_groups, 1,
                            mapping.group_width * s * w * 4):
     raise ValueError(f"{name}: desc shape {tuple(desc.shape)}")
@@ -428,7 +433,40 @@ def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
   return w_pad
 
 
-_SMEM_LIMIT = 232448   # dynamic shared memory per block on Hopper
+# register instantiations (most features) of csrc/stream_forward.cu and
+# csrc/stream_backward.cu; more features take the generic one
+K1_WIDTHS = (8, 24, 56)
+K2_WIDTHS = (6, 22, 56)
+
+
+def _sort_cap(slab_cap: int) -> int:
+  return 1 << max(0, (slab_cap - 1).bit_length())
+
+
+def stream_forward_plan(f: int, slab_cap: int, w_max: int,
+                        tile_area: int) -> KernelPlan:
+  """K1's instantiation, threads (one per pixel) and shared memory:
+  rank keys, per-row coefficients and features, window descriptors and,
+  generic, every thread's F accumulators
+  (``tpu_splat_stream_forward_smem``)."""
+  mf = instantiation(f, tile_area, K1_WIDTHS)
+  smem = 4 * (_sort_cap(slab_cap) + (7 + f) * slab_cap + 7 * w_max + 2
+              + (f * tile_area if mf == 0 else 0))
+  return KernelPlan(mf, tile_area, smem)
+
+
+def stream_backward_plan(f: int, slab_cap: int, w_max: int, slabw: int,
+                         tile_area: int) -> KernelPlan:
+  """K2's instantiation, threads (the tile's pixels in whole warps) and
+  shared memory: rank keys, per-row coefficients and features, the
+  [column][slot] accumulator, window descriptors and, generic, every
+  thread's F image cotangents (``tpu_splat_stream_backward_smem``)."""
+  threads = block_threads(tile_area)
+  mf = instantiation(f, tile_area, K2_WIDTHS)
+  smem = 4 * (_sort_cap(slab_cap) + (12 + f) * slab_cap
+              + slabw * acc_stride(slab_cap) + 8 * w_max + 2
+              + (f * threads if mf == 0 else 0))
+  return KernelPlan(mf, threads, smem)
 
 
 @functools.cache
@@ -437,10 +475,9 @@ def _kernel():
   lib = load_kernel_library("stream_forward.cu")
   lib.tpu_splat_stream_forward.restype = ctypes.c_int
   lib.tpu_splat_stream_forward.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
-  lib.tpu_splat_stream_forward_smem.restype = ctypes.c_longlong
-  lib.tpu_splat_stream_forward_smem.argtypes = [ctypes.c_int] * 3
+  declare_plan_entries(lib, "tpu_splat_stream_forward", 5)
   return lib
 
 
@@ -456,13 +493,12 @@ def stream_forward(mapping: StreamMapping,
   if dev.type != "cuda":
     raise ValueError(f"stream_forward: unsupported device {dev}")
   w_pad = _check_kernel_inputs(mapping, config)
-  lib = _kernel()
   f = mapping.feature_size
-  smem = lib.tpu_splat_stream_forward_smem(mapping.slab_cap, mapping.w_max, f)
-  if smem > _SMEM_LIMIT:
-    raise ValueError(f"stream_forward kernel needs {smem} B of shared memory "
-                     f"(slab_cap {mapping.slab_cap}, {f} features); the "
-                     f"limit is {_SMEM_LIMIT}")
+  plan = stream_forward_plan(f, mapping.slab_cap, mapping.w_max,
+                             config.tile_area)
+  check_smem("stream_forward", plan, f"slab_cap {mapping.slab_cap}, w_max "
+             f"{mapping.w_max}, {f} features, {config.tile_area} pixels")
+  lib = _kernel()
   out = torch.empty((mapping.num_tiles, f + 1, config.tile_area),
                     dtype=torch.float32, device=dev)
   with launch_stream(dev) as stream:
@@ -473,7 +509,8 @@ def stream_forward(mapping: StreamMapping,
         mapping.num_slabs, mapping.w_max, mapping.strip_cap,
         mapping.slab_cap, mapping.rows_per_block, w_pad, f,
         config.tile_size, int(config.antialias),
-        int(config.use_alpha_blending), config.alpha_threshold,
+        int(config.use_alpha_blending), plan.max_features,
+        config.alpha_threshold,
         config.clamp_max_alpha, _log_cut(config),
         config.saturate_threshold, stream)
   if err != 0:
@@ -488,10 +525,9 @@ def _bwd_kernel():
   lib = load_kernel_library("stream_backward.cu")
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_float] * 3
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_float] * 3
       + [ctypes.c_void_p])
-  lib.tpu_splat_stream_backward_smem.restype = ctypes.c_longlong
-  lib.tpu_splat_stream_backward_smem.argtypes = [ctypes.c_int] * 4
+  declare_plan_entries(lib, "tpu_splat_stream_backward", 6)
   return lib
 
 
@@ -530,13 +566,11 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   slabw = slab_width(config, f)
   heur = config.compute_point_heuristic
   with_vis = heur or config.compute_visibility
+  plan = stream_backward_plan(f, mapping.slab_cap, mapping.w_max, slabw, pix)
+  check_smem("stream_backward", plan, f"slab_cap {mapping.slab_cap}, w_max "
+             f"{mapping.w_max}, {f} features, {slabw} gradient columns, "
+             f"{pix} pixels")
   lib = _bwd_kernel()
-  smem = lib.tpu_splat_stream_backward_smem(mapping.slab_cap, mapping.w_max,
-                                            f, slabw)
-  if smem > _SMEM_LIMIT:
-    raise ValueError(f"stream_backward kernel needs {smem} B of shared "
-                     f"memory (slab_cap {mapping.slab_cap}, {f} features, "
-                     f"{slabw} gradient columns); the limit is {_SMEM_LIMIT}")
   out = torch.zeros((t * mapping.run_cap + 1, slabw), dtype=torch.float32,
                     device=dev)
   with launch_stream(dev) as stream:
@@ -548,12 +582,8 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.w_max, mapping.strip_cap, mapping.slab_cap,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
-        int(heur), config.alpha_threshold, config.clamp_max_alpha,
-        _log_cut(config), stream)
-  if err == CUDA_ERROR_INVALID_VALUE:
-    raise ValueError(f"stream_backward kernel: no instantiation takes {f} "
-                     f"features at {pix} pixels a tile (whole warps, at "
-                     "most 56 features)")
+        int(heur), plan.max_features, plan.threads, config.alpha_threshold,
+        config.clamp_max_alpha, _log_cut(config), stream)
   if err != 0:
     raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
                        f"{err}")
