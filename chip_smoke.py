@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
    the resident blocks and warps per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); and the plans'
    shared-memory formulas (Python) against the kernels' own ``*_smem``
-   entries (C) over a grid of feature counts, tiles and capacities.
+   entries (C) over a grid of feature counts, tiles and capacities; and
+   that the floor probes of K1 and K4 (their walk taken out) kept their
+   staging loads and shared stores in the SASS (``cuobjdump -sass``).
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
@@ -38,7 +40,11 @@ Phases (any failure raises and exits non-zero):
    pass), checked for zero overflow, finite images and weights in [0, 1],
    with the K1 launch count of that run; then a staged timing of one
    render (by CUDA events, then with each stage alone between
-   synchronisations), and K1 against its twin at the full-size shapes.
+   synchronisations), K1 against its twin at the full-size shapes, the
+   plain model's estimate of the share of its (row, warp) pairs that a
+   warp walks (the plain footprint over the mapping; also on phase 2's
+   heavy mapping), and K1's floor probe
+   bit for bit against its plain version, timed beside K1.
 4. Five training steps at full size, one pose each:
    ``render_with_heuristics`` (SH 3, tiled masked L2 loss, visibility and
    point heuristics) and a ``VisibilityAwareAdam`` step on the SH
@@ -75,12 +81,20 @@ Phases (any failure raises and exits non-zero):
    calls, so that a kernel of tens of microseconds is not judged by its
    Python wrapper); and, for information, the sorted image against the
    stream image of the same pose (the stream pipeline composites in 14-bit
-   depth order, the sorted one in exact f32 depth order).
+   depth order, the sorted one in exact f32 depth order).  For K4, what
+   phase 3 gives for K1: the walked share (also on phase 5's heavy
+   mapping) and the floor probe, the counterpart of
+   ``benchmarks/exp_kernel_floor.py:_floor_kernel``.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
 full shapes (K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
-K5 with its run-to-run difference), and ``{"ok": true, "device": ...}``.
+K5 with its run-to-run difference, and the two floor probes, which lie
+on no path: ``main_path`` false, ``launches`` read from their counters
+after the main path's run), and ``{"ok": true, "device": ...}``.  The
+walked shares are the plain footprint model's estimate over the mapping,
+printed in the log and not in the kernels line: the kernels do not count
+the rows they walk.
 """
 
 from __future__ import annotations
@@ -222,6 +236,93 @@ def kernel_vs_twin(mapping, config, label, reps=3):
   return err, k_ms, t_ms
 
 
+def floor_vs_plain(name, fn, plain, args, in_bytes, label):
+  """A floor probe bit for bit against its plain version, both timed
+  (5 calls each): its kernels-line entry, without the source fields."""
+  got = fn(*args)
+  want = plain(*args)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want), (
+      f"{label}: {name} differs from its plain version")
+  k_ms = cuda_ms(lambda: fn(*args), 5)
+  p_ms = cuda_ms(lambda: plain(*args), 5)
+  b_ms, b_by = bound_ms(0, in_bytes + nbytes(got))
+  log(f"  {label} {name}: bit-exact against its plain version; "
+      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+  return {"main_path": False, "max_abs_err": 0.0, "ms": k_ms,
+          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": None}
+
+
+def stream_walk_mask(mapping, config):
+  """(R, W) bool over the R window rows of every (tile, slab) that K1
+  stages and the W warps of a K1 block: whether the plain footprint
+  (``footprint_reference``) of the row meets the warp's pixels.  Antialias
+  mode walks every row."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.utils.cuda_build import block_threads
+  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
+  ts = config.tile_size
+  dev = mapping.table.device
+  rpb = mapping.rows_per_block
+  table = mapping.table.reshape(-1, mapping.table.shape[1] // rpb)
+  lens = sk._staged_lengths(mapping).reshape(-1)
+  starts = sk._window_slots(mapping)[2].reshape(-1)[lens > 0]
+  tiles = torch.arange(t, device=dev).repeat_interleave(s * w)[lens > 0]
+  lens = lens[lens > 0]
+  first = torch.cumsum(lens, 0) - lens
+  idx = (torch.repeat_interleave(starts - first, lens)
+         + torch.arange(int(lens.sum()), device=dev))
+  rows = table[idx]
+  wr = kk.warp_rects(ts, block_threads(config.tile_area), centred=True)
+  if config.antialias:
+    return rows.new_ones((rows.shape[0], wr.shape[0]), dtype=torch.bool)
+  tiles = torch.repeat_interleave(tiles, lens)
+  ox = ((tiles % mapping.tiles_wide) * ts).to(rows.dtype) + ts * 0.5
+  oy = ((tiles // mapping.tiles_wide) * ts).to(rows.dtype) + ts * 0.5
+  coeffs = kk.quad_coeffs(rows[:, 0] - ox, rows[:, 1] - oy, rows[:, 2],
+                          rows[:, 3], rows[:, 4], rows[:, 5], rows[:, 6])
+  return kk.walk_mask(kk.footprint_reference(
+      coeffs, config.alpha_threshold, ts * 0.5 - 0.5), wr)
+
+
+def sorted_walk_mask(sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
+                     config, num_tiles, tiles_wide):
+  """(R, W) bool over the R valid rows of the tiles' chunks (chunk order)
+  and the W warps of a K4 block: whether the plain footprint of the row
+  meets the warp's pixels.  Antialias mode walks every row."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.utils.cuda_build import block_threads
+  g, ts = config.chunk_size, config.tile_size
+  r = torch.arange(g, device=sorted_rows.device)
+  keep = ((r < chunk_cnt[:, None])
+          & (chunk_to_tile < num_tiles)[:, None])
+  rows = sorted_rows[(chunk_src.long()[:, None] + r)[keep]]
+  tiles = chunk_to_tile.long()[:, None].expand(-1, g)[keep]
+  wr = kk.warp_rects(ts, block_threads(config.tile_area), centred=False)
+  if config.antialias:
+    return rows.new_ones((rows.shape[0], wr.shape[0]), dtype=torch.bool)
+  ox = ((tiles % tiles_wide) * ts).to(rows.dtype)
+  oy = ((tiles // tiles_wide) * ts).to(rows.dtype)
+  coeffs = kk.quad_coeffs(rows[:, 0] - ox, rows[:, 1] - oy, rows[:, 2],
+                          rows[:, 3], rows[:, 4], rows[:, 5], rows[:, 6])
+  return kk.walk_mask(kk.footprint_reference(
+      coeffs, config.alpha_threshold, ts - 0.5), wr)
+
+
+def walked_share(mask, label):
+  """The plain model's estimate of a forward kernel's walked share:
+  (row, warp) pairs whose footprint meets the warp over the pairs the
+  mapping gives it (``mask`` from ``stream_walk_mask`` or
+  ``sorted_walk_mask``).  The kernel does not count what it walks; this
+  is not a device measurement and stays out of the kernels line."""
+  share = float(mask.double().mean())
+  log(f"  {label} walked share (plain model's estimate, not measured on "
+      f"the device): {share:.4f} ({int(mask.sum())} of {mask.shape[0]} "
+      f"rows x {mask.shape[1]} warps)")
+
+
 def backward_vs_twin(mapping, config, label, reps=3):
   """K2 against stream_backward_reference on one cotangent, column by
   column (max |kernel - twin| <= 1e-4 * max |twin column| + 1e-6).
@@ -260,14 +361,54 @@ K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
 
 def entry_label(ptxas_line):
   """'stream_backward_kernel<6, 16>' from ptxas's mangled name in its
-  'Compiling entry function' line."""
+  'Compiling entry function' line (or a SASS 'Function :' line)."""
   m = re.search(r"\d([A-Za-z_]+_kernel)I(.+?)EEv", ptxas_line)
   if m is None:
     return ptxas_line.strip()
-  args = re.findall(r"Li(\d+)E", m.group(2)) or [
+  args = [v if k == "i" else ("true" if v == "1" else "false")
+          for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))] or [
       {"j": "uint32", "m": "uint64", "f": "float", "d": "double"}.get(
           m.group(2), m.group(2))]
   return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def sass_counts(lib):
+  """{kernel label: (global loads, shared stores)} in the SASS of a built
+  library (``cuobjdump -sass``)."""
+  import shutil
+  tool = next((c for c in (shutil.which("cuobjdump"),
+                           "/usr/local/cuda/bin/cuobjdump")
+               if c and os.path.exists(c)), None)
+  assert tool, "cuobjdump not found"
+  sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                        text=True, check=True).stdout
+  counts, name = {}, None
+  for line in sass.splitlines():
+    if "Function :" in line:
+      name = entry_label(line)
+      counts[name] = [0, 0]
+    elif name is not None:
+      counts[name][0] += bool(re.search(r"\bLDG\b", line))
+      counts[name][1] += bool(re.search(r"\bSTS\b", line))
+  return counts
+
+
+def check_floor_sass():
+  """The floor probes' staging survived the compiler: their SASS keeps the
+  row loads from global memory and the stores of the staged rows to
+  shared memory (printed beside the compositing kernel's)."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  for lib, stem, width in ((sk._kernel(), "stream_forward", sk.FLOOR_WIDTH),
+                           (kk._fwd_kernel(), "sorted_forward",
+                            kk.FLOOR_WIDTH)):
+    counts = sass_counts(lib)
+    floor = counts[f"{stem}_headline_kernel<{width}, false>"]
+    walk = counts[f"{stem}_headline_kernel<{width}, true>"]
+    log(f"  SASS of {stem}_headline_kernel<{width}>: floor probe {floor[0]} "
+        f"global loads, {floor[1]} shared stores; compositing kernel "
+        f"{walk[0]} and {walk[1]}")
+    assert floor[0] >= 8 and floor[1] >= 7, (stem, floor)
 
 
 # the headline's shapes (PERF.md section 4): F 3 with heuristics, tile 16,
@@ -368,6 +509,7 @@ def phase_device():
         log(f"  {entry_label(line)}")
       elif "registers" in line or "spill" in line:
         log(f"    ptxas: {line.strip()}")
+  check_floor_sass()
   return card, phase_plans()
 
 
@@ -403,6 +545,7 @@ def mapped_scene(packed, depth, feats, image_size, config, dev,
 def phase_twin(dev):
   """Phases 2 and 2b: (K1 max error, K2 max error)."""
   from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
   from tpu_splatting_torch.scenes import heavy_scene, uniform_scene
   errs, errs2 = [], []
   log(f"phase 2: K1 and K2 vs twins, uniform {N_SMALL} splats {SIZE_SMALL}")
@@ -434,13 +577,14 @@ def phase_twin(dev):
     log(f"  heavy mapping: slab_cap {m.slab_cap} num_slabs {m.num_slabs} "
         f"w_max {m.w_max} dup_cap {m.dup_cap}")
     errs.append(kernel_vs_twin(m, cfg, "heavy blending", reps=1)[0])
+    if slab_cap == 1024:
+      walked_share(stream_walk_mask(m, cfg), "heavy K1")
     errs2.append(backward_vs_twin(
         m, dataclasses.replace(cfg, **HEUR), "heavy heuristics", reps=1)[0])
 
   # the heavy scene's calibration at 2M splats asks for slab_cap 1792:
   # K2 must still fit one block's shared memory there at F = 3 with
   # heuristics (13 columns; w_max as in the 32-slab mapping above)
-  from tpu_splatting_torch.rasterizer import stream_kernels as sk
   from tpu_splatting_torch.utils.cuda_build import SMEM_LIMIT
   smem = sk.stream_backward_plan(3, 1792, m.w_max, 13, 256).smem
   log(f"  K2 shared memory at slab_cap 1792, w_max {m.w_max}, F 3, 13 "
@@ -642,8 +786,10 @@ def phase_full(dev):
           f"{w_max:.6f}]  mean rgb {r.image.mean().item():.4f}"
           + ("  (+median pass)" if median else ""))
   launches = sk.launch_counts["stream_forward"]
+  floor_launches = sk.probe_launch_counts["stream_forward_floor"]
   peak = torch.cuda.max_memory_allocated() / 2 ** 30
-  log(f"  K1 launches in the 5 requests: {launches}")
+  log(f"  K1 launches in the 5 requests: {launches}; its floor probe's: "
+      f"{floor_launches}")
   assert launches >= len(cams), launches
   log(f"  end-to-end ms per render: {[round(t, 3) for t in times]}")
   log(f"  peak device memory: {peak:.3f} GiB")
@@ -680,6 +826,7 @@ def phase_full(dev):
     mq = stream_map_with_config(
         g2d, nd, torch.cat([feats, depths], -1), SIZE_FULL, cfg)
     err_q, _, _ = kernel_vs_twin(mq, median_cfg, "full quantile", reps=1)
+    walked_share(stream_walk_mask(m, cfg), "K1")
   b_ms, b_by = bound_ms(pairs_of(m, cfg) * K1_OPS_PER_PAIR,
                         nbytes(m.table, m.desc, m.strip_blk, it))
   log(f"  K1 bound at the full-size shapes: {b_ms:.4f} ms ({b_by}; "
@@ -691,7 +838,13 @@ def phase_full(dev):
   k1 = {"launches": launches, "max_abs_err": max(err_b, err_q),
         "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
         "resident_warps_per_sm": occ1["warps_per_sm"]}
-  return k1, g3d, cams, cfg
+  k1_floor = {"launches": floor_launches, **floor_vs_plain(
+      "stream_forward_floor", sk.stream_forward_floor,
+      sk.stream_forward_floor_reference, (m, cfg),
+      nbytes(m.table, m.desc, m.strip_blk), "full")}
+  log(f"  K1 {k_ms:.3f} ms = floor (staging and sort) "
+      f"{k1_floor['ms']:.3f} + walk {k_ms - k1_floor['ms']:.3f} ms")
+  return k1, k1_floor, g3d, cams, cfg
 
 
 def phase_train(dev, g3d, cams, cfg_caps):
@@ -948,6 +1101,7 @@ def layout_vs_twins(m, gout, label, reps=3):
 def phase_sorted_twin(dev):
   """Phase 5: (K4, K5, K7 max errors) at the check shapes."""
   from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.rasterizer import kernels as kk
   from tpu_splatting_torch.scenes import heavy_scene, uniform_scene
   e4, e5, e7 = [], [], []
   # heavy splats reach ~100 px sigma: a big-path window as wide as the
@@ -965,6 +1119,10 @@ def phase_sorted_twin(dev):
     cfg, m = sorted_mapped(packed, depth, feats, SIZE_SMALL, base, dev)
     reps = 3 if name == "uniform" else 1
     e4.append(sorted_forward_vs_twin(m, cfg, f"{name} blending", reps)[0])
+    if name == "heavy":
+      walked_share(sorted_walk_mask(
+          m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile, cfg,
+          m.num_tiles, m.tiles_wide), "heavy K4")
     e4.append(sorted_forward_vs_twin(
         m, dataclasses.replace(cfg, antialias=True), f"{name} antialias",
         reps)[0])
@@ -1092,7 +1250,8 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   cap = caps["max_overlaps"]
 
   def counts():
-    return {**kk.launch_counts, **layout.launch_counts}
+    return {**kk.launch_counts, **kk.probe_launch_counts,
+            **layout.launch_counts}
 
   # three requests through the public entry point
   torch.cuda.synchronize()
@@ -1259,6 +1418,9 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   log("  K4-K7 vs twins at the full-size shapes")
   err4, k4_ms, t4_ms = sorted_forward_vs_twin(m, tcfg, "full blending",
                                               reps=5)
+  walked_share(sorted_walk_mask(
+      m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile, tcfg,
+      m.num_tiles, m.tiles_wide), "K4")
   err5, k5_ms, t5_ms, gout, rerun5 = sorted_backward_vs_twin(
       m, tcfg, "full heuristics", reps=5)
   err7 = layout_vs_twins(m, gout, "full")
@@ -1275,6 +1437,12 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
                 row_bytes + idx_bytes + 2 * nbytes(it) + nbytes(gout))
   log(f"  K4 bound {b4[0]:.4f} ms ({b4[1]}), K5 bound {b5[0]:.4f} ms "
       f"({b5[1]}): {pairs} (row, pixel) pairs")
+  floor4 = floor_vs_plain(
+      "forward_floor", kk.forward_floor, kk.forward_floor_reference,
+      (m.sorted_payload, m.chunk_src, m.chunk_cnt, m.chunk_to_tile, tcfg,
+       m.num_tiles, m.tiles_wide), row_bytes + idx_bytes, "full")
+  log(f"  K4 {k4_ms:.3f} ms = floor (staging) {floor4['ms']:.3f} + walk "
+      f"{k4_ms - floor4['ms']:.3f} ms")
   plans = kernel_plans(f, tcfg.tile_area, 512, 27, g)
   occ4 = occupancy_of("K4", plans["K4"][2])
   occ5 = occupancy_of("K5", plans["K5"][2])
@@ -1341,6 +1509,10 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
             launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms,
             device_ms=k7_dev, library_device_ms=l7_dev,
             resident_warps_per_sm=occupancy_of("K7")["warps_per_sm"]),
+      dict(name="forward_floor", route="cuda",
+           source="tpu_splatting_torch/csrc/sorted_forward.cu",
+           replaces="benchmarks/exp_kernel_floor.py:29",
+           launches=launches["sorted_forward_floor"], **floor4),
   ]
 
 
@@ -1353,12 +1525,12 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
   err2, err2b = phase_twin(dev)
   cross_device_check(dev)
-  k1, g3d, cams, cfg = phase_full(dev)
+  k1, k1_floor, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
   sorted_cross_device_check(dev)
   sorted_entries = phase_sorted_full(dev, g3d, cams, cfg)
-  for e, err in zip(sorted_entries, (e4, e5, 0.0, e7)):
+  for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
       f"{e4:.3e} K5 {e5:.3e} K7 {e7:.3e}")
@@ -1375,7 +1547,10 @@ def main():
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),
-      *sorted_entries]}))
+      *sorted_entries,
+      dict(name="stream_forward_floor", route="cuda",
+           source=src + "stream_forward.cu", replaces=ref + "412",
+           probe_of="stream_forward", **k1_floor)]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -427,3 +427,84 @@ def test_sorted_step_never_takes_a_twin(cuda, monkeypatch):
   assert float(out.visibility.max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
   assert float(probe.grad[:, 0].max()) > 0.0
+
+
+# --- the forward kernels' per-warp walk and floor probes (K1, K4) ---------
+
+def edge_scene(dev, n=3000, size=(128, 96)):
+  """Isotropic splats placed so that a pixel centre sits at the threshold
+  radius sigma * sqrt(2 ln(alpha / alpha_threshold)) from the mean, moved
+  by -1e-6, 0 or +1e-6 of it: their footprints' edges fall on pixel
+  centres, in random directions across the warps' rectangles."""
+  rng = np.random.default_rng(9)
+  thr = RasterConfig().alpha_threshold
+  centre = np.stack([rng.integers(0, size[0], n), rng.integers(0, size[1],
+                                                               n)], 1) + 0.5
+  sigma = rng.uniform(0.3, 3.0, n)
+  alpha = rng.uniform(0.05, 0.9, n)
+  radius = sigma * np.sqrt(2.0 * np.log(alpha / thr))
+  radius *= 1.0 + rng.choice([-1e-6, 0.0, 1e-6], n)
+  ang = rng.uniform(0.0, 2.0 * np.pi, n)
+  packed = np.stack([centre[:, 0] + radius * np.cos(ang),
+                     centre[:, 1] + radius * np.sin(ang),
+                     np.cos(ang), np.sin(ang), sigma, sigma, alpha],
+                    1).astype(np.float32)
+  depth = rng.uniform(0.05, 0.95, n).astype(np.float32)
+  feats = rng.random((n, 3)).astype(np.float32)
+  return (torch.from_numpy(x).to(dev) for x in (packed, depth, feats))
+
+
+@pytest.mark.parametrize("mode", ["blend", "quantile"])
+def test_forward_kernels_at_footprint_edges(cuda, mode):
+  """K1 and K4 against their twins where rows' footprint edges fall on
+  pixel centres: a row skipped that should be walked moves a pixel by
+  about alpha_threshold, far past the tolerance."""
+  from tpu_splatting_torch import map_to_tiles
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  size = (128, 96)
+  config = RasterConfig(**MODES[mode])
+  packed, depth, feats = edge_scene(cuda)
+  if not config.use_alpha_blending:
+    feats = depth[:, None]
+  cal = calibrate_stream(packed, depth, feats, size, config, group_width=8)
+  m = stream_map(packed, depth, feats, size, config, group_width=8,
+                 **{k: cal[k] for k in ("num_slabs", "strip_cap", "slab_cap",
+                                        "w_max", "run_cap", "wide_cap",
+                                        "dup_cap")})
+  assert int(m.num_overflow) == 0
+  torch.testing.assert_close(sk.stream_forward(m, config),
+                             sk.stream_forward_reference(m, config),
+                             atol=1e-4, rtol=0)
+  tm = map_to_tiles(packed, depth, size, config, max_overlaps=200_000,
+                    features=feats)
+  assert int(tm.num_overflow) == 0
+  args = (tm.sorted_payload, tm.chunk_src, tm.chunk_cnt, tm.chunk_to_tile,
+          config, tm.num_tiles, tm.tiles_wide)
+  img, vis = kk.forward(*args)
+  img_t, vis_t = kk.forward_reference(*args)
+  torch.testing.assert_close(img, img_t, atol=1e-4, rtol=0)
+  assert float((vis - vis_t).abs().max()) <= 1e-4 * float(
+      vis_t.abs().max()) + 1e-6
+
+
+def test_floor_probes_match_plain(cuda):
+  """Both floor probes bit for bit against their plain versions, counted
+  apart from the path's kernels; the sorted one is built for the <4>
+  instantiation only."""
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  config = RasterConfig()
+  m = mapping_for(cuda, config)
+  sk.reset_launch_counts()
+  assert torch.equal(sk.stream_forward_floor(m, config),
+                     sk.stream_forward_floor_reference(m, config))
+  assert sk.probe_launch_counts == {"stream_forward_floor": 1}
+  assert sk.launch_counts["stream_forward"] == 0
+  tm, config = sorted_mapping_for(cuda, config)
+  args = (tm.sorted_payload, tm.chunk_src, tm.chunk_cnt, tm.chunk_to_tile,
+          config, tm.num_tiles, tm.tiles_wide)
+  kk.reset_launch_counts()
+  assert torch.equal(kk.forward_floor(*args), kk.forward_floor_reference(*args))
+  assert kk.probe_launch_counts == {"sorted_forward_floor": 1}
+  with pytest.raises(ValueError, match="floor probe"):
+    kk.forward_floor(*args[:4], dataclasses.replace(config, tile_size=4),
+                     *args[5:])

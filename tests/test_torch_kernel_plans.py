@@ -3,18 +3,20 @@
 Each CUDA wrapper picks an instantiation (the register instantiation whose
 most features hold F, for tiles of whole warps up to 256 pixels, else the
 generic one: 0), a block of threads (one per pixel, rounded up to whole
-warps for K2, K4 and K5) and the bytes of shared memory one block needs;
-it raises ValueError only where those bytes exceed one block's 232,448.
-The expected bytes restate each kernel's shared-memory layout:
+warps) and the bytes of shared memory one block needs; it raises
+ValueError only where those bytes exceed one block's 232,448.  The
+expected bytes restate each kernel's shared-memory layout:
 
 * K1 (stream forward): rank keys (slab_cap rounded up to a power of two),
-  7 + F coefficients a slab row, 7 ints a window, 2 counters, and, generic,
-  F accumulators a thread.
+  4 footprint floats and 7 + F coefficients a slab row, 7 ints a window,
+  2 counters, generic F accumulators a thread, and a 16-bit row list of
+  slab_cap entries a warp.
 * K2 (stream backward): rank keys, 12 + F coefficients a slab row, the
   gradient columns at a stride of slab_cap rounded up to 32 plus one, 8
   ints a window, 2 counters, and, generic, F image cotangents a thread.
-* K4 (sorted forward): 7 + F coefficients a chunk row, one visibility
-  partial a warp and row, and, generic, F accumulators a thread.
+* K4 (sorted forward): 4 footprint floats and 7 + F coefficients a chunk
+  row, one visibility partial a warp and row, generic F accumulators a
+  thread, and a 16-bit row list of chunk entries a warp.
 * K5 (sorted backward): 13 + F coefficients a chunk row, the gradient
   columns at a stride of chunk rounded up to 32 plus one, and, generic, F
   image cotangents a thread.
@@ -47,26 +49,26 @@ def headline_plans(f, tile_area):
 
 # (features, pixels a tile) -> {kernel: (instantiation, threads, bytes)}
 EXPECTED = {
-    (3, 256): {"K1": (8, 256, 23292), "K2": (6, 256, 15772),
-               "K4": (8, 256, 9216), "K5": (7, 256, 14384)},
-    (56, 256): {"K1": (56, 256, 131836), "K2": (56, 256, 70256),
-                "K4": (56, 256, 36352), "K5": (56, 256, 68868)},
-    (57, 256): {"K1": (0, 256, 192252), "K2": (0, 256, 129652),
-                "K4": (0, 256, 95232), "K5": (0, 256, 128264)},
-    (64, 256): {"K1": (0, 256, 213756), "K2": (0, 256, 144016),
-                "K4": (0, 256, 105984), "K5": (0, 256, 142628)},
-    (100, 256): {"K1": (0, 256, 324348), "K2": (0, 256, 217888),
-                 "K4": (0, 256, 161280), "K5": (0, 256, 216500)},
-    (3, 16): {"K1": (0, 16, 23484), "K2": (0, 32, 16156),
-              "K4": (0, 32, 6016), "K5": (0, 32, 14768)},
-    (56, 16): {"K1": (0, 16, 135420), "K2": (0, 32, 77424),
-               "K4": (0, 32, 39936), "K5": (0, 32, 76036)},
-    (57, 16): {"K1": (0, 16, 137532), "K2": (0, 32, 78580),
-               "K4": (0, 32, 40576), "K5": (0, 32, 77192)},
-    (64, 16): {"K1": (0, 16, 152316), "K2": (0, 32, 86672),
-               "K4": (0, 32, 45056), "K5": (0, 32, 85284)},
-    (100, 16): {"K1": (0, 16, 228348), "K2": (0, 32, 128288),
-                "K4": (0, 32, 68096), "K5": (0, 32, 126900)},
+    (3, 256): {"K1": (4, 256, 39676), "K2": (6, 256, 15772),
+               "K4": (4, 256, 13312), "K5": (7, 256, 14384)},
+    (56, 256): {"K1": (56, 256, 148220), "K2": (56, 256, 70256),
+                "K4": (56, 256, 40448), "K5": (56, 256, 68868)},
+    (57, 256): {"K1": (0, 256, 208636), "K2": (0, 256, 129652),
+                "K4": (0, 256, 99328), "K5": (0, 256, 128264)},
+    (64, 256): {"K1": (0, 256, 230140), "K2": (0, 256, 144016),
+                "K4": (0, 256, 110080), "K5": (0, 256, 142628)},
+    (100, 256): {"K1": (0, 256, 340732), "K2": (0, 256, 217888),
+                 "K4": (0, 256, 165376), "K5": (0, 256, 216500)},
+    (3, 16): {"K1": (0, 32, 32892), "K2": (0, 32, 16156),
+              "K4": (0, 32, 8320), "K5": (0, 32, 14768)},
+    (56, 16): {"K1": (0, 32, 148220), "K2": (0, 32, 77424),
+               "K4": (0, 32, 42240), "K5": (0, 32, 76036)},
+    (57, 16): {"K1": (0, 32, 150396), "K2": (0, 32, 78580),
+               "K4": (0, 32, 42880), "K5": (0, 32, 77192)},
+    (64, 16): {"K1": (0, 32, 165628), "K2": (0, 32, 86672),
+               "K4": (0, 32, 47360), "K5": (0, 32, 85284)},
+    (100, 16): {"K1": (0, 32, 243964), "K2": (0, 32, 128288),
+                "K4": (0, 32, 70400), "K5": (0, 32, 126900)},
 }
 
 
@@ -83,11 +85,28 @@ def test_shared_memory_layouts_restated():
   assert kk.sorted_backward_plan(f, g, 73, pix).smem == 4 * (
       g * (13 + f) + 73 * stride + f * pix)
   assert kk.sorted_forward_plan(f, g, pix).smem == 4 * (
-      g * (7 + f + pix // 32) + f * pix)
+      g * (4 + 7 + f + pix // 32) + f * pix) + 2 * (pix // 32) * g
   assert sk.stream_forward_plan(3, 300, 20, pix).smem == 4 * (
-      512 + 10 * 300 + 7 * 20 + 2)
+      512 + 14 * 300 + 7 * 20 + 2) + 2 * (pix // 32) * 300
   assert sk.stream_backward_plan(3, 300, 20, 13, pix).smem == 4 * (
       512 + 15 * 300 + 13 * (320 + 1) + 8 * 20 + 2)
+
+
+@pytest.mark.parametrize("kernel,plan,cap", [
+    ("K1", lambda cap, pix: sk.stream_forward_plan(3, cap, 27, pix), 512),
+    ("K4", lambda cap, pix: kk.sorted_forward_plan(3, cap, pix), 128)])
+@pytest.mark.parametrize("tile_area", [16, 64, 256, 1024])
+def test_forward_plans_hold_one_row_list_a_warp(kernel, plan, cap,
+                                                tile_area):
+  """K1's and K4's per-warp row lists: one 16-bit entry a slab or chunk
+  row for every warp of the block, so a row more adds 2 B a warp beside
+  the row's 4-byte terms (the padding warp of a 16-pixel tile included)."""
+  warps = cb.block_threads(tile_area) // 32
+  grown = plan(cap + 1, tile_area).smem - plan(cap, tile_area).smem
+  terms = 4 * (4 + 7 + 3) + (4 * warps if kernel == "K4" else 0)
+  # K1's rank keys stay at the next power of two (512 -> 1024 at 513)
+  keys = 4 * (1024 - 512) if kernel == "K1" else 0
+  assert grown == terms + 2 * warps + keys
 
 
 @pytest.mark.parametrize("f", [3, 56, 100])
@@ -97,9 +116,11 @@ def test_tiles_above_256_pixels_take_the_generic_instantiation(f):
 
 
 @pytest.mark.parametrize("widths,picks", [
-    (sk.K1_WIDTHS, {1: 8, 8: 8, 9: 24, 24: 24, 25: 56, 56: 56, 57: 0}),
+    (sk.K1_WIDTHS, {1: 4, 4: 4, 5: 8, 8: 8, 9: 24, 24: 24, 25: 56, 56: 56,
+                    57: 0}),
     (sk.K2_WIDTHS, {1: 6, 6: 6, 7: 22, 22: 22, 23: 56, 56: 56, 57: 0}),
-    (kk.K4_WIDTHS, {1: 8, 8: 8, 9: 24, 24: 24, 25: 56, 56: 56, 57: 0}),
+    (kk.K4_WIDTHS, {1: 4, 4: 4, 5: 8, 8: 8, 9: 24, 24: 24, 25: 56, 56: 56,
+                    57: 0}),
     (kk.K5_WIDTHS, {1: 7, 7: 7, 8: 23, 23: 23, 24: 56, 56: 56, 57: 0})])
 def test_instantiation_by_features(widths, picks):
   """The headline's F = 3 keeps its register instantiation; past 56

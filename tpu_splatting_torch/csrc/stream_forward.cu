@@ -12,34 +12,49 @@
 // over (rank-mask matmuls, split-bf16 passes, packed-sublane assembly,
 // the shared-assembly output).
 //
-// What bounds it on this card: the table-row reads (one 128-byte row per
-// fetched slot, gathered by window) and the per-slab shared-memory sort of
-// up to slab_cap (<= 2048) rank keys; the per-pixel work is a serial walk
-// over the slab's rows, one exp per row-pixel (quadratic) or four
-// (antialias).
+// What bounds it on this card: operations, one exp per row-pixel
+// (quadratic) or four (antialias), over the slab's rows; beside them the
+// table-row reads (one 128-byte row per fetched slot, gathered by window)
+// and the per-slab shared-memory sort of up to slab_cap (<= 2048) rank
+// keys.  Most row-pixel pairs lie outside the row's footprint, where alpha
+// is 0 and the pair adds nothing.
 //
-// Design: one block per tile, one thread per pixel.  For each slab the
-// block copies the valid rows into shared memory as per-row alpha
-// coefficients (the row's geometry is turned into the quadratic form's six
-// coefficients once per row, not once per pixel), bitonic-sorts the rank
-// keys in shared memory (the key embeds the slot, so sorting keys alone
-// gives the permutation), then every thread walks the rows front to back.
-// The log transmittance stays in a register across slabs; a block stops
-// walking once every pixel is frozen (__syncthreads_and) and skips the
-// remaining slabs.  Row reads are one thread per row, so a window's rows
-// are read as whole 128-byte lines.
+// Design: one block per tile, one thread per pixel (the generic
+// instantiation pads a tile to whole warps with frozen lanes:
+// kernel_common.cuh); at tiles of a multiple of 8 each warp holds an 8x4
+// pixel block.  For each slab the block copies the valid rows into shared
+// memory as per-row alpha coefficients (the row's geometry is turned into
+// the quadratic form's six coefficients once per row, not once per pixel)
+// and a footprint rectangle outside which alpha is 0 (quad_footprint,
+// kernel_common.cuh), and bitonic-sorts the rank keys in shared memory
+// (the key embeds the slot, so sorting keys alone gives the permutation).
+// Then each warp lists, 32 rows a ballot and in rank order, the slots whose
+// footprint meets its pixels and walks only those, front to back.
+// Skipping a row whose alpha is 0 at every pixel of the warp is exact, so
+// the result is bit for bit that of walking every row.  The log
+// transmittance stays in a register across slabs; a warp stops walking
+// once its pixels are frozen (__all_sync every 32 listed rows), and the
+// block skips the remaining slabs once every pixel is (__syncthreads_and
+// at a slab boundary).  Row reads are one thread per row, so a window's
+// rows are read as whole 128-byte lines.
 //
-// Instantiations by most features: <8>, <24> and <56> accumulate a
+// Instantiations by most features: <4>, <8>, <24> and <56> accumulate a
 // pixel's features in registers, for tiles of whole warps up to 256
 // pixels; stream_forward_generic_kernel<0> accumulates them in shared
 // memory ([feature][thread], each thread its own column) and takes any F
-// and any tile up to 1024 pixels (one thread a pixel: the kernel has no
-// warp-wide operations, so it needs no padding lanes).  The wrapper
+// and any tile up to 1024 pixels.  <4>, the headline's, is
+// stream_forward_headline_kernel, held to 48 registers.  The wrapper
 // (rasterizer/stream_kernels.py, stream_forward_plan) picks one and the C
-// entry launches it.
+// entry launches it.  stream_forward_headline_kernel<4, false> is the
+// floor probe (stream_kernels.stream_forward_floor): the same grid, slab
+// loop, window assembly, row fetch, staging, rank sort and output write
+// with the walk taken out; it writes the number of rows each tile staged
+// to channel 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include "kernel_common.cuh"
 
@@ -57,6 +72,7 @@ struct Params {
   int tiles_wide, group_width, num_slabs, w_max, strip_cap, slab_cap;
   int sort_cap, rpb, w_pad, f, tile_size, antialias, blending;
   float alpha_threshold, clamp_max_alpha, lcut, quantile_thr;
+  double log_thr;      // log(alpha_threshold), for the footprints
 };
 
 __device__ __forceinline__ float s_sig(float x, float s) {
@@ -64,30 +80,41 @@ __device__ __forceinline__ float s_sig(float x, float s) {
   return 1.0f / (1.0f + expf(-1.6f * z - 0.07f * z * z * z));
 }
 
-template <int MAXF>
+template <int MAXF, bool kWalk>
 __device__ __forceinline__ void stream_forward_body(const Params& p) {
   constexpr bool kRegs = MAXF > 0;       // accumulators in registers
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_key = reinterpret_cast<int*>(smem);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  float4* s_rect = reinterpret_cast<float4*>(smem);  // slab_cap footprints
+  int* s_key = reinterpret_cast<int*>(s_rect + p.slab_cap);
   float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);
   float* s_feat = s_geo + kGeo * p.slab_cap;
   int* s_desc = reinterpret_cast<int*>(s_feat + p.f * p.slab_cap);
   int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0] per window
   int* s_cnt = s_win + 3 * p.w_max;      // [slots used, valid rows]
   // generic: this thread's feature accumulators, stride nthr
-  float* s_acc = reinterpret_cast<float*>(s_cnt + 2) + threadIdx.x;
+  float* s_acc = reinterpret_cast<float*>(s_cnt + 2) + tid;
+  // this warp's row list (slab_cap slots), after the accumulators
+  unsigned short* s_list = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<float*>(s_cnt + 2) + (kRegs ? 0 : p.f * nthr))
+      + (tid >> 5) * p.slab_cap;
 
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
   const int ts = p.tile_size;
+  const int pix = ts * ts;
+  // register instantiations run whole-warp tiles only; the generic one
+  // pads a tile to whole warps (kernel_common.cuh)
+  const bool inside = kRegs || tid < pix;
+  const int pixel = pixel_of(tid, ts);
   const int g = tile / p.group_width;
   const float half = ts * 0.5f;
   const float ox = static_cast<float>((tile % p.tiles_wide) * ts) + half;
   const float oy = static_cast<float>((tile / p.tiles_wide) * ts) + half;
   // tile-centred pixel coordinates (the reference's centred basis)
-  const float px = static_cast<float>(tid % ts) + 0.5f - half;
-  const float py = static_cast<float>(tid / ts) + 0.5f - half;
+  const float px = static_cast<float>(pixel % ts) + 0.5f - half;
+  const float py = static_cast<float>(pixel / ts) + 0.5f - half;
   const float px2 = px * px, pxy = px * py, py2 = py * py;
   const int band_stride = 2 * p.strip_cap + kStripSlack;
 
@@ -99,7 +126,9 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     for (int c = 0; c < p.f; ++c) s_acc[c * nthr] = 0.0f;
   }
   float acc_w = 0.0f;
-  float lt = 0.0f;        // log transmittance, carried across slabs
+  // log transmittance, carried across slabs
+  float lt = inside ? 0.0f : frozen_lt();
+  float floor_v = 0.0f;   // the floor probe's output: rows staged
 
   for (int s = 0; s < p.num_slabs; ++s) {
     const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
@@ -139,7 +168,8 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     for (int i = tid; i < n_sort; i += nthr) s_key[i] = kKeyInvalid;
     __syncthreads();
 
-    // rows -> per-slot alpha coefficients, features and rank keys
+    // rows -> per-slot alpha coefficients, footprints, features and rank
+    // keys
     for (int w = 0; w < p.w_max; ++w) {
       const int slot0 = s_win[3 * w], ln = s_win[3 * w + 1];
       const int row0 = s_win[3 * w + 2];
@@ -158,6 +188,7 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
           geo[4 * p.slab_cap] = fmaxf(sx, 1e-12f);
           geo[5 * p.slab_cap] = fmaxf(sy, 1e-12f);
           geo[6 * p.slab_cap] = pa;
+          s_rect[slot] = whole_tile();
         } else {
           const float isx2 = 1.0f / fmaxf(sx * sx, 1e-24f);
           const float isy2 = 1.0f / fmaxf(sy * sy, 1e-24f);
@@ -165,13 +196,18 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
           const float cxx = -0.5f * (a2 * isx2 + b2 * isy2);
           const float cyy = -0.5f * (b2 * isx2 + a2 * isy2);
           const float cxy = -(ax * ay * (isx2 - isy2));
+          const float cx = -(2.0f * cxx * mlx + cxy * mly);
+          const float cy = -(2.0f * cyy * mly + cxy * mlx);
+          const float c1 = cxx * mlx * mlx + cxy * mlx * mly
+                           + cyy * mly * mly + logf(fmaxf(pa, 1e-30f));
           geo[0] = cxx;
           geo[1 * p.slab_cap] = cxy;
           geo[2 * p.slab_cap] = cyy;
-          geo[3 * p.slab_cap] = -(2.0f * cxx * mlx + cxy * mly);
-          geo[4 * p.slab_cap] = -(2.0f * cyy * mly + cxy * mlx);
-          geo[5 * p.slab_cap] = cxx * mlx * mlx + cxy * mlx * mly
-                                + cyy * mly * mly + logf(fmaxf(pa, 1e-30f));
+          geo[3 * p.slab_cap] = cx;
+          geo[4 * p.slab_cap] = cy;
+          geo[5 * p.slab_cap] = c1;
+          s_rect[slot] = quad_footprint(cxx, cxy, cyy, cx, cy, c1,
+                                        p.log_thr, half - 0.5f);
         }
         for (int c = 0; c < p.f; ++c)
           s_feat[c * p.slab_cap + slot] = row[7 + c];
@@ -196,17 +232,27 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
         __syncthreads();
       }
     }
+    if constexpr (!kWalk) {
+      floor_v += static_cast<float>(n_valid);
+      __syncthreads();
+      continue;
+    }
 
-    // front-to-back walk in rank order.  The log transmittance is
+    // this warp's rows in rank order: those whose footprint meets its
+    // pixels.  Then the front-to-back walk.  The log transmittance is
     // lt_in + (sequential sum of this slab's log(1 - a)), the association
     // of the twin's exclusive cumsum + carry, so threshold and freeze
     // decisions agree bit for bit.
+    // (the warp's rectangle is formed here, not held across the walk)
+    const int n = warp_row_list(
+        s_rect, n_valid, [s_key](int j) { return s_key[j] & 2047; },
+        warp_rect(px, py, inside), s_list, lane);
     const float lt_in = lt;
     float acc_l = 0.0f;
     bool done = lt <= p.lcut && (p.blending || lt < 0.0f);
-    for (int j = 0; j < n_valid; ++j) {
-      if ((j & 31) == 0 && __syncthreads_and(done)) break;
-      const int slot = s_key[j] & 2047;
+    for (int i = 0; i < n; ++i) {
+      if ((i & 31) == 0 && __all_sync(kFull, done)) break;
+      const int slot = s_list[i];
       const float* geo = s_geo + slot;
       float a_raw;
       if (p.antialias) {
@@ -264,8 +310,9 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     __syncthreads();   // shared buffers are rewritten by the next slab
   }
 
-  const int pix = ts * ts;
-  float* o = p.out + static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
+  if (!inside) return;
+  if constexpr (!kWalk) acc[0] = floor_v;
+  float* o = p.out + static_cast<size_t>(tile) * (p.f + 1) * pix + pixel;
   if constexpr (kRegs) {
 #pragma unroll
     for (int c = 0; c < MAXF; ++c)
@@ -280,20 +327,34 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
 // own register choice (blocks of up to 256 threads)
 template <int MAXF>
 __global__ void stream_forward_kernel(Params p) {
-  stream_forward_body<MAXF>(p);
+  stream_forward_body<MAXF, true>(p);
+}
+
+// the headline's instantiation (4 features) and its floor probe, held to
+// 48 registers: 5 blocks of 256 threads an SM
+template <int MAXF, bool kWalk>
+__global__ void __launch_bounds__(256, 5)
+stream_forward_headline_kernel(Params p) {
+  stream_forward_body<MAXF, kWalk>(p);
 }
 
 // the generic instantiation, for blocks of up to 1024 threads
 template <int MAXF>
 __global__ void __launch_bounds__(1024)
 stream_forward_generic_kernel(Params p) {
-  stream_forward_body<MAXF>(p);
+  stream_forward_body<MAXF, true>(p);
 }
 
 // the instantiation that keeps `max_features` accumulators in registers,
-// or the generic one for 0; null for any other value
-const void* kernel_for(int max_features) {
+// or the generic one for 0; with `walk` 0, the floor probe (<4> only);
+// null for any other value
+const void* kernel_for(int max_features, int walk = 1) {
+  if (!walk)
+    return max_features == 4
+               ? (const void*)&stream_forward_headline_kernel<4, false>
+               : nullptr;
   switch (max_features) {
+    case 4: return (const void*)&stream_forward_headline_kernel<4, true>;
     case 8: return (const void*)&stream_forward_kernel<8>;
     case 24: return (const void*)&stream_forward_kernel<24>;
     case 56: return (const void*)&stream_forward_kernel<56>;
@@ -304,9 +365,10 @@ const void* kernel_for(int max_features) {
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes: rank keys, per-row
-// coefficients and features, window descriptors, and (generic
-// instantiation, max_features 0) every thread's feature accumulators.
+// Dynamic shared memory of one block, in bytes: per-slot footprints (4
+// floats), rank keys, per-row coefficients and features, window
+// descriptors, (generic instantiation, max_features 0) every thread's
+// feature accumulators, and one 16-bit row list a warp.
 extern "C" long long tpu_splat_stream_forward_smem(int slab_cap, int w_max,
                                                    int feature_size,
                                                    int max_features,
@@ -314,10 +376,11 @@ extern "C" long long tpu_splat_stream_forward_smem(int slab_cap, int w_max,
   int sort_cap = 1;
   while (sort_cap < slab_cap) sort_cap <<= 1;
   return 4LL * (sort_cap
-                + static_cast<long long>(kGeo + feature_size) * slab_cap
+                + static_cast<long long>(4 + kGeo + feature_size) * slab_cap
                 + 7 * w_max + 2
                 + (max_features == 0
-                       ? static_cast<long long>(feature_size) * threads : 0));
+                       ? static_cast<long long>(feature_size) * threads : 0))
+         + 2LL * (threads / 32) * slab_cap;
 }
 
 // {resident blocks per SM, registers, local bytes} of an instantiation.
@@ -328,15 +391,17 @@ extern "C" int tpu_splat_stream_forward_occupancy(int max_features,
                           static_cast<size_t>(smem), out);
 }
 
-// Launch the instantiation `max_features` (8, 24, 56, or 0: generic) with
-// one thread per pixel on `stream`; returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue where no instantiation matches.
+// Launch the instantiation `max_features` (4, 8, 24, 56, or 0: generic;
+// with `walk` 0 the floor probe) with `threads` threads a block (the
+// tile's pixels in whole warps) on `stream`; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
+// instantiation matches.
 extern "C" int tpu_splat_stream_forward(
     const float* table, const int* desc, const int* strip_blk, float* out,
     int num_tiles, int tiles_wide, int group_width, int num_slabs, int w_max,
     int strip_cap, int slab_cap, int rpb, int w_pad, int feature_size,
     int tile_size, int antialias, int blending, int max_features,
-    float alpha_threshold,
+    int threads, int walk, float alpha_threshold,
     float clamp_max_alpha, float lcut, float quantile_thr, void* stream) {
   Params p;
   p.table = table;
@@ -358,14 +423,14 @@ extern "C" int tpu_splat_stream_forward(
   p.antialias = antialias;
   p.blending = blending;
   p.alpha_threshold = alpha_threshold;
+  p.log_thr = log(static_cast<double>(alpha_threshold));
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
   p.quantile_thr = quantile_thr;
   if (max_features > 0 && feature_size > max_features)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = tile_size * tile_size;
   const size_t smem = static_cast<size_t>(tpu_splat_stream_forward_smem(
       slab_cap, w_max, feature_size, max_features, threads));
-  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
-                       static_cast<cudaStream_t>(stream));
+  return launch_kernel(kernel_for(max_features, walk), p, num_tiles, threads,
+                       smem, static_cast<cudaStream_t>(stream));
 }

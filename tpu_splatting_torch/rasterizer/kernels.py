@@ -30,10 +30,18 @@ function in plain torch vectorised over tiles with a loop over each
 tile's chunks.  There is no fallback between the two.
 
 Both compute alpha with the reference forward's six quadratic-form
-coefficients (``_qf_alpha_raw``; antialias: ``_antialias_pdf``), evaluated
-term by term, and the log transmittance as the carry plus the sequential
-sum of the chunk's ``log1p(-a)``, so kernel and twin make the same
-threshold and freeze decisions (ROADMAP F7).  The TPU contracts features
+coefficients (``quad_coeffs``, ``_qf_alpha_raw``; antialias:
+``_antialias_pdf``), evaluated term by term, and the log transmittance as
+the carry plus the sequential sum of the chunk's ``log1p(-a)``, so kernel
+and twin make the same threshold and freeze decisions (ROADMAP F7).
+
+The forward kernels (K4 here, K1 in ``stream_kernels``) give each row a
+footprint rectangle outside which its alpha is 0, and each warp walks only
+the rows whose footprint meets its pixels, which changes no bit of the
+result.  ``footprint_reference``, ``thread_pixels``, ``warp_rects`` and
+``walk_mask`` are the plain model of that choice; ``forward_floor`` is K4
+with the walk taken out, a measuring probe with its plain twin
+``forward_floor_reference``.  The TPU contracts features
 at ``Precision.DEFAULT`` (one bf16 pass); the port computes them in f32,
 as the reference's interpret mode does.
 """
@@ -56,11 +64,14 @@ _NEG_BIG = -3.0e38   # "log 0" fill that stays finite in f32 arithmetic
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
 launch_counts = {"sorted_forward": 0, "sorted_backward": 0}
+# launches of the floor probe, which lies on no path of the system
+probe_launch_counts = {"sorted_forward_floor": 0}
 
 
 def reset_launch_counts():
-  for k in launch_counts:
-    launch_counts[k] = 0
+  for counts in (launch_counts, probe_launch_counts):
+    for k in counts:
+      counts[k] = 0
 
 
 def _log_cut(config: RasterConfig) -> float:
@@ -77,10 +88,11 @@ def _pixel_basis(pix: int, tile_size: int, dtype, device):
           (p // tile_size).to(dtype) + 0.5)
 
 
-def _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, pxl, pyl):
-  """Raw compositing alpha ``point_alpha * pdf`` as one exp of a quadratic
-  form in the pixel coordinates with log(point_alpha) folded into the
-  constant term.  Null (all-zero) rows give exp(log 1e-30) ~ 0."""
+def quad_coeffs(mlx, mly, ax, ay, sx, sy, point_alpha):
+  """The six coefficients (cxx, cxy, cyy, c_px, c_py, c_1) of the
+  quadratic form whose exp is the raw alpha, in the basis where the mean
+  is (mlx, mly), with log(point_alpha) folded into the constant term: the
+  values the forward kernels stage per row."""
   isx2 = 1.0 / torch.clamp(sx * sx, min=1e-24)
   isy2 = 1.0 / torch.clamp(sy * sy, min=1e-24)
   a2 = ax * ax
@@ -92,8 +104,90 @@ def _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, pxl, pyl):
   c_py = -(2.0 * cyy * mly + cxy * mlx)
   c_1 = (cxx * mlx * mlx + cxy * mlx * mly + cyy * mly * mly
          + torch.log(torch.clamp(point_alpha, min=1e-30)))
+  return cxx, cxy, cyy, c_px, c_py, c_1
+
+
+def _qf_alpha_raw(mlx, mly, ax, ay, sx, sy, point_alpha, pxl, pyl):
+  """Raw compositing alpha ``point_alpha * pdf`` as one exp of a quadratic
+  form in the pixel coordinates with log(point_alpha) folded into the
+  constant term.  Null (all-zero) rows give exp(log 1e-30) ~ 0."""
+  cxx, cxy, cyy, c_px, c_py, c_1 = quad_coeffs(mlx, mly, ax, ay, sx, sy,
+                                               point_alpha)
   return torch.exp(cxx * (pxl * pxl) + cxy * (pxl * pyl) + cyy * (pyl * pyl)
                    + c_px * pxl + c_py * pyl + c_1)
+
+
+# Margins of the footprint's level below log(alpha_threshold)
+# (csrc/kernel_common.cuh, quad_footprint): the walk's f32 rounding of the
+# exponent, relative to its terms' magnitudes, and exp's error
+WALK_REL, EXP_SLACK = 2.0 ** -21, 1e-6
+
+
+def footprint_reference(coeffs, alpha_threshold: float,
+                        reach: float) -> torch.Tensor:
+  """Plain twin of the forward kernels' row footprint
+  (``quad_footprint``): (..., 4) float64 rectangles [x0, x1, y0, y1] in
+  the coefficients' pixel basis, outside which the raw alpha that the
+  quadratic form ``coeffs`` (six tensors, ``quad_coeffs``) gives at a
+  pixel centre with |x|, |y| <= reach stays at or below alpha_threshold.
+  Empty (+inf, -inf) where the peak is too low; the whole plane where the
+  form is not negative definite or a value is not finite."""
+  a, b, c, d, e, f = (x.double() for x in coeffs)
+  det = a * c - 0.25 * b * b
+  s = ((a.abs() + b.abs() + c.abs()) * reach * reach
+       + (d.abs() + e.abs()) * reach + f.abs())
+  inv = 1.0 / det
+  xs = -0.5 * (c * d - 0.5 * b * e) * inv
+  ys = -0.5 * (a * e - 0.5 * b * d) * inv
+  thr = float(torch.tensor(alpha_threshold, dtype=torch.float32))
+  room = (f + 0.5 * (d * xs + e * ys)
+          - (math.log(thr) - EXP_SLACK - WALK_REL * s))
+  hx = torch.sqrt(room * -c * inv)
+  hy = torch.sqrt(room * -a * inv)
+  rect = torch.stack([xs - hx, xs + hx, ys - hy, ys + hy], -1)
+  whole = rect.new_tensor([-math.inf, math.inf, -math.inf, math.inf])
+  rect = torch.where(torch.isfinite(rect).all(-1, keepdim=True), rect, whole)
+  rect = torch.where((room <= 0.0)[..., None], -whole, rect)
+  definite = (a < 0.0) & (c < 0.0) & (det > 0.0)
+  return torch.where(definite[..., None], rect, whole)
+
+
+def thread_pixels(tile_size: int, threads: int) -> torch.Tensor:
+  """(threads,) the pixel (row-major in the tile) each thread of a
+  forward block composites, -1 for a padding lane: ``pixel_of`` of
+  csrc/kernel_common.cuh (an 8x4 block a warp at tiles of a multiple of
+  8)."""
+  tid = torch.arange(threads)
+  if tile_size % 8 == 0:
+    w, lane, across = tid // 32, tid % 32, tile_size // 8
+    tid = (((w // across) * 4 + lane // 8) * tile_size + (w % across) * 8
+           + lane % 8)
+  return torch.where(tid < tile_size * tile_size, tid, -1)
+
+
+def warp_rects(tile_size: int, threads: int, centred: bool) -> torch.Tensor:
+  """(threads / 32, 4) float64 rectangles [x0, x1, y0, y1] of each warp's
+  pixel centres (``warp_rect``), in the tile-centred basis (K1) or the
+  tile-local one (K4)."""
+  pix = thread_pixels(tile_size, threads)
+  shift = 0.5 - (tile_size * 0.5 if centred else 0.0)
+  x = (pix % tile_size).double() + shift
+  y = (pix // tile_size).double() + shift
+  live = (pix >= 0).view(-1, 32)
+  x, y = x.view(-1, 32), y.view(-1, 32)
+  inf = math.inf
+  return torch.stack([torch.where(live, x, inf).amin(1),
+                      torch.where(live, x, -inf).amax(1),
+                      torch.where(live, y, inf).amin(1),
+                      torch.where(live, y, -inf).amax(1)], -1)
+
+
+def walk_mask(rects: torch.Tensor, wrects: torch.Tensor) -> torch.Tensor:
+  """(..., W): whether each row footprint (..., 4) meets each warp's
+  rectangle (W, 4), i.e. whether that warp walks the row."""
+  r, w = rects[..., None, :], wrects.to(rects.device)
+  return ((r[..., 0] <= w[:, 1]) & (w[:, 0] <= r[..., 1])
+          & (r[..., 2] <= w[:, 3]) & (w[:, 2] <= r[..., 3]))
 
 
 def _lin_uv(mlx, mly, ax, ay, sx, sy, scale: bool):
@@ -374,20 +468,25 @@ def backward_reference(sorted_rows, image_tiled, g_image_tiled, chunk_src,
 
 # register instantiations (most features) of csrc/sorted_forward.cu and
 # csrc/sorted_backward.cu; more features take the generic one
-K4_WIDTHS = (8, 24, 56)
+K4_WIDTHS = (4, 8, 24, 56)
 K5_WIDTHS = (7, 23, 56)
+# the register instantiation that has a floor probe (the headline's)
+FLOOR_WIDTH = 4
 
 
 def sorted_forward_plan(f: int, chunk_size: int,
                         tile_area: int) -> KernelPlan:
   """K4's instantiation, threads (the tile's pixels in whole warps) and
-  shared memory: per-row coefficients and features, one visibility
-  partial per warp and row and, generic, every thread's F accumulators
+  shared memory: per-row footprints (4 floats), coefficients and
+  features, one visibility partial per warp and row, generic every
+  thread's F accumulators, and one 16-bit row list per warp
   (``tpu_splat_sorted_forward_smem``)."""
   threads = block_threads(tile_area)
+  warps = threads // 32
   mf = instantiation(f, tile_area, K4_WIDTHS)
-  smem = 4 * (chunk_size * (7 + f + threads // 32)
-              + (f * threads if mf == 0 else 0))
+  smem = (4 * (chunk_size * (4 + 7 + f + warps)
+               + (f * threads if mf == 0 else 0))
+          + 2 * warps * chunk_size)
   return KernelPlan(mf, threads, smem)
 
 
@@ -434,10 +533,52 @@ def _fwd_kernel():
   lib = load_kernel_library("sorted_forward.cu")
   lib.tpu_splat_sorted_forward.restype = ctypes.c_int
   lib.tpu_splat_sorted_forward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_sorted_forward", 4)
   return lib
+
+
+def _launch_forward(sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
+                    config: RasterConfig, num_tiles: int, tiles_wide: int,
+                    with_vis: bool, walk: bool, name: str):
+  """Check, plan and launch ``csrc/sorted_forward.cu``: the compositing
+  kernel, or (``walk`` False) its floor probe."""
+  dev = sorted_rows.device
+  if dev.type != "cuda":
+    raise ValueError(f"{name}: unsupported device {dev}")
+  _check_inputs(name, sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
+                config, num_tiles)
+  sorted_rows = sorted_rows.contiguous()
+  f = sorted_rows.shape[1] - 7
+  g, pix = config.chunk_size, config.tile_area
+  plan = sorted_forward_plan(f, g, pix)
+  check_smem(name, plan, f"chunk_size {g}, {f} features, {pix} pixels")
+  if not walk and plan.max_features != FLOOR_WIDTH:
+    raise ValueError(f"{name}: the floor probe is built for the "
+                     f"<{FLOOR_WIDTH}> instantiation only ({f} features, "
+                     f"{pix} pixels)")
+  lib = _fwd_kernel()
+  first = _tile_chunks(chunk_to_tile, num_tiles).to(torch.int32)
+  image = torch.empty((num_tiles + 1, f + 1, pix), dtype=torch.float32,
+                      device=dev)
+  image[num_tiles].zero_()
+  vis = (torch.zeros((chunk_src.shape[0] * g, 1), dtype=torch.float32,
+                     device=dev) if with_vis else None)
+  blending = config.use_alpha_blending
+  with launch_stream(dev) as stream:
+    err = lib.tpu_splat_sorted_forward(
+        sorted_rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
+        first.data_ptr(), image.data_ptr(),
+        vis.data_ptr() if with_vis else None,
+        num_tiles, tiles_wide, sorted_rows.shape[1], f, g, config.tile_size,
+        int(config.antialias), int(blending), plan.max_features,
+        plan.threads, int(walk), config.alpha_threshold,
+        config.clamp_max_alpha, _log_cut(config) if blending else _NEG_BIG,
+        config.saturate_threshold, stream)
+  if err != 0:
+    raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+  return image, vis
 
 
 def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
@@ -454,39 +595,49 @@ def forward(sorted_rows: torch.Tensor, chunk_src: torch.Tensor,
     return forward_reference(sorted_rows, chunk_src, chunk_cnt,
                              chunk_to_tile, config, num_tiles, tiles_wide,
                              with_vis)
-  if dev.type != "cuda":
-    raise ValueError(f"sorted forward: unsupported device {dev}")
-  _check_inputs("sorted forward", sorted_rows, chunk_src, chunk_cnt,
-                chunk_to_tile, config, num_tiles)
-  sorted_rows = sorted_rows.contiguous()
-  f = sorted_rows.shape[1] - 7
-  g, pix = config.chunk_size, config.tile_area
-  plan = sorted_forward_plan(f, g, pix)
-  check_smem("sorted forward", plan, f"chunk_size {g}, {f} features, {pix} "
-             "pixels")
-  lib = _fwd_kernel()
-  first = _tile_chunks(chunk_to_tile, num_tiles).to(torch.int32)
-  image = torch.empty((num_tiles + 1, f + 1, pix), dtype=torch.float32,
-                      device=dev)
-  image[num_tiles].zero_()
-  vis = (torch.zeros((chunk_src.shape[0] * g, 1), dtype=torch.float32,
-                     device=dev) if with_vis else None)
-  blending = config.use_alpha_blending
-  with launch_stream(dev) as stream:
-    err = lib.tpu_splat_sorted_forward(
-        sorted_rows.data_ptr(), chunk_src.data_ptr(), chunk_cnt.data_ptr(),
-        first.data_ptr(), image.data_ptr(),
-        vis.data_ptr() if with_vis else None,
-        num_tiles, tiles_wide, sorted_rows.shape[1], f, g, config.tile_size,
-        int(config.antialias), int(blending), plan.max_features,
-        plan.threads, config.alpha_threshold,
-        config.clamp_max_alpha, _log_cut(config) if blending else _NEG_BIG,
-        config.saturate_threshold, stream)
-  if err != 0:
-    raise RuntimeError(f"sorted forward kernel launch failed: CUDA error "
-                       f"{err}")
+  image, vis = _launch_forward(sorted_rows, chunk_src, chunk_cnt,
+                               chunk_to_tile, config, num_tiles, tiles_wide,
+                               with_vis, True, "sorted forward")
   launch_counts["sorted_forward"] += 1
   return image, vis
+
+
+def forward_floor_reference(sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
+                            config: RasterConfig, num_tiles: int,
+                            tiles_wide: int):
+  """Plain twin of ``forward_floor``: a zero (T+1, F+1, PIX) image whose
+  channel 0 holds, in every tile that has chunks, column 0 of its last
+  chunk's first row (what ``benchmarks/exp_kernel_floor.py`` writes)."""
+  first = _tile_chunks(chunk_to_tile, num_tiles)
+  image = sorted_rows.new_zeros((num_tiles + 1, sorted_rows.shape[1] - 6,
+                                 config.tile_area))
+  last = chunk_src.long()[torch.clamp(first[1:] - 1, min=0)]
+  image[:num_tiles, 0] = torch.where(first[1:] > first[:-1],
+                                     sorted_rows[last, 0], 0.0)[:, None]
+  return image
+
+
+def forward_floor(sorted_rows, chunk_src, chunk_cnt, chunk_to_tile,
+                  config: RasterConfig, num_tiles: int, tiles_wide: int):
+  """K4's floor probe, the counterpart of
+  ``benchmarks/exp_kernel_floor.py:_floor_kernel``: K4's grid, chunk loop,
+  row fetch, staging and output write with the walk taken out (blending
+  mode, the ``<FLOOR_WIDTH>`` instantiation).  A measuring instrument on
+  no path of the system.
+
+  CPU tensors -> ``forward_floor_reference``; CUDA tensors -> the kernel,
+  or an exception."""
+  if sorted_rows.device.type == "cpu":
+    return forward_floor_reference(sorted_rows, chunk_src, chunk_cnt,
+                                   chunk_to_tile, config, num_tiles,
+                                   tiles_wide)
+  if not config.use_alpha_blending:
+    raise ValueError("sorted forward floor: blending mode only")
+  image, _ = _launch_forward(sorted_rows, chunk_src, chunk_cnt,
+                             chunk_to_tile, config, num_tiles, tiles_wide,
+                             False, False, "sorted forward floor")
+  probe_launch_counts["sorted_forward_floor"] += 1
+  return image
 
 
 @functools.cache

@@ -45,16 +45,19 @@ from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
                                  check_smem, declare_plan_entries,
                                  instantiation, launch_stream,
                                  load_kernel_library)
-from .kernels import _NEG_BIG, _antialias_grads, _s_sig
+from .kernels import _NEG_BIG, _antialias_grads, _s_sig, quad_coeffs
 from .stream import STRIP_SLACK, StreamMapping
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
 launch_counts = {"stream_forward": 0, "stream_backward": 0}
+# launches of the floor probe, which lies on no path of the system
+probe_launch_counts = {"stream_forward_floor": 0}
 
 
 def reset_launch_counts():
-  for k in launch_counts:
-    launch_counts[k] = 0
+  for counts in (launch_counts, probe_launch_counts):
+    for k in counts:
+      counts[k] = 0
 
 
 def slab_width(config: RasterConfig, f: int) -> int:
@@ -120,6 +123,16 @@ def window_grad_rows(mapping: StreamMapping) -> torch.Tensor:
   return (home - tiles % mapping.group_width - k) * rc + dst
 
 
+def _staged_lengths(mapping: StreamMapping) -> torch.Tensor:
+  """(T, S, W) rows of each window that K1 stages: ``_window_slots``'s
+  lengths in slab 0 and in every slab whose window 0 is not empty (K1
+  skips an empty plan slot)."""
+  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
+  staged = mapping.desc.view(t, s, w, 4)[:, :, 0, 1] > 0
+  staged[:, 0] = True
+  return _window_slots(mapping)[1] * staged[..., None]
+
+
 def _alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
   """(C, L, PIX) raw alpha of rows (C, L, >=7) at the tile-centred pixel
   coordinates, the reference forward's formulas; in antialias mode also
@@ -137,16 +150,8 @@ def _alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
     iy = syc * (_s_sig(tv + 0.5, syc) - _s_sig(tv - 0.5, syc))
     return pa * (2.0 * math.pi * ix * iy), (tu, tv)
   else:
-    isx2 = 1.0 / torch.clamp(sx * sx, min=1e-24)
-    isy2 = 1.0 / torch.clamp(sy * sy, min=1e-24)
-    a2, b2 = ax * ax, ay * ay
-    cxx = -0.5 * (a2 * isx2 + b2 * isy2)
-    cyy = -0.5 * (b2 * isx2 + a2 * isy2)
-    cxy = -(ax * ay * (isx2 - isy2))
-    c_px = -(2.0 * cxx * mlx + cxy * mly)
-    c_py = -(2.0 * cyy * mly + cxy * mlx)
-    c_1 = (cxx * mlx * mlx + cxy * mlx * mly + cyy * mly * mly
-           + torch.log(torch.clamp(pa, min=1e-30)))
+    cxx, cxy, cyy, c_px, c_py, c_1 = quad_coeffs(mlx, mly, ax, ay, sx, sy,
+                                                 pa)
     a_raw = torch.exp(cxx * (pxl * pxl) + cxy * (pxl * pyl)
                       + cyy * (pyl * pyl) + c_px * pxl + c_py * pyl + c_1)
     return a_raw, None
@@ -435,8 +440,10 @@ def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
 
 # register instantiations (most features) of csrc/stream_forward.cu and
 # csrc/stream_backward.cu; more features take the generic one
-K1_WIDTHS = (8, 24, 56)
+K1_WIDTHS = (4, 8, 24, 56)
 K2_WIDTHS = (6, 22, 56)
+# the register instantiation that has a floor probe (the headline's)
+FLOOR_WIDTH = 4
 
 
 def _sort_cap(slab_cap: int) -> int:
@@ -445,14 +452,17 @@ def _sort_cap(slab_cap: int) -> int:
 
 def stream_forward_plan(f: int, slab_cap: int, w_max: int,
                         tile_area: int) -> KernelPlan:
-  """K1's instantiation, threads (one per pixel) and shared memory:
-  rank keys, per-row coefficients and features, window descriptors and,
-  generic, every thread's F accumulators
+  """K1's instantiation, threads (the tile's pixels in whole warps) and
+  shared memory: per-slot footprints (4 floats), rank keys, per-row
+  coefficients and features, window descriptors, generic every thread's
+  F accumulators, and one 16-bit row list per warp
   (``tpu_splat_stream_forward_smem``)."""
+  threads = block_threads(tile_area)
   mf = instantiation(f, tile_area, K1_WIDTHS)
-  smem = 4 * (_sort_cap(slab_cap) + (7 + f) * slab_cap + 7 * w_max + 2
-              + (f * tile_area if mf == 0 else 0))
-  return KernelPlan(mf, tile_area, smem)
+  smem = (4 * (_sort_cap(slab_cap) + (4 + 7 + f) * slab_cap + 7 * w_max + 2
+               + (f * threads if mf == 0 else 0))
+          + 2 * (threads // 32) * slab_cap)
+  return KernelPlan(mf, threads, smem)
 
 
 def stream_backward_plan(f: int, slab_cap: int, w_max: int, slabw: int,
@@ -475,7 +485,7 @@ def _kernel():
   lib = load_kernel_library("stream_forward.cu")
   lib.tpu_splat_stream_forward.restype = ctypes.c_int
   lib.tpu_splat_stream_forward.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_stream_forward", 5)
   return lib
@@ -487,17 +497,59 @@ def stream_forward(mapping: StreamMapping,
 
   CPU mapping -> ``stream_forward_reference``; CUDA mapping -> the
   ``csrc/stream_forward.cu`` kernel, or an exception."""
-  dev = mapping.table.device
-  if dev.type == "cpu":
+  if mapping.table.device.type == "cpu":
     return stream_forward_reference(mapping, config)
+  out = _launch_forward(mapping, config, True, "stream_forward")
+  launch_counts["stream_forward"] += 1
+  return out
+
+
+def stream_forward_floor_reference(mapping: StreamMapping,
+                                   config: RasterConfig) -> torch.Tensor:
+  """Plain twin of ``stream_forward_floor``: a zero (T, F+1, PIX) image
+  whose channel 0 holds the number of window rows each tile staged."""
+  out = mapping.table.new_zeros((mapping.num_tiles, mapping.feature_size + 1,
+                                 config.tile_area))
+  out[:, 0] = _staged_lengths(mapping).sum((1, 2)).to(out.dtype)[:, None]
+  return out
+
+
+def stream_forward_floor(mapping: StreamMapping,
+                         config: RasterConfig) -> torch.Tensor:
+  """K1's floor probe: K1's grid, slab loop, window assembly, row
+  fetch, staging, rank sort and output write with the walk taken out
+  (blending mode, the ``<FLOOR_WIDTH>`` instantiation).  A measuring
+  instrument on no path of the system, the stream pipeline's counterpart
+  of ``kernels.forward_floor``.
+
+  CPU mapping -> ``stream_forward_floor_reference``; CUDA mapping -> the
+  kernel, or an exception."""
+  if mapping.table.device.type == "cpu":
+    return stream_forward_floor_reference(mapping, config)
+  if not config.use_alpha_blending:
+    raise ValueError("stream_forward floor: blending mode only")
+  out = _launch_forward(mapping, config, False, "stream_forward floor")
+  probe_launch_counts["stream_forward_floor"] += 1
+  return out
+
+
+def _launch_forward(mapping: StreamMapping, config: RasterConfig,
+                    walk: bool, name: str) -> torch.Tensor:
+  """Check, plan and launch ``csrc/stream_forward.cu``: the compositing
+  kernel, or (``walk`` False) its floor probe."""
+  dev = mapping.table.device
   if dev.type != "cuda":
-    raise ValueError(f"stream_forward: unsupported device {dev}")
+    raise ValueError(f"{name}: unsupported device {dev}")
   w_pad = _check_kernel_inputs(mapping, config)
   f = mapping.feature_size
   plan = stream_forward_plan(f, mapping.slab_cap, mapping.w_max,
                              config.tile_area)
-  check_smem("stream_forward", plan, f"slab_cap {mapping.slab_cap}, w_max "
+  check_smem(name, plan, f"slab_cap {mapping.slab_cap}, w_max "
              f"{mapping.w_max}, {f} features, {config.tile_area} pixels")
+  if not walk and plan.max_features != FLOOR_WIDTH:
+    raise ValueError(f"{name}: the floor probe is built for the "
+                     f"<{FLOOR_WIDTH}> instantiation only ({f} features, "
+                     f"{config.tile_area} pixels)")
   lib = _kernel()
   out = torch.empty((mapping.num_tiles, f + 1, config.tile_area),
                     dtype=torch.float32, device=dev)
@@ -509,14 +561,12 @@ def stream_forward(mapping: StreamMapping,
         mapping.num_slabs, mapping.w_max, mapping.strip_cap,
         mapping.slab_cap, mapping.rows_per_block, w_pad, f,
         config.tile_size, int(config.antialias),
-        int(config.use_alpha_blending), plan.max_features,
-        config.alpha_threshold,
-        config.clamp_max_alpha, _log_cut(config),
-        config.saturate_threshold, stream)
+        int(config.use_alpha_blending), plan.max_features, plan.threads,
+        int(walk), config.alpha_threshold,
+        config.clamp_max_alpha, _log_cut(config), config.saturate_threshold,
+        stream)
   if err != 0:
-    raise RuntimeError(f"stream_forward kernel launch failed: CUDA error "
-                       f"{err}")
-  launch_counts["stream_forward"] += 1
+    raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
   return out
 
 
