@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 1. Device and build: needs CUDA, prints the card's name and power limit,
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2,
-   the sorted forward K4 and backward K5, the layout kernels K6 and K7)
+   the sorted forward K4 and backward K5, the layout kernels K6, K7 and
+   the row-gather probe)
    and prints each kernel instantiation's registers and spills (K2's and
    K5's as <most features, reduction width V>; the generic
    instantiations, which take any feature count and tile, as
@@ -58,7 +59,11 @@ Phases (any failure raises and exits non-zero):
    K4 in blending, antialias and quantile modes with visibility (image max
    abs <= 1e-4, visibility per row <= 1e-4 * max + 1e-6), K5 in blending,
    antialias and heuristics modes (per column <= 1e-4 * max |twin column|
-   + 1e-6), K6 bit for bit, K7 per column <= 1e-5 * max + 1e-6; K4 and
+   + 1e-6), K6 bit for bit, K7 reading the gradient rows through the
+   point-id order at C 12, 1 and 21 (per column <= 1e-5 * max + 1e-6
+   against its twin, and bit for bit against the unfused call on the
+   gathered rows and a second run), ``row_gather`` bit for bit with
+   indices outside the table; K4 and
    K5 (all three modes) again at 64 features and at ``tile_size`` 4; K5
    twice on the same inputs, printing the largest difference between its
    two runs (its shared atomics sum in a varying order); and one
@@ -73,8 +78,10 @@ Phases (any failure raises and exits non-zero):
    (flat masked L2 loss: the sorted pipeline has no tiled output), checked
    for zero overflow, finite images, loss and gradients, weights in
    [0, 1 + 1e-6] and visibility >= 0, with the launches of K4-K7 per
-   render and per step; staged timings of a render and a step; K4-K7
-   against their twins and K6 / K7 against one PyTorch call at the
+   render and per step and one sort of the point ids per step (the
+   visibility reduce and the backward share it); staged timings of a
+   render and a step; K4-K7 against their twins (K7 also on the
+   visibility rows) and K6 / K7 against one PyTorch call at the
    full-size shapes, where K6, K7, torch indexing and ``index_add_`` are
    each timed as calls (CUDA events over 5 back-to-back calls) and by
    device time (the kernels' own time under ``torch.profiler`` over 20
@@ -84,14 +91,24 @@ Phases (any failure raises and exits non-zero):
    depth order, the sorted one in exact f32 depth order).  For K4, what
    phase 3 gives for K1: the walked share (also on phase 5's heavy
    mapping) and the floor probe, the counterpart of
-   ``benchmarks/exp_kernel_floor.py:_floor_kernel``.
+   ``benchmarks/exp_kernel_floor.py:_floor_kernel``.  The backward
+   reduce is checked to call no ``torch.searchsorted`` and to allocate
+   less than half the gradient rows' bytes (no sorted copy), and each
+   part of the reduce is timed alone (``reduce_split``: the point ids,
+   their sort, and K7 through the order at C 12 and 1).  The row-gather
+   probe (``layout.row_gather``, the counterpart of
+   ``benchmarks/exp_gather.py``'s gathers) is timed beside torch
+   indexing at the reduce's shape and at the probe's defaults.  Device
+   times come from profiler sessions that recorded every kernel of every
+   call (``device_split``).
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
 full shapes (K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
-K5 with its run-to-run difference, and the two floor probes, which lie
-on no path: ``main_path`` false, ``launches`` read from their counters
-after the main path's run), and ``{"ok": true, "device": ...}``.  The
+K5 with its run-to-run difference, and the two floor probes and the
+row-gather probe, which lie on no path: ``main_path`` false,
+``launches`` read from their counters after the main path's run), and
+``{"ok": true, "device": ...}``.  The
 walked shares are the plain footprint model's estimate over the mapping,
 printed in the log and not in the kernels line: the kernels do not count
 the rows they walk.
@@ -151,25 +168,49 @@ def cuda_ms(fn, reps=3):
   return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, kernels=None):
   """Device time of one fn() call, in ms, without the host's work around
   its launches (argument checks, the Python wrapper, the launch itself),
   which cuda_ms's events over back-to-back calls include wherever the
   device waits for the host: the CUDA kernels' own time under
-  torch.profiler, summed over reps calls and divided by reps."""
+  torch.profiler, summed over reps calls and divided by reps (see
+  device_split for ``kernels``)."""
+  return sum(device_split(fn, reps, kernels).values())
+
+
+def device_split(fn, reps=20, kernels=None, attempts=5):
+  """{CUDA kernel name: its device ms per fn() call}, under torch.profiler
+  over reps calls.  A profiling session on the card's machine now and then
+  loses kernel records (all of them, or some), which would read as too
+  short a time.  So a session counts only if each kernel name it recorded
+  ran a whole multiple of reps times (every call launches the same
+  kernels) and, where the caller gives ``kernels`` (the device operations
+  one call launches), reps * kernels times in all.  A session that fails
+  is run again, up to ``attempts`` times; then this raises."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  us = sum(e.device_time_total for e in prof.events()
-           if e.device_type == DeviceType.CUDA)
-  assert us > 0, "torch.profiler recorded no device time"
-  return us / reps / 1e3
+  seen = []
+  for _ in range(attempts):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    us, count = {}, {}
+    for e in prof.events():
+      if e.device_type == DeviceType.CUDA:
+        us[e.name] = us.get(e.name, 0.0) + e.device_time_total
+        count[e.name] = count.get(e.name, 0) + 1
+    whole = bool(count) and all(k % reps == 0 for k in count.values())
+    if kernels is not None:
+      whole = whole and sum(count.values()) == reps * kernels
+    if whole:
+      return {k: t / reps / 1e3 for k, t in us.items()}
+    seen.append(count)
+  raise AssertionError(f"torch.profiler lost kernel records in {attempts} "
+                       f"sessions of {reps} calls: {seen}")
 
 
 class Stages:
@@ -353,7 +394,7 @@ def backward_vs_twin(mapping, config, label, reps=3):
 
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
            "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
-           "K6, K7": "layout.cu"}
+           "K6, K7, row_gather": "layout.cu"}
 # f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
 # count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
 K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
@@ -437,17 +478,22 @@ def kernel_plans(f, tile_area, slab_cap, w_max, chunk, heur=True):
              (chunk, f, out_w))}
 
 
+# tpu_splat_layout_occupancy's kernel numbers
+LAYOUT_KERNELS = {"K6": 0, "K7": 1, "K7 bounds": 2, "row_gather": 3}
+
+
 def occupancy_of(name, plan=None):
   """Resident blocks and warps per SM, registers and local bytes of a
-  kernel: K1, K2, K4, K5 at a plan, K6 / K7 as they launch (f32 rows,
+  kernel: K1, K2, K4, K5 at a plan, the layout kernels (K6, K7's bounds
+  pass and sum, row_gather) as they launch (f32 rows,
   256 threads, no shared memory)."""
   import ctypes
   from tpu_splatting_torch.rasterizer import layout
   from tpu_splatting_torch.utils.cuda_build import occupancy
-  if name in ("K6", "K7"):
+  if name in LAYOUT_KERNELS:
     out = (ctypes.c_int * 3)()
     err = layout._kernel().tpu_splat_layout_occupancy(
-        0 if name == "K6" else 1, 4, 256, out)
+        LAYOUT_KERNELS[name], 4, 256, out)
     assert err == 0, err
     return {"blocks_per_sm": out[0], "warps_per_sm": out[0] * 8,
             "registers": out[1], "local_bytes": out[2]}
@@ -459,10 +505,10 @@ def phase_plans():
   """Occupancy of every kernel at the headline shapes, and the plans'
   shared-memory formulas against the C entries'."""
   occ = {}
-  for name in ("K1", "K2", "K4", "K5", "K6", "K7"):
+  for name in ("K1", "K2", "K4", "K5", *LAYOUT_KERNELS):
     occ[name] = occupancy_of(name)
-    plan = (kernel_plans(**HEADLINE)[name][2] if name not in ("K6", "K7")
-            else None)
+    plan = (kernel_plans(**HEADLINE)[name][2]
+            if name not in LAYOUT_KERNELS else None)
     log(f"  {name} at the headline shapes: "
         + (f"instantiation {plan.max_features}, {plan.threads} threads, "
            f"{plan.smem} B of shared memory; " if plan else
@@ -706,6 +752,16 @@ def poses(dev):
   return out
 
 
+def headline_scene(dev):
+  """The headline's 2M splats lifted to 3D, and the five poses' cameras."""
+  from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
+  packed, depth, feats = uniform_scene(np.random.default_rng(0), N_FULL,
+                                       SIZE_FULL)
+  g3d, cam0 = lift_to_3d(packed, depth, feats, SIZE_FULL, near=0.1,
+                         far=100.0, fov_deg=70.0, device=dev)
+  return g3d, [cam0.replace(T_camera_world=t) for t in poses(dev)]
+
+
 def phase_full(dev):
   from tpu_splatting_torch import RasterConfig, calibrate_stream
   from tpu_splatting_torch.perspective.projection import (ndc_depth,
@@ -714,16 +770,10 @@ def phase_full(dev):
   from tpu_splatting_torch.rasterizer.stream_function import (
       detile, stream_map_with_config)
   from tpu_splatting_torch.renderer import render_gaussians
-  from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
   from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
 
   log(f"phase 3: {N_FULL} splats {SIZE_FULL} SH degree 3")
-  packed, depth, feats = uniform_scene(np.random.default_rng(0), N_FULL,
-                                       SIZE_FULL)
-  g3d, cam0 = lift_to_3d(packed, depth, feats, SIZE_FULL, near=0.1,
-                         far=100.0, fov_deg=70.0, device=dev)
-  del packed, depth, feats
-  cams = [cam0.replace(T_camera_world=t) for t in poses(dev)]
+  g3d, cams = headline_scene(dev)
   base = RasterConfig(stream_group_width=8)
 
   # size the static capacities for every pose (max over poses)
@@ -1071,30 +1121,69 @@ def sorted_backward_vs_twin(m, config, label, reps=3):
   return err, k_ms, t_ms, got, rerun
 
 
-def layout_vs_twins(m, gout, label, reps=3):
-  """K6 bit for bit on the overlap ids and the sorted rows; K7 on the
-  gradient rows sorted by point id, per column <= 1e-5 * max + 1e-6.
-  Returns (K7 max abs error, timings dict)."""
+def segment_sum_checks(x, by_point, n, label):
+  """K7 on the per-slot rows x (A, C) through the sort's order: against
+  its twin per column (<= 1e-5 * max + 1e-6), bit for bit against the
+  unfused call on x[order] and on a second run.  Returns (max abs error against the twin, the fused result)."""
   from tpu_splatting_torch.rasterizer import layout
-  from tpu_splatting_torch.rasterizer.function import _pid_chunked
+  ids, order = by_point
+  got = layout.segment_sum_sorted(x, ids, n, order=order)
+  want = layout.segment_sum_sorted_reference(x, ids, n, order=order)
+  unfused = layout.segment_sum_sorted(x[order], ids, n)
+  again = layout.segment_sum_sorted(x, ids, n, order=order)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all(), f"{label}: non-finite K7 output"
+  for name, other in (("the unfused call on x[order]", unfused),
+                      ("a second run", again)):
+    assert torch.equal(got.view(torch.int32), other.view(torch.int32)), (
+        f"{label}: fused K7 differs from {name}")
+  err_col = (got - want).abs().amax(0)
+  tol_col = 1e-5 * want.abs().amax(0) + 1e-6
+  err = float(err_col.max())
+  log(f"  {label} K7 at C {x.shape[1]}: bit for bit the unfused call and "
+      f"a second run; against its twin max_abs_err "
+      f"{err:.3e}, worst column at {float((err_col / tol_col).max()):.3f} "
+      f"of its tolerance")
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K7 disagrees with its twin", err_col.tolist())
+  return err, got
+
+
+def row_gather_check(table, idx, label):
+  """row_gather bit for bit against its twin, indices outside the table
+  included (they come out 0)."""
+  from tpu_splatting_torch.rasterizer import layout
+  got = layout.row_gather(table, idx)
+  want = layout.row_gather_reference(table, idx)
+  torch.cuda.synchronize()
+  assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+      f"{label}: row_gather differs from its twin")
+  log(f"  {label} row_gather ({tuple(table.shape)} table, {idx.shape[0]} "
+      f"{idx.dtype} indices, {int(((idx < 0) | (idx >= table.shape[0])).sum())}"
+      f" outside it): bit-exact against its twin")
+
+
+def layout_vs_twins(m, gout, label):
+  """K6 bit for bit on the overlap ids and the sorted rows; K7 on the
+  gradient rows through the point-id order at C 12 (the float4 path), at
+  C 1 and at C 21 (the scalar paths), as segment_sum_checks; row_gather
+  on those rows.  Returns K7's largest max abs error."""
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import layout
   g = m.chunk_size
   for rows in (m.overlap_to_point, m.sorted_payload):
     got = layout.window_copy(rows, m.chunk_src, m.chunk_cnt, g)
     want = layout.window_copy_reference(rows, m.chunk_src, m.chunk_cnt, g)
     assert torch.equal(got, want), f"{label}: K6 differs from its twin"
-  ids, order = torch.sort(_pid_chunked(m), stable=True)
-  rows = gout[order]
-  got = layout.segment_sum_sorted(rows, ids, m.num_points)
-  want = layout.segment_sum_sorted_reference(rows, ids, m.num_points)
-  torch.cuda.synchronize()
-  err_col = (got - want).abs().amax(0)
-  tol_col = 1e-5 * want.abs().amax(0) + 1e-6
-  err = float(err_col.max())
-  log(f"  {label} K6: bit-exact on ids and rows; K7: max_abs_err "
-      f"{err:.3e}, worst column at "
-      f"{float((err_col / tol_col).max()):.3f} of its tolerance")
-  assert bool((err_col <= tol_col).all()), (
-      f"{label}: K7 disagrees with its twin", err_col.tolist())
+  by_point = fn.sort_point_ids(fn._pid_chunked(m))
+  wide = torch.cat([gout, gout[:, :9]], 1)
+  err = max(segment_sum_checks(x, by_point, m.num_points, label)[0]
+            for x in (gout, gout[:, :1].contiguous(), wide))
+  idx = by_point.order.clone()
+  idx[::97] = -1
+  idx[1::97] = gout.shape[0]
+  row_gather_check(gout, idx, label)
+  row_gather_check(wide, idx.to(torch.int32), label)
   return err
 
 
@@ -1212,23 +1301,13 @@ def sorted_cross_device_check(dev):
   assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
 
 
-def phase_sorted_full(dev, g3d, cams, stream_cfg):
-  """Phase 6: the sorted pipeline at full size.  Returns the K4-K7
-  entries of the kernels line (without the phase-5 errors)."""
-  from tpu_splatting_torch import (RasterConfig, map_to_tiles,
-                                   render_gaussians, render_with_heuristics)
-  from tpu_splatting_torch.mapper.tile_mapper import (calibrate_mapper,
-                                                      tile_shape)
-  from tpu_splatting_torch.optim import GroupConfig, VisibilityAwareAdam
+def sorted_caps(g3d, cams):
+  """(config, max_overlaps) of the sorted pipeline at the headline: the
+  port's calibrate_mapper, max over the poses."""
+  from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.mapper.tile_mapper import calibrate_mapper
   from tpu_splatting_torch.perspective.projection import (ndc_depth,
                                                           project_to_image)
-  from tpu_splatting_torch.rasterizer import function as fn
-  from tpu_splatting_torch.rasterizer import kernels as kk
-  from tpu_splatting_torch.rasterizer import layout
-  from tpu_splatting_torch.rasterizer.stream_function import detile
-  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
-
-  log(f"phase 6: sorted pipeline, {N_FULL} splats {SIZE_FULL} SH degree 3")
   base = RasterConfig(pipeline="sorted")
   t0 = time.perf_counter()
   caps = {}
@@ -1247,17 +1326,74 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
       f"{cal['measured_hits_upper_bound']}, wide {cal['num_wide']}")
   cfg = dataclasses.replace(base, tile_window=caps["tile_window"],
                             big_capacity=caps["big_capacity"])
-  cap = caps["max_overlaps"]
+  return cfg, caps["max_overlaps"]
+
+
+def short_kernel_name(name):
+  """A CUDA kernel's name from the profiler, without its return type,
+  namespaces, template arguments and parameters."""
+  name = name.replace("(anonymous namespace)::", "")
+  name = name.split("(")[0].split("<")[0]
+  return name.split()[-1].split("::")[-1]
+
+
+def reduce_split(m, by_point, xs, n):
+  """The parts of the sorted reduce as the path runs them, each timed
+  alone, as a call (CUDA events over 5 calls) and by device time
+  (torch.profiler over 20 calls, with the kernels it ran by name): the
+  point ids (K6 + where) and their stable sort, once a step, then K7
+  reading each of the per-slot rows xs (A, C) through the order.
+  Returns {part: (call ms, {kernel: device ms})}."""
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import layout
+  pid = fn._pid_chunked(m)
+  ids, order = by_point
+  parts = [("point ids (K6 + where)", lambda: fn._pid_chunked(m), None),
+           ("stable sort", lambda: torch.sort(pid, stable=True), None)]
+  parts += [(f"K7 through the order, C {x.shape[1]}",
+             lambda x=x: layout.segment_sum_sorted(x, ids, n, order=order), 2)
+            for x in xs]
+  out = {}
+  for name, f, kernels in parts:
+    call = cuda_ms(f, 5)
+    split = device_split(f, kernels=kernels)
+    out[name] = (call, split)
+    log(f"    {name}: a call {call:.4f} ms, device "
+        f"{sum(split.values()):.4f} ms [" + "; ".join(
+            f"{short_kernel_name(k)} {v:.4f}"
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1])) + "]")
+  return out
+
+
+def phase_sorted_full(dev, g3d, cams, stream_cfg):
+  """Phase 6: the sorted pipeline at full size.  Returns the K4-K7
+  entries of the kernels line (without the phase-5 errors)."""
+  from tpu_splatting_torch import (map_to_tiles, render_gaussians,
+                                   render_with_heuristics)
+  from tpu_splatting_torch.mapper.tile_mapper import tile_shape
+  from tpu_splatting_torch.optim import GroupConfig, VisibilityAwareAdam
+  from tpu_splatting_torch.perspective.projection import (ndc_depth,
+                                                          project_to_image)
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.rasterizer.stream_function import detile
+  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+
+  log(f"phase 6: sorted pipeline, {N_FULL} splats {SIZE_FULL} SH degree 3")
+  cfg, cap = sorted_caps(g3d, cams)
 
   def counts():
     return {**kk.launch_counts, **kk.probe_launch_counts,
-            **layout.launch_counts}
+            **layout.launch_counts, **layout.probe_launch_counts,
+            "point_id_sorts": fn.sort_counts["point_ids"]}
 
   # three requests through the public entry point
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   kk.reset_launch_counts()
   layout.reset_launch_counts()
+  fn.sort_counts["point_ids"] = 0
   times = []
   with torch.no_grad():
     for i, cam in enumerate(cams[:3]):
@@ -1334,6 +1470,8 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   for k in ("sorted_forward", "sorted_backward", "window_copy",
             "segment_sum_sorted"):
     assert step_launches[k] >= 3, (k, step_launches)
+  # the visibility reduce and the backward share one sort of the point ids
+  assert step_launches["point_id_sorts"] == 3, step_launches
   log(f"  end-to-end ms per training step: "
       f"{[round(t, 3) for t in step_times]}")
   log(f"  peak device memory: {step_peak:.3f} GiB")
@@ -1393,8 +1531,8 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
     it, vis_c = kk.forward(m.sorted_payload, m.chunk_src, m.chunk_cnt,
                            m.chunk_to_tile, tcfg, t_all, tw, with_vis=True)
     st.mark()
-    pid = fn._pid_chunked(m)
-    vis = fn.reduce_chunked_to_points(vis_c, pid, n)[:, 0]
+    by_point = fn.sort_point_ids(fn._pid_chunked(m))
+    vis = fn.reduce_chunked_to_points(vis_c, by_point, n)[:, 0]
     st.mark()
     it_g = it.detach().requires_grad_(True)
     full = detile(it_g[:t_all], tw, th, ts, SIZE_FULL)
@@ -1403,7 +1541,7 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
     gout = kk.backward(m.sorted_payload, it, g_it, m.chunk_src, m.chunk_cnt,
                        m.chunk_to_tile, tcfg, t_all, tw)
     st.mark()
-    red = fn.reduce_chunked_to_points(gout, fn._pid_chunked(m), n)
+    red = fn.reduce_chunked_to_points(gout, by_point, n)
     st.mark()
     tail = torch.autograd.grad([g2d, feats], leaves,
                                [red[:, :7], red[:, 7:10]])
@@ -1453,7 +1591,8 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   # where the device waits for it) and by device time (device_ms)
   o2p, src, cnt = m.overlap_to_point, m.chunk_src, m.chunk_cnt
   k6_ms = cuda_ms(lambda: layout.window_copy(o2p, src, cnt, g), 5)
-  k6_dev = device_ms(lambda: layout.window_copy(o2p, src, cnt, g))
+  k6_dev = device_ms(lambda: layout.window_copy(o2p, src, cnt, g),
+                     kernels=1)
   t6_ms = cuda_ms(lambda: layout.window_copy_reference(o2p, src, cnt, g), 5)
   r = torch.arange(g, device=dev)
   flat = torch.where(r < cnt[:, None], src.long()[:, None] + r,
@@ -1469,22 +1608,92 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
       f"{t6_ms:.3f} ms; bound {b6[0]:.4f} ms ({b6[1]}), device time at "
       f"{b6[0] / k6_dev:.1%} of it")
 
-  ids, order = torch.sort(fn._pid_chunked(m), stable=True)
-  rows = gout[order]
-  k7_ms = cuda_ms(lambda: layout.segment_sum_sorted(rows, ids, n), 5)
-  k7_dev = device_ms(lambda: layout.segment_sum_sorted(rows, ids, n))
-  t7_ms = cuda_ms(lambda: layout.segment_sum_sorted_reference(rows, ids, n),
-                  5)
+  # K7 as the path calls it: the gradient rows read through the point-id
+  # order inside the kernel (its bounds pass included)
+  by_point = fn.sort_point_ids(fn._pid_chunked(m))
+  ids, order = by_point
+  err7 = max(err7, segment_sum_checks(vis_c, by_point, n,
+                                      "full visibility")[0])
+  torch.cuda.synchronize()
+  held = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  searchsorted = torch.searchsorted
+
+  def refuse(*args, **kw):
+    raise AssertionError("the reduce called torch.searchsorted")
+  torch.searchsorted = refuse
+  try:
+    fn.reduce_chunked_to_points(gout, by_point, n)
+  finally:
+    torch.searchsorted = searchsorted
+  torch.cuda.synchronize()
+  grew = torch.cuda.max_memory_allocated() - held
+  log(f"  the backward reduce calls no searchsorted and allocates {grew} B "
+      f"at most (the per-slot rows are {nbytes(gout)} B: no sorted copy)")
+  assert grew < nbytes(gout) // 2, grew
+
+  log("  the reduce's parts, each alone:")
+  split = reduce_split(m, by_point, (gout, vis_c), n)
+  k7_ms, k7_parts = split[f"K7 through the order, C {out_w}"]
+  k7_dev = sum(k7_parts.values())
+  t7_ms = cuda_ms(lambda: layout.segment_sum_sorted_reference(
+      gout, ids, n, order=order), 5)
+  # one PyTorch call on the same rows: index_add_ by the unsorted ids
+  pid = fn._pid_chunked(m).long()
   acc = torch.zeros((n + 1, out_w), device=dev)
-  ids_c = torch.clamp(ids, max=n)
-  l7_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, rows), 5)
-  l7_dev = device_ms(lambda: acc.index_add_(0, ids_c, rows))
-  b7 = bound_ms(0, nbytes(rows, ids) + (n + 1) * 4 + n * out_w * 4)
-  log(f"  K7 ({rows.shape[0]} rows x {out_w} columns -> {n} points): kernel "
-      f"{k7_ms:.4f} ms a call, {k7_dev:.4f} ms of device time (its "
-      f"searchsorted included); index_add_ {l7_ms:.4f} ms a call, "
-      f"{l7_dev:.4f} ms of device time; twin {t7_ms:.3f} ms; bound "
-      f"{b7[0]:.4f} ms ({b7[1]})")
+  l7_ms = cuda_ms(lambda: acc.index_add_(0, pid, gout), 5)
+  l7_dev = device_ms(lambda: acc.index_add_(0, pid, gout))
+  # bytes it must move: each valid row (id < n) with its id and order
+  # entry, and the output (the bounds are the kernel's scratch); printed
+  # beside the count of every slot (padding included) and the bounds that
+  # the bound took before K7 read its order
+  nb7 = valid * (out_w * 4 + 4 + order.element_size()) + n * out_w * 4
+  nb7_slots = nbytes(gout, ids) + (n + 1) * 4 + n * out_w * 4
+  b7 = bound_ms(0, nb7)
+  log(f"  K7 ({gout.shape[0]} slots, {valid} valid, x {out_w} columns -> "
+      f"{n} points, int64 order read in the kernel): {k7_ms:.4f} ms a call,"
+      f" {k7_dev:.4f} ms of device time [" + "; ".join(
+          f"{short_kernel_name(k)} {v:.4f}" for k, v in k7_parts.items())
+      + f"]; index_add_ by the unsorted ids {l7_ms:.4f} ms a call, "
+      f"{l7_dev:.4f} ms of device time; twin {t7_ms:.3f} ms")
+  log(f"  K7 bound: {nb7} B (valid rows, ids, order, output) -> "
+      f"{b7[0]:.4f} ms, device time at {b7[0] / k7_dev:.1%} of it; every "
+      f"slot and the bounds counted: {nb7_slots} B -> "
+      f"{bound_ms(0, nb7_slots)[0]:.4f} ms")
+
+  # the row-gather probe: at the reduce's shape (the gradient rows through
+  # the valid part of the order) and at benchmarks/exp_gather.py's defaults
+  rg = {}
+  rng = np.random.default_rng(0)
+  table0 = torch.from_numpy(rng.random((1_000_000, 16)).astype(
+      np.float32)).to(dev)
+  idx0 = torch.from_numpy(rng.integers(0, 1_000_000, 4_194_304).astype(
+      np.int32)).to(dev)
+  for shape, table, idx in (("reduce", gout, order[:valid]),
+                            ("probe defaults", table0, idx0)):
+    row_gather_check(table, idx, f"full {shape}")
+    ms = cuda_ms(lambda: layout.row_gather(table, idx), 5)
+    dev_ms = device_ms(lambda: layout.row_gather(table, idx), kernels=1)
+    p_ms = cuda_ms(lambda: layout.row_gather_reference(table, idx), 5)
+    lib_ms = cuda_ms(lambda: table[idx], 5)
+    lib_dev = device_ms(lambda: table[idx])
+    # the table rows this run's indices need, each read once, the indices
+    # read and the output written
+    inside = idx[(idx >= 0) & (idx < table.shape[0])]
+    need = int(torch.unique(inside).numel())
+    b = bound_ms(0, (need + idx.shape[0]) * table.shape[1]
+                 * table.element_size() + nbytes(idx))
+    log(f"  row_gather at the {shape} ({tuple(table.shape)} table, "
+        f"{idx.shape[0]} {idx.dtype} indices, {need} rows needed): "
+        f"{ms:.4f} ms a call, "
+        f"{dev_ms:.4f} ms of device time; torch indexing {lib_ms:.4f} ms a "
+        f"call, {lib_dev:.4f} ms of device time; plain {p_ms:.3f} ms; bound "
+        f"{b[0]:.4f} ms ({b[1]}), device time at {b[0] / dev_ms:.1%} of it")
+    rg[shape] = (ms, dev_ms, p_ms, lib_ms, lib_dev, b)
+  del table0, idx0
+  log(f"  fused K7 {k7_dev:.4f} ms - row_gather at the reduce's shape "
+      f"{rg['reduce'][1]:.4f} ms = {k7_dev - rg['reduce'][1]:.4f} ms of "
+      f"device time: the segment sum on top of its gather")
 
   def entry(name, src_file, line, count, err, ms, plain, b, lib, **extra):
     return dict(name=name, route="cuda",
@@ -1509,6 +1718,19 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
             launches["segment_sum_sorted"], err7, k7_ms, t7_ms, b7, l7_ms,
             device_ms=k7_dev, library_device_ms=l7_dev,
             resident_warps_per_sm=occupancy_of("K7")["warps_per_sm"]),
+      dict(entry("row_gather", "layout.cu", "benchmarks/exp_gather.py:92",
+                 launches["row_gather"], 0.0, rg["reduce"][0],
+                 rg["reduce"][2], rg["reduce"][5], rg["reduce"][3],
+                 device_ms=rg["reduce"][1],
+                 library_device_ms=rg["reduce"][4],
+                 probe_defaults_device_ms=rg["probe defaults"][1],
+                 probe_defaults_library_device_ms=rg["probe defaults"][4],
+                 probe_defaults_bound_ms=rg["probe defaults"][5][0],
+                 resident_warps_per_sm=occupancy_of("row_gather")[
+                     "warps_per_sm"]),
+           main_path=False, probe_of="segment_sum_sorted",
+           also_replaces=["benchmarks/exp_gather.py:34",
+                          "benchmarks/exp_gather.py:54"]),
       dict(name="forward_floor", route="cuda",
            source="tpu_splatting_torch/csrc/sorted_forward.cu",
            replaces="benchmarks/exp_kernel_floor.py:29",
@@ -1530,7 +1752,7 @@ def main():
   e4, e5, e7 = phase_sorted_twin(dev)
   sorted_cross_device_check(dev)
   sorted_entries = phase_sorted_full(dev, g3d, cams, cfg)
-  for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0)):
+  for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
       f"{e4:.3e} K5 {e5:.3e} K7 {e7:.3e}")

@@ -362,6 +362,9 @@ def test_layout_kernels_match_twins(cuda):
   assert layout.launch_counts == {"window_copy": 3, "segment_sum_sorted": 3}
   with pytest.raises(TypeError):
     layout.segment_sum_sorted(rows, ids.long(), n)
+  with pytest.raises(TypeError):       # the order is torch.sort's int64
+    layout.segment_sum_sorted(rows, ids, n, order=torch.arange(
+        ids.shape[0], dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.parametrize("columns", [1, 12])
@@ -398,8 +401,10 @@ def test_window_copy_kernel_edge_windows(cuda, columns, dtype):
 
 def test_sorted_step_never_takes_a_twin(cuda, monkeypatch):
   """Forward (with visibility) and backward of a CUDA render on the sorted
-  pipeline run K4, K5, K6 and K7 only."""
+  pipeline run K4, K5, K6 and K7 only: K6 once, for the one sort of the
+  point ids that both reduces share."""
   from tpu_splatting_torch import rasterize
+  from tpu_splatting_torch.rasterizer import function as fn
   from tpu_splatting_torch.rasterizer import kernels as kk
   from tpu_splatting_torch.rasterizer import layout
 
@@ -418,12 +423,14 @@ def test_sorted_step_never_takes_a_twin(cuda, monkeypatch):
   probe = torch.zeros((4000, 2), device=cuda, requires_grad=True)
   kk.reset_launch_counts()
   layout.reset_launch_counts()
+  fn.sort_counts["point_ids"] = 0
   out = rasterize(g2d, depth, feats, (128, 96), config, max_overlaps=200000,
                   heuristic_probe=probe)
   assert int(out.num_overflow) == 0
   (out.image.square().sum() + out.image_weight.sum()).backward()
   assert kk.launch_counts == {"sorted_forward": 1, "sorted_backward": 1}
-  assert layout.launch_counts == {"window_copy": 2, "segment_sum_sorted": 2}
+  assert layout.launch_counts == {"window_copy": 1, "segment_sum_sorted": 2}
+  assert fn.sort_counts["point_ids"] == 1
   assert float(out.visibility.max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
   assert float(probe.grad[:, 0].max()) > 0.0
@@ -508,3 +515,152 @@ def test_floor_probes_match_plain(cuda):
   with pytest.raises(ValueError, match="floor probe"):
     kk.forward_floor(*args[:4], dataclasses.replace(config, tile_size=4),
                      *args[5:])
+
+
+# --- K7 through the sort's order, and the row-gather probe -----------------
+
+def reduce_case(dev, case, m=60_000, n=5_000):
+  """(ids, order) of m chunk slots: the point ids sorted stably and the
+  permutation, null slots (id n) included, as the sorted reduce sorts
+  them; "heavy": one id owns most slots; "gaps": runs of 100 to 2,000
+  empty ids and ids below 0 (dropped)."""
+  rng = np.random.default_rng(len(case))
+  if case == "uniform":
+    pid = rng.integers(0, n, m)
+  elif case == "heavy":
+    pid = np.where(rng.random(m) < 0.7, 11, rng.integers(0, n, m))
+  else:
+    pid = rng.choice(np.arange(-3, n, 2_000 // 3 * 3 + 1), m)
+    pid[:100] = rng.integers(0, 100, 100)
+  pid[rng.random(m) < 0.3] = n
+  ids, order = torch.sort(torch.from_numpy(pid.astype(np.int32)).to(dev),
+                          stable=True)
+  return ids, order
+
+
+@pytest.mark.parametrize("case", ["uniform", "heavy", "gaps"])
+@pytest.mark.parametrize("c", [1, 6, 12, 21])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_through_order(cuda, case, c, dtype):
+  """K7 reading its rows through the order: bit for bit the unfused call
+  on rows[order] and a second run; within 1e-5 * max + 1e-6 of its twin
+  per column.  The twin's index_add_ sums on the card
+  with atomics, in a varying order: f32 rows are multiples of 2^-8 below
+  2^4, so every order sums the ~42,000 rows of the heavy segment exactly
+  and the comparison checks which rows each segment sums; f64 rows are
+  normal."""
+  from tpu_splatting_torch.rasterizer import layout
+  n = 5_000
+  ids, order = reduce_case(cuda, case, n=n)
+  gen = torch.Generator(device=cuda).manual_seed(c)
+  rows = torch.randn((ids.shape[0], c), generator=gen, device=cuda,
+                     dtype=dtype)
+  if dtype == torch.float32:
+    rows = torch.round(rows * 256) / 256
+  layout.reset_launch_counts()
+  got = layout.segment_sum_sorted(rows, ids, n, order=order)
+  assert layout.launch_counts["segment_sum_sorted"] == 1
+  for other in (layout.segment_sum_sorted(rows[order], ids, n),
+                layout.segment_sum_sorted(rows, ids, n, order=order)):
+    assert torch.equal(got.view(torch.uint8), other.view(torch.uint8))
+  want = layout.segment_sum_sorted_reference(rows, ids, n, order=order)
+  tol = 1e-5 * want.abs().amax(0) + 1e-6
+  assert bool(((got - want).abs().amax(0) <= tol).all())
+
+
+def test_segment_sum_element_path_matches_float4(cuda):
+  """Rows that are not 16-byte aligned take the element path at C 12: the
+  same sums, bit for bit."""
+  from tpu_splatting_torch.rasterizer import layout
+  ids, order = reduce_case(cuda, "uniform")
+  gen = torch.Generator(device=cuda).manual_seed(3)
+  flat = torch.randn(ids.shape[0] * 12 + 1, generator=gen, device=cuda)
+  shifted = flat[1:].view(-1, 12)
+  assert shifted.data_ptr() % 16 != 0
+  aligned = shifted.clone()
+  got = layout.segment_sum_sorted(shifted, ids, 5_000, order=order)
+  want = layout.segment_sum_sorted(aligned, ids, 5_000, order=order)
+  assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("ids, n", [
+    ([7, 7, 7], 3),                  # every row past the last segment
+    ([-2, -1, 0, 0, 40_000], 50_000),  # ids below 0; one run of 39,999
+    ([0], 1), ([3], 1_000)])
+def test_segment_sum_bounds_edges(cuda, ids, n):
+  """The bounds pass at its edges: empty sums are 0, ids outside [0, n)
+  are dropped, long runs of empty segments are written by a warp."""
+  from tpu_splatting_torch.rasterizer import layout
+  ids_t = torch.tensor(ids, dtype=torch.int32, device=cuda)
+  rows = torch.arange(1, 3 * len(ids) + 1, dtype=torch.float32,
+                      device=cuda).view(-1, 3)
+  order = torch.arange(len(ids), device=cuda).flip(0)
+  got = layout.segment_sum_sorted(rows, ids_t, n, order=order)
+  want = layout.segment_sum_sorted_reference(rows, ids_t, n, order=order)
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(3000, 16), (3000, 12), (3000, 3),
+                                   (3000,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_row_gather_kernel_matches_twin(cuda, shape, dtype, idx_dtype):
+  """The row-gather probe bit for bit against its twin, indices outside
+  the table included (0 there); counted as a probe."""
+  from tpu_splatting_torch.rasterizer import layout
+  rng = np.random.default_rng(5)
+  n, a = shape[0], 20_000
+  table = torch.from_numpy(rng.random(shape) * 1e4).to(cuda).to(dtype)
+  idx = rng.integers(0, n, a)
+  idx[::37] = rng.choice([-1, -n, n, 2 ** 31 - 1], len(idx[::37]))
+  idx = torch.from_numpy(idx).to(cuda).to(idx_dtype)
+  layout.reset_launch_counts()
+  got = layout.row_gather(table, idx)
+  want = layout.row_gather_reference(table, idx)
+  torch.cuda.synchronize()
+  assert layout.probe_launch_counts == {"row_gather": 1}
+  assert layout.launch_counts["segment_sum_sorted"] == 0
+  assert got.dtype == dtype and got.shape == (a, *shape[1:])
+  assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_sorted_reduce_sorts_once_and_never_searches(cuda, monkeypatch):
+  """One training step's visibility reduce and backward share one sort
+  of the point ids, and the reduce calls no torch.searchsorted."""
+  from tpu_splatting_torch import map_to_tiles
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import layout
+  size = (128, 96)
+  config = RasterConfig(pipeline="sorted", compute_point_heuristic=True,
+                        compute_visibility=True)
+  packed, depth, feats = (
+      torch.from_numpy(x).to(cuda)
+      for x in uniform_scene(np.random.default_rng(0), 4000, size))
+  m = map_to_tiles(packed, depth, size, config, max_overlaps=200_000,
+                   features=feats)
+  searchsorted = torch.searchsorted
+
+  def no_search_in_reduce(*args, **kw):
+    assert not in_reduce, "the reduce called torch.searchsorted"
+    return searchsorted(*args, **kw)
+  reduce = fn.reduce_chunked_to_points
+  in_reduce = False
+
+  def watched_reduce(*args):
+    nonlocal in_reduce
+    in_reduce = True
+    try:
+      return reduce(*args)
+    finally:
+      in_reduce = False
+  monkeypatch.setattr(torch, "searchsorted", no_search_in_reduce)
+  monkeypatch.setattr(fn, "reduce_chunked_to_points", watched_reduce)
+  g2d = packed.clone().requires_grad_(True)
+  fn.sort_counts["point_ids"] = 0
+  layout.reset_launch_counts()
+  out = fn.rasterize_with_tiles(g2d, feats, m, size, config)
+  out.image.square().sum().backward()
+  assert fn.sort_counts["point_ids"] == 1
+  assert layout.launch_counts == {"window_copy": 1, "segment_sum_sorted": 2}
+  assert bool(torch.isfinite(g2d.grad).all())

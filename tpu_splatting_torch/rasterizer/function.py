@@ -3,10 +3,12 @@
 Counterpart of ``tpu_splatting/rasterizer/function.py``.  The rasterize
 op is a ``torch.autograd.Function``: its forward is ``kernels.forward``
 (K4, with per-overlap visibility when asked); its backward is
-``kernels.backward`` (K5), then the chunk slots' point ids by
-``window_copy`` (K6, ``_pid_chunked``), one sort by point id and
-``segment_sum_sorted`` (K7), which reduce the per-overlap gradient rows
-to per-point gradients.
+``kernels.backward`` (K5), then ``segment_sum_sorted`` (K7), which
+gathers the per-overlap gradient rows by point id and reduces them to
+per-point gradients.  The order it gathers by (the chunk slots' point
+ids by ``window_copy``, K6, sorted stably) is computed at most once per
+``rasterize_with_tiles`` call: the visibility reduce and the backward
+share it.
 
 The point heuristics (prune_cost, split_score) are the cotangent of a
 zero-valued ``heuristic_probe`` input, as in the reference; visibility
@@ -16,6 +18,7 @@ its output carries no gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -72,12 +75,37 @@ def _pid_chunked(mapping: TileMapping) -> torch.Tensor:
   return torch.where(valid, copied, mapping.num_points)
 
 
-def reduce_chunked_to_points(x_chunked: torch.Tensor, pid: torch.Tensor,
+class PointOrder(NamedTuple):
+  """The chunk slots' point ids sorted stably, and the permutation."""
+  ids: torch.Tensor     # (A,) i32 ascending; null slots (num_points) last
+  order: torch.Tensor   # (A,) i64: sorted position i is slot order[i]
+
+
+# sorts of point ids by sort_point_ids (each reduce's torch.sort)
+sort_counts = {"point_ids": 0}
+
+
+def sort_point_ids(pid: torch.Tensor) -> PointOrder:
+  """``torch.sort(pid, stable=True)``, counted in ``sort_counts``."""
+  sort_counts["point_ids"] += 1
+  return PointOrder(*torch.sort(pid, stable=True))
+
+
+def lazy_point_order(mapping: TileMapping):
+  """A callable that sorts the mapping's point ids at its first call and
+  returns that ``PointOrder`` at every call."""
+  return functools.cache(lambda: sort_point_ids(_pid_chunked(mapping)))
+
+
+def reduce_chunked_to_points(x_chunked: torch.Tensor, by_point: PointOrder,
                              num_points: int) -> torch.Tensor:
-  """Sum per-chunk-slot rows (A, C) into per-point rows (N, C): one sort
-  by point id, the rows gathered by it, and the sorted segment sum."""
-  ids, order = torch.sort(pid, stable=True)
-  return segment_sum_sorted(x_chunked[order], ids, num_points)
+  """Sum per-chunk-slot rows (A, C) into per-point rows (N, C).
+
+  ``by_point`` is the slots' point ids sorted by ``sort_point_ids``.  The
+  rows are read in that order inside the segment-sum kernel: no sorted
+  copy is written."""
+  return segment_sum_sorted(x_chunked, by_point.ids, num_points,
+                            order=by_point.order)
 
 
 class _SortedRaster(torch.autograd.Function):
@@ -86,7 +114,7 @@ class _SortedRaster(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, gaussians2d, features, probe, mapping, config, num_tiles,
-              tiles_wide, with_vis):
+              tiles_wide, with_vis, point_order):
     rows, src, cnt = _kernel_inputs(mapping, gaussians2d.detach(),
                                     features.detach())
     image_tiled, vis_chunked = kernels.forward(
@@ -94,6 +122,7 @@ class _SortedRaster(torch.autograd.Function):
         with_vis=with_vis)
     ctx.mapping, ctx.config = mapping, config
     ctx.num_tiles, ctx.tiles_wide = num_tiles, tiles_wide
+    ctx.point_order = point_order
     ctx.f = features.shape[1]
     ctx.save_for_backward(rows, src, cnt, image_tiled)
     if vis_chunked is None:
@@ -109,11 +138,13 @@ class _SortedRaster(torch.autograd.Function):
     gout = kernels.backward(
         rows, image_tiled, g_image_tiled.contiguous(), src, cnt,
         mapping.chunk_to_tile, config, ctx.num_tiles, ctx.tiles_wide)
-    reduced = reduce_chunked_to_points(gout, _pid_chunked(mapping), n)
+    reduced = reduce_chunked_to_points(gout, ctx.point_order(), n)
+    # free the order after its last use (a second backward sorts again)
+    ctx.point_order = lazy_point_order(mapping)
     heur = (reduced[:, 7 + f:9 + f] if config.compute_point_heuristic
             else reduced.new_zeros((n, 2)))
     return (reduced[:, :7], reduced[:, 7:7 + f], heur, None, None, None,
-            None, None)
+            None, None, None)
 
 
 def rasterize_with_tiles(
@@ -136,6 +167,8 @@ def rasterize_with_tiles(
   tw, th = tile_shape(image_size, config.tile_size)
   num_tiles = tw * th
   with_vis = config.compute_visibility or config.compute_point_heuristic
+  # sorted at the first reduce that needs it, shared by the other
+  point_order = lazy_point_order(mapping)
 
   if not config.use_alpha_blending:
     rows, src, cnt = _kernel_inputs(mapping, gaussians2d.detach(),
@@ -147,7 +180,8 @@ def rasterize_with_tiles(
     if heuristic_probe is None:
       heuristic_probe = gaussians2d.new_zeros((n, 2))
     out = _SortedRaster.apply(gaussians2d, features, heuristic_probe,
-                              mapping, config, num_tiles, tw, with_vis)
+                              mapping, config, num_tiles, tw, with_vis,
+                              point_order)
     image_tiled, vis_chunked = out if with_vis else (out, None)
 
   # (T+1, F+1, PIX) -> (H, W, F+1); row T is the dummy tile
@@ -155,8 +189,8 @@ def rasterize_with_tiles(
                 image_size)
   visibility = None
   if with_vis:
-    visibility = reduce_chunked_to_points(
-        vis_chunked.detach(), _pid_chunked(mapping), n)[:, 0]
+    visibility = reduce_chunked_to_points(vis_chunked.detach(),
+                                          point_order(), n)[:, 0]
   return RasterOut(image=full[..., :f], image_weight=full[..., f],
                    point_heuristic=None, visibility=visibility)
 
