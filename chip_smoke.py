@@ -7,9 +7,9 @@ Phases (any failure raises and exits non-zero):
 
 1. Device and build: needs CUDA, prints the card's name and power limit,
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
-   per source, all in parallel: the stream forward K1 and backward K2,
-   the sorted forward K4 and backward K5, the layout kernels K6, K7 and
-   the row-gather probe)
+   per source, all in parallel: the stream forward K1 and backward K2
+   with the halo merge, the sorted forward K4 and backward K5, the layout
+   kernels K6, K7 and the row-gather probe)
    and prints each kernel instantiation's registers and spills (K2's and
    K5's as <most features, reduction width V>; the generic
    instantiations, which take any feature count and tile, as
@@ -101,10 +101,36 @@ Phases (any failure raises and exits non-zero):
    indexing at the reduce's shape and at the probe's defaults.  Device
    times come from profiler sessions that recorded every kernel of every
    call (``device_split``).
+7. Multi-device paths on 4 virtual shards of the one card (a mesh that
+   lists ``cuda:0`` four times: no interconnect is measured).  At phase
+   2's 200k mappings (uniform, heavy at 2 and 32 slabs; 48 bands, 12 a
+   shard): K1 with ``band0`` against its twin (TOL) and bit for bit the
+   unsharded image's bands, K2 in halo mode against its twin per column
+   (heuristics), the halo merge bit for bit its plain twin, no row in a
+   halo band outside the image; K1 and K2 at ``band0`` 0 against phase
+   2's own outputs (K1 bit for bit, K2 per column).  At the headline (the
+   identity pose, phase 4's capacities, 96 bands, 24 a shard):
+   ``band_sharded_forward`` and ``band_sharded_grad`` once from zeroed
+   counts (their K1, K2 and halo-merge launches), the image bit for bit
+   the unsharded K1 image, the per-point gradient against the unsharded
+   ``backward_reduce`` per column (K2's gate), peak memory; then the whole
+   by CUDA events, each part staged (each shard's K1 and K2, the halo
+   exchange, the halo merge, gather + stage 2), each shard's K1 and K2
+   as calls beside the unsharded ones, and the halo merge of a middle
+   shard as a call, by device time and against its plain twin.  Camera
+   data parallelism at the headline: 4 poses on 4 shards
+   (``data_parallel_loss``, the SH evaluated once at the identity pose,
+   since the reference's data-parallel loss renders (N, C) features):
+   loss within 1e-5 relative and visibility within 1e-4 * max + 1e-6 of
+   a one-device loop over the same cameras; two ``make_train_step`` steps
+   (finite loss, the first equal to the checked loss; ms and peak
+   memory); and ``dryrun_multichip(4, devices=[cuda:0] * 4)``.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
-full shapes (K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
+full shapes (K1 and K2 with their band-sharded launches and errors, the
+halo merge with the band-sharded run's launches and its device time,
+K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
 K5 with its run-to-run difference, and the two floor probes and the
 row-gather probe, which lie on no path: ``main_path`` false,
 ``launches`` read from their counters after the main path's run), and
@@ -116,6 +142,7 @@ the rows they walk.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -588,8 +615,18 @@ def mapped_scene(packed, depth, feats, image_size, config, dev,
   return cfg, build, f, d
 
 
+def mapping_to(m, dev):
+  """The mapping with every tensor field on ``dev``."""
+  return dataclasses.replace(m, **{
+      f.name: getattr(m, f.name).to(dev) for f in dataclasses.fields(m)
+      if isinstance(getattr(m, f.name), torch.Tensor)})
+
+
 def phase_twin(dev):
-  """Phases 2 and 2b: (K1 max error, K2 max error)."""
+  """Phases 2 and 2b: (K1 max error, K2 max error, the 200k mappings for
+  phase 7 as (label, mapping, config), phase 2's K1 image and K2 buffer of
+  the uniform mapping as (image, cotangent, K2 buffer)).  What phase 7
+  takes is kept in host memory, out of phases 3-6's device peaks."""
   from tpu_splatting_torch import RasterConfig
   from tpu_splatting_torch.rasterizer import stream_kernels as sk
   from tpu_splatting_torch.scenes import heavy_scene, uniform_scene
@@ -600,6 +637,12 @@ def phase_twin(dev):
                                           RasterConfig(), dev)
   m = build(feats)
   errs.append(kernel_vs_twin(m, cfg, "blending")[0])
+  shard_checks = [("uniform", mapping_to(m, "cpu"), cfg)]
+  img = sk.stream_forward(m, cfg)
+  gimg = torch.randn(img.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(6))
+  phase2_out = tuple(x.cpu() for x in (img, gimg, sk.stream_backward(
+      m, img, gimg, dataclasses.replace(cfg, **HEUR))))
   errs.append(kernel_vs_twin(
       m, dataclasses.replace(cfg, antialias=True), "antialias")[0])
   mq = build(depth[:, None])
@@ -620,6 +663,8 @@ def phase_twin(dev):
     cfg, build, feats, _ = mapped_scene(*scene, SIZE_SMALL, RasterConfig(),
                                         dev, slab_cap=slab_cap)
     m = build(feats)
+    shard_checks.append((f"heavy {m.num_slabs} slabs", mapping_to(m, "cpu"),
+                         cfg))
     log(f"  heavy mapping: slab_cap {m.slab_cap} num_slabs {m.num_slabs} "
         f"w_max {m.w_max} dup_cap {m.dup_cap}")
     errs.append(kernel_vs_twin(m, cfg, "heavy blending", reps=1)[0])
@@ -659,7 +704,7 @@ def phase_twin(dev):
     errs2.append(backward_vs_twin(
         m, dataclasses.replace(cfg, **HEUR),
         f"F {num_f} tile {ts} heuristics", reps=1)[0])
-  return max(errs), max(errs2)
+  return max(errs), max(errs2), shard_checks, phase2_out
 
 
 def cross_device_check(dev):
@@ -1738,6 +1783,350 @@ def phase_sorted_full(dev, g3d, cams, stream_cfg):
   ]
 
 
+N_SHARDS = 4        # virtual shards of one card in phase 7
+
+
+def shard_kernels_vs_twins(m, cfg, label, mesh):
+  """Phase 7's kernel checks on one mapping split into band shards: K1
+  with band0 against its twin (TOL) and bit for bit the unsharded image's
+  bands, K2 in halo mode against its twin per column (heuristics), the
+  halo merge bit for bit its plain twin on K2's buffers.  Returns (K1
+  error, K2 error)."""
+  from tpu_splatting_torch.parallel import stream_sharded as ss
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  hcfg = dataclasses.replace(cfg, **HEUR)
+  th_local, shards = ss._shards(m, mesh)
+  t_local = m.tiles_wide * th_local
+  band_rows = m.tiles_wide * m.run_cap
+  full = sk.stream_forward(m, cfg)
+  gen = torch.Generator(device=full.device).manual_seed(7)
+  gimg = torch.randn(full.shape, generator=gen, device=full.device)
+  err1 = err2 = share = 0.0
+  bufs = []
+  for d, band0, _, lm in shards:
+    rows = slice(d * t_local, (d + 1) * t_local)
+    img = sk.stream_forward(lm, cfg, band0)
+    want = sk.stream_forward_reference(lm, cfg, band0)
+    torch.cuda.synchronize()
+    err1 = max(err1, float((img - want).abs().max()))
+    assert torch.equal(img, full[rows]), f"{label} shard {d}: K1 band0"
+    got = sk.stream_backward(lm, img, gimg[rows], hcfg, band0, halo=True)
+    want = sk.stream_backward_reference(lm, img, gimg[rows], hcfg, band0,
+                                        halo=True)
+    tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+    err_col = (got - want).abs().amax(0)
+    assert bool((err_col <= tol_col).all()), (
+        f"{label} shard {d}: K2 halo mode disagrees with its twin",
+        err_col.tolist(), tol_col.tolist())
+    assert not bool(got[-1].any())
+    err2 = max(err2, float(err_col.max()))
+    share = max(share, float((err_col / tol_col).max()))
+    bufs.append(got)
+  assert err1 <= TOL, (label, err1)
+  assert not bool(bufs[0][:band_rows].any()), "rows above the image"
+  assert not bool(bufs[-1][(th_local + 1) * band_rows:].any()), (
+      "rows below the image")
+  for d in range(len(bufs)):
+    above = (bufs[d - 1][(th_local + 1) * band_rows:-1]
+             if d > 0 else None)
+    below = bufs[d + 1][:band_rows] if d < len(bufs) - 1 else None
+    got = sk.halo_merge(bufs[d].clone(), th_local, band_rows, above, below)
+    want = sk.halo_merge_reference(bufs[d].clone(), th_local, band_rows,
+                                   above, below)
+    assert torch.equal(got, want), f"{label} shard {d}: halo merge"
+  log(f"  {label}, {len(shards)} shards of {th_local} bands: K1 band0 "
+      f"max_abs_err {err1:.3e} (tol {TOL:g}), bit for bit the unsharded "
+      f"bands; K2 halo mode max_abs_err {err2:.3e}, worst column at "
+      f"{share:.3f} of its tolerance; halo merge bit for bit its twin")
+  return err1, err2
+
+
+def phase_sharded(dev, g3d, cams, cfg_caps, shard_checks, phase2_out):
+  """Phase 7: the band-sharded stream path and camera-batch data
+  parallelism on virtual shards of one card.  Returns (kernels-line
+  entry of the halo merge, K1 and K2 additions)."""
+  from tpu_splatting_torch.parallel.data_parallel import (
+      data_parallel_loss, make_train_step)
+  from tpu_splatting_torch.parallel.dryrun import dryrun_multichip
+  from tpu_splatting_torch.parallel.mesh import all_gather, make_mesh, ppermute
+  from tpu_splatting_torch.parallel import stream_sharded as ss
+  from tpu_splatting_torch.optim import GroupConfig
+  from tpu_splatting_torch.perspective.projection import (ndc_depth,
+                                                          project_to_image)
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.rasterizer.stream_function import (
+      backward_reduce, reduce_stage2, stream_map_with_config)
+  from tpu_splatting_torch.renderer import render_gaussians
+  from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+  t_phase = time.perf_counter()
+  mesh = make_mesh(N_SHARDS, devices=[dev] * N_SHARDS)
+  log(f"phase 7: band sharding and data parallelism on {N_SHARDS} virtual "
+      f"shards of {dev}")
+
+  # 7.1 the kernels against their twins at phase 2's 200k shapes
+  err1 = err2 = 0.0
+  for label, m, cfg in shard_checks:
+    e1, e2 = shard_kernels_vs_twins(mapping_to(m, dev), cfg, label, mesh)
+    err1, err2 = max(err1, e1), max(err2, e2)
+  label, m, cfg = shard_checks[0]
+  m = mapping_to(m, dev)
+  img, gimg, buf2 = (x.to(dev) for x in phase2_out)
+  img0 = sk.stream_forward(m, cfg, 0)
+  hcfg = dataclasses.replace(cfg, **HEUR)
+  buf0 = sk.stream_backward(m, img0, gimg, hcfg, 0, halo=False)
+  again = sk.stream_backward(m, img0, gimg, hcfg)
+  torch.cuda.synchronize()
+  assert torch.equal(img0, img), "K1 at band0 0 differs from phase 2's"
+  tol_col = 1e-4 * buf2.abs().amax(0) + 1e-6
+  assert bool(((buf0 - buf2).abs().amax(0) <= tol_col).all())
+  log(f"  band0 0: K1 bit for bit phase 2's image; K2 within "
+      f"{float((buf0 - buf2).abs().max()):.3e} of phase 2's buffer (two "
+      f"unsharded K2 runs on the same inputs differ by "
+      f"{float((again - buf2).abs().max()):.3e}: its atomics)")
+  del img0, buf0, again, phase2_out
+
+  # 7.2 the headline band-sharded: identity pose, phase 4's capacities
+  cfg = dataclasses.replace(cfg_caps, **HEUR)
+  cam = cams[0]
+  with torch.no_grad():
+    g2d, depths, _ = project_to_image(g3d, cam, cfg)
+    feats = evaluate_sh_at(g3d.feature, g3d.position, cam.camera_position)
+    nd = torch.where(depths > 0,
+                     ndc_depth(depths, cam.near_plane, cam.far_plane), 0.0)
+    m = stream_map_with_config(g2d, nd, feats, SIZE_FULL, cfg)
+  del g2d, depths, feats, nd
+  assert int(m.num_overflow) == 0, m.overflow.tolist()
+  th_local = m.tiles_high // N_SHARDS
+  log(f"  headline: {m.tiles_high} bands, {N_SHARDS} shards of {th_local}; "
+      f"run_cap {m.run_cap}, slab_cap {m.slab_cap}, w_max {m.w_max}")
+  full = sk.stream_forward(m, cfg)
+  gen = torch.Generator(device=dev).manual_seed(8)
+  g_it = torch.randn(full.shape, generator=gen, device=dev)
+  want = backward_reduce(m, full, g_it, cfg)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base_mem = torch.cuda.memory_allocated()
+  sk.reset_launch_counts()
+  t0 = time.perf_counter()
+  img_fwd = ss.band_sharded_forward(m, cfg, mesh)
+  img_sh, got = ss.band_sharded_grad(m, g_it, cfg, mesh)
+  torch.cuda.synchronize()
+  path_ms = (time.perf_counter() - t0) * 1e3
+  counts = dict(sk.launch_counts)
+  peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+  log(f"  band_sharded_forward + band_sharded_grad: {path_ms:.2f} ms "
+      f"(first run), launches {counts}, peak {peak:.3f} GiB above the "
+      f"{base_mem / 2 ** 30:.3f} GiB held")
+  assert counts == {"stream_forward": 2 * N_SHARDS,
+                    "stream_backward": N_SHARDS,
+                    "halo_merge": N_SHARDS}, counts
+  assert torch.equal(img_fwd, full), "sharded forward image differs"
+  assert torch.equal(img_sh, full), "sharded grad's image differs"
+  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+  err_col = (got - want).abs().amax(0)
+  assert bool(torch.isfinite(got).all())
+  assert bool((err_col <= tol_col).all()), (
+      "sharded gradient disagrees with the unsharded one", err_col.tolist(),
+      tol_col.tolist())
+  share = float((err_col / tol_col).max())
+  log(f"  headline: sharded image bit for bit the unsharded K1 image; "
+      f"per-point gradient max_abs_err {float(err_col.max()):.3e} against "
+      f"backward_reduce, worst column at {share:.3f} of K2's tolerance")
+  err2 = max(err2, float(err_col.max()))
+  del img_fwd, img_sh, want, got
+
+  # each shard's K2 halo buffer against its twin, and the halo merge
+  # against its plain twin on those buffers, at the headline's shapes
+  _, shards = ss._shards(m, mesh)
+  t_local = m.tiles_wide * th_local
+  band_rows = m.tiles_wide * m.run_cap
+  hbufs, share, twin_ms = [], 0.0, 0.0
+  for d, band0, _, lm in shards:
+    rows = slice(d * t_local, (d + 1) * t_local)
+    hbufs.append(sk.stream_backward(lm, full[rows], g_it[rows], cfg, band0,
+                                    halo=True))
+    t0 = time.perf_counter()
+    twin = sk.stream_backward_reference(lm, full[rows], g_it[rows], cfg,
+                                        band0, halo=True)
+    torch.cuda.synchronize()
+    twin_ms += (time.perf_counter() - t0) * 1e3
+    tol_col = 1e-4 * twin.abs().amax(0) + 1e-6
+    err_col = (hbufs[-1] - twin).abs().amax(0)
+    assert bool((err_col <= tol_col).all()), (
+        f"headline shard {d}: K2 halo mode disagrees with its twin",
+        err_col.tolist(), tol_col.tolist())
+    err2 = max(err2, float(err_col.max()))
+    share = max(share, float((err_col / tol_col).max()))
+    del twin
+  merge_err = 0.0
+  for d in range(N_SHARDS):
+    above = (hbufs[d - 1][(th_local + 1) * band_rows:(th_local + 2)
+                          * band_rows] if d > 0 else None)
+    below = hbufs[d + 1][:band_rows] if d < N_SHARDS - 1 else None
+    got = sk.halo_merge(hbufs[d].clone(), th_local, band_rows, above, below)
+    want = sk.halo_merge_reference(hbufs[d].clone(), th_local, band_rows,
+                                   above, below)
+    merge_err = max(merge_err, float((got - want).abs().max()))
+    assert torch.equal(got, want), f"headline shard {d}: halo merge"
+  del hbufs, got, want
+  log(f"  headline, each shard's K2 in halo mode against its twin: worst "
+      f"column at {share:.3f} of K2's tolerance (twins {twin_ms:.0f} ms in "
+      f"all); halo merge max_abs_err {merge_err:.3e} against its plain "
+      f"twin on those buffers, every shard")
+
+  # timings: the whole by events, each part staged, each kernel as calls
+  whole_ms = cuda_ms(lambda: ss.band_sharded_grad(m, g_it, cfg, mesh), 3)
+  names = ([f"{k} s{d}" for d in range(N_SHARDS) for k in ("K1", "K2")]
+           + ["halo exchange", "halo merge", "gather + stage 2"])
+  for sync in (False, False, True):
+    st = Stages(sync)
+    st.mark()
+    bufs = []
+    for d, band0, _, lm in shards:
+      img = sk.stream_forward(lm, cfg, band0)
+      st.mark()
+      bufs.append(sk.stream_backward(
+          lm, img, g_it[d * t_local:(d + 1) * t_local], cfg, band0,
+          halo=True))
+      st.mark()
+    top = [b[:band_rows] for b in bufs]
+    bot = [b[(th_local + 1) * band_rows:(th_local + 2) * band_rows]
+           for b in bufs]
+    above = ppermute(mesh, bot, [(i, i + 1) for i in range(N_SHARDS - 1)])
+    below = ppermute(mesh, top, [(i, i - 1) for i in range(1, N_SHARDS)])
+    st.mark()
+    own = [sk.halo_merge(b, th_local, band_rows, above[d], below[d])
+           for d, b in enumerate(bufs)]
+    st.mark()
+    reduce_stage2(all_gather(mesh, own + [bufs[0][-1:]]), m)
+    st.mark()
+    st.log("band-sharded stages" + (", each alone" if sync else ""), names)
+  k1_full = cuda_ms(lambda: sk.stream_forward(m, cfg), 5)
+  k2_full = cuda_ms(lambda: sk.stream_backward(m, full, g_it, cfg), 5)
+  k1_shards, k2_shards = [], []
+  for d, band0, _, lm in shards:
+    rows = slice(d * t_local, (d + 1) * t_local)
+    k1_shards.append(cuda_ms(lambda: sk.stream_forward(lm, cfg, band0), 5))
+    k2_shards.append(cuda_ms(lambda: sk.stream_backward(
+        lm, full[rows], g_it[rows], cfg, band0, halo=True), 5))
+  log(f"  band_sharded_grad, the whole: {whole_ms:.3f} ms (CUDA events, 3 "
+      f"calls)")
+  log(f"  K1 per shard (ms, 5 calls each): {[round(t, 4) for t in k1_shards]}"
+      f" sum {sum(k1_shards):.3f}; unsharded {k1_full:.3f}")
+  log(f"  K2 per shard (ms, 5 calls each): {[round(t, 4) for t in k2_shards]}"
+      f" sum {sum(k2_shards):.3f}; unsharded {k2_full:.3f}: the halo costs "
+      f"{sum(k2_shards) - k2_full:+.3f} ms")
+
+  # the halo merge alone: a middle shard (both peers), on copies
+  buf1 = bufs[1].clone()
+  a1, b1 = above[1].clone(), below[1].clone()
+  merge_ms = cuda_ms(lambda: sk.halo_merge(buf1, th_local, band_rows, a1,
+                                           b1), 5)
+  merge_dev = device_ms(lambda: sk.halo_merge(buf1, th_local, band_rows, a1,
+                                              b1), kernels=1)
+  # as the path finds its bands: written by K2 several ms earlier, out of
+  # the 50 MB L2 (a 256 MB fill between calls evicts them)
+  flush = torch.empty(64 << 20, device=dev)
+  split = device_split(lambda: (flush.zero_(), sk.halo_merge(
+      buf1, th_local, band_rows, a1, b1)), kernels=2)
+  merge_cold = next(t for k, t in split.items() if "halo_merge" in k)
+  del flush
+  plain_ms = cuda_ms(lambda: sk.halo_merge_reference(
+      buf1, th_local, band_rows, a1, b1), 5)
+  band_bytes = nbytes(a1)
+  m_ms, m_by = bound_ms(2 * a1.numel(), 6 * band_bytes)
+  occ = (ctypes.c_int * 3)()
+  assert sk._bwd_kernel().tpu_splat_halo_merge_occupancy(occ) == 0
+  log(f"  halo merge (shard 1 of {N_SHARDS}, both peers, bands of "
+      f"{band_rows} x {a1.shape[1]} f32 = {band_bytes} B): a call "
+      f"{merge_ms:.4f} ms, device {merge_cold:.4f} ms from a flushed L2, "
+      f"{merge_dev:.4f} ms with its bands in L2, plain twin "
+      f"{plain_ms:.4f} ms, bound {m_ms:.4f} ms ({m_by}: 4 bands read, 2 "
+      f"written); {occ[1]} registers, {occ[0] * 8} warps resident per SM")
+  del bufs, own, top, bot, above, below, buf1, a1, b1, full, g_it, m
+
+  # 7.3 camera-batch data parallelism at the headline: 4 cameras on 4
+  # shards; the reference's data-parallel loss renders (N, C) features,
+  # so the SH features are evaluated once at the identity pose (RGB)
+  cfg = dataclasses.replace(cfg_caps, compute_visibility=True)
+  with torch.no_grad():
+    rgb = evaluate_sh_at(g3d.feature, g3d.position, cams[0].camera_position)
+  gdp = g3d.replace(feature=rgb.contiguous())
+  batch = cams[:N_SHARDS]
+  projections = torch.stack([c.projection for c in batch])
+  poses = torch.stack([c.T_camera_world for c in batch])
+  targets = torch.from_numpy(np.random.default_rng(9).random(
+      (N_SHARDS, SIZE_FULL[1], SIZE_FULL[0], 3)).astype(np.float32)).to(dev)
+  n = gdp.position.shape[0]
+  loss_fn = data_parallel_loss(mesh, cams[0], cfg, max_overlaps=None)
+  probe = torch.zeros((n, 1), device=dev, requires_grad=True)
+  loss, fwd_vis = loss_fn(gdp, probe, projections, poses, targets)
+  (gpr,) = torch.autograd.grad(loss, probe)
+  vis = fwd_vis + gpr[:, 0]
+  probe1 = torch.zeros((n, 1), device=dev, requires_grad=True)
+  losses = []
+  for i, c in enumerate(batch):
+    out = render_gaussians(gdp, c, cfg, probe=probe1)
+    losses.append(torch.mean((out.image - targets[i]) ** 2))
+  loss1 = torch.stack(losses).mean()
+  (gpr1,) = torch.autograd.grad(loss1, probe1)
+  vis1 = gpr1[:, 0]
+  dp_loss, loss1 = float(loss.detach()), float(loss1.detach())
+  rel = abs(dp_loss - loss1) / abs(loss1)
+  vis_err = float((vis - vis1).abs().max())
+  vis_tol = 1e-4 * float(vis1.abs().max()) + 1e-6
+  log(f"  data parallel, {N_SHARDS} cameras on {N_SHARDS} shards: loss "
+      f"{dp_loss:.6f} against the one-device loop's {loss1:.6f} (relative "
+      f"{rel:.2e}, tol 1e-5); visibility max_abs_err {vis_err:.3e} (tol "
+      f"{vis_tol:.3e}), {int((vis1 > 0).sum())} visible")
+  assert rel <= 1e-5 and vis_err <= vis_tol, (rel, vis_err, vis_tol)
+  del loss, fwd_vis, gpr, vis, losses, loss1, gpr1, vis1, out
+
+  groups = {"feature": GroupConfig(type="vector", lr=1e-3)}
+  step, opt = make_train_step(mesh, cams[0], cfg_caps, groups,
+                              max_overlaps=None)
+  tensors = {f.name: getattr(gdp, f.name)
+             for f in dataclasses.fields(gdp)}
+  state = opt.init(tensors)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  sk.reset_launch_counts()
+  step_ms, step_losses = [], []
+  for i in range(2):
+    t0 = time.perf_counter()
+    tensors, state, sl = step(tensors, state, projections, poses, targets)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_losses.append(float(sl))
+    assert np.isfinite(step_losses[-1]), step_losses
+  dp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"  make_train_step, {N_SHARDS} cameras a step: ms "
+      f"{[round(t, 3) for t in step_ms]}, losses {step_losses}, launches "
+      f"{dict(sk.launch_counts)}, peak {dp_peak:.3f} GiB")
+  assert sk.launch_counts["stream_backward"] >= 2 * N_SHARDS
+  assert abs(step_losses[0] - dp_loss) <= 1e-6 * abs(dp_loss), (
+      step_losses[0], dp_loss)
+  del tensors, state, targets, gdp, rgb
+
+  # 7.4 the dry run on the same virtual shards
+  dryrun_multichip(N_SHARDS, devices=[dev] * N_SHARDS)
+  log(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+  halo = {"launches": counts["halo_merge"], "max_abs_err": merge_err,
+          "ms": merge_ms, "device_ms": merge_cold,
+          "device_ms_l2_warm": merge_dev, "plain_ms": plain_ms,
+          "bound_ms": m_ms, "bound_by": m_by, "library_ms": None,
+          "resident_warps_per_sm": occ[0] * 8,
+          "band_sharded_grad_ms": whole_ms}
+  k1_extra = {"band_sharded_launches": counts["stream_forward"],
+              "band_sharded_max_abs_err": err1}
+  k2_extra = {"band_sharded_launches": counts["stream_backward"],
+              "band_sharded_max_abs_err": err2,
+              "band_sharded_shard_ms_sum": sum(k2_shards),
+              "unsharded_ms_same_call": k2_full}
+  return halo, k1_extra, k2_extra
+
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -1745,13 +2134,20 @@ def main():
   dev = torch.device("cuda", 0)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  err2, err2b = phase_twin(dev)
+  t_start = time.perf_counter()
+  err2, err2b, shard_checks, phase2_out = phase_twin(dev)
   cross_device_check(dev)
   k1, k1_floor, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
   sorted_cross_device_check(dev)
   sorted_entries = phase_sorted_full(dev, g3d, cams, cfg)
+  t_sharded = time.perf_counter()
+  halo, k1_sharded, k2_sharded = phase_sharded(dev, g3d, cams, cfg,
+                                               shard_checks, phase2_out)
+  del shard_checks, phase2_out
+  log(f"phases 2-7: {time.perf_counter() - t_start:.1f} s, phase 7 "
+      f"{time.perf_counter() - t_sharded:.1f} s")
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
@@ -1762,13 +2158,20 @@ def main():
   log(json.dumps({"kernels": [
       dict(name="stream_forward", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",
-           library_ms=None, **k1),
+           library_ms=None, **k1, **k1_sharded,
+           also_on=["band_sharded_forward", "band_sharded_grad"],
+           with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
-           library_ms=None, **k2),
+           library_ms=None, **k2, **k2_sharded,
+           also_on=["band_sharded_grad"], with_band0=True, with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),
+      dict(name="halo_merge", route="cuda",
+           source=src + "stream_backward.cu", replaces=ref + "996",
+           mode_of="merge_grad_slabs (halo=True)", path="band_sharded_grad",
+           **halo),
       *sorted_entries,
       dict(name="stream_forward_floor", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",

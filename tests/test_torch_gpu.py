@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tpu_splatting_torch import RasterConfig, calibrate_stream, stream_map
+from tpu_splatting_torch.parallel.mesh import make_mesh
 from tpu_splatting_torch.rasterizer import stream_kernels as sk
 from tpu_splatting_torch.scenes import uniform_scene
 
@@ -216,7 +217,8 @@ def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
   img, w = stream_rasterize_with_mapping(g2d, feats, m, (128, 96), config,
                                          probe=probe)
   (img.square().sum() + w.sum()).backward()
-  assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1}
+  assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1,
+                              "halo_merge": 0}
   assert float(probe.grad[:, 0].max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
 
@@ -664,3 +666,182 @@ def test_sorted_reduce_sorts_once_and_never_searches(cuda, monkeypatch):
   assert fn.sort_counts["point_ids"] == 1
   assert layout.launch_counts == {"window_copy": 1, "segment_sum_sorted": 2}
   assert bool(torch.isfinite(g2d.grad).all())
+
+
+# --- band sharding: K1 and K2 with band0, K2's halo buffer, the halo merge -
+
+
+def shard_mapping(dev, config, n_shards=4):
+  """A 4000-splat mapping of 8 bands and its shards' local mappings."""
+  from tpu_splatting_torch.parallel import stream_sharded as ss
+  m = mapping_for(dev, config, size=(128, 128))
+  th_local, shards = ss._shards(m, make_mesh(n_shards,
+                                             devices=[dev] * n_shards))
+  return m, th_local, shards
+
+
+@pytest.mark.parametrize("mode", ["blend", "heuristics"])
+def test_band0_kernels_match_twins(cuda, mode):
+  """On 4 virtual shards of one card: K1 with band0 against its twin and
+  bit for bit the unsharded image's bands; K2 in halo mode against its
+  twin, column by column."""
+  config = RasterConfig(**BWD_MODES[mode])
+  m, th_local, shards = shard_mapping(cuda, config)
+  full = sk.stream_forward(m, config)
+  t_local = m.tiles_wide * th_local
+  gen = torch.Generator(device=cuda).manual_seed(3)
+  gimg = torch.randn(full.shape, generator=gen, device=cuda)
+  for d, band0, _, lm in shards:
+    sk.reset_launch_counts()
+    img = sk.stream_forward(lm, config, band0)
+    torch.cuda.synchronize()
+    assert sk.launch_counts["stream_forward"] == 1
+    torch.testing.assert_close(
+        img, sk.stream_forward_reference(lm, config, band0), atol=1e-4,
+        rtol=0)
+    assert torch.equal(img, full[d * t_local:(d + 1) * t_local])
+    g = gimg[d * t_local:(d + 1) * t_local]
+    got = sk.stream_backward(lm, img, g, config, band0, halo=True)
+    torch.cuda.synchronize()
+    assert sk.launch_counts["stream_backward"] == 1
+    want = sk.stream_backward_reference(lm, img, g, config, band0, halo=True)
+    assert got.shape == want.shape == (
+        (m.tiles_wide * (th_local + 2)) * m.run_cap + 1,
+        sk.slab_width(config, m.feature_size))
+    assert float(want.abs().max()) > 0.1
+    assert not bool(got[-1].any())
+    columns_close(got, want)
+
+
+@pytest.mark.parametrize("th_local", [1, 3])
+@pytest.mark.parametrize("peers", ["both", "above", "below", "none"])
+def test_halo_merge_kernel_matches_twin(cuda, th_local, peers):
+  """Bit for bit its plain twin, in place, for a shard with both peers,
+  with no upper or no lower peer, and with neither."""
+  band_rows, slabw = 1000, 13
+  gen = torch.Generator(device=cuda).manual_seed(4)
+  buf = torch.randn(((th_local + 2) * band_rows + 1, slabw), generator=gen,
+                    device=cuda)
+  above = torch.randn((band_rows, slabw), generator=gen, device=cuda)
+  below = torch.randn((band_rows, slabw), generator=gen, device=cuda)
+  above = above if peers in ("both", "above") else None
+  below = below if peers in ("both", "below") else None
+  want_buf = buf.clone()
+  want = sk.halo_merge_reference(want_buf, th_local, band_rows, above, below)
+  sk.reset_launch_counts()
+  got = sk.halo_merge(buf, th_local, band_rows, above, below)
+  torch.cuda.synchronize()
+  assert sk.launch_counts["halo_merge"] == (0 if peers == "none" else 1)
+  assert torch.equal(got, want)
+  assert torch.equal(buf, want_buf)
+  assert got.data_ptr() == buf[band_rows:].data_ptr()
+  with pytest.raises(ValueError):
+    sk.halo_merge(buf, th_local, band_rows, torch.zeros(
+        (band_rows - 1, slabw), device=cuda), None)
+
+
+def test_band_sharded_path_on_card(cuda):
+  """band_sharded_forward bit for bit stream_forward; band_sharded_grad's
+  per-point gradients against the unsharded backward_reduce per column;
+  every shard's K1, K2 and halo merge launched."""
+  from tpu_splatting_torch.parallel.stream_sharded import (
+      band_sharded_forward, band_sharded_grad)
+  from tpu_splatting_torch.rasterizer.stream_function import backward_reduce
+  config = RasterConfig(**BWD_MODES["heuristics"])
+  m = mapping_for(cuda, config, size=(128, 128))
+  mesh = make_mesh(4, devices=[cuda] * 4)
+  full = sk.stream_forward(m, config)
+  assert torch.equal(band_sharded_forward(m, config, mesh), full)
+  gen = torch.Generator(device=cuda).manual_seed(5)
+  gimg = torch.randn(full.shape, generator=gen, device=cuda)
+  want = backward_reduce(m, full, gimg, config)
+  sk.reset_launch_counts()
+  img, got = band_sharded_grad(m, gimg, config, mesh)
+  torch.cuda.synchronize()
+  assert sk.launch_counts == {"stream_forward": 4, "stream_backward": 4,
+                              "halo_merge": 4}
+  assert torch.equal(img, full)
+  assert float(want.abs().max()) > 0.1
+  columns_close(got, want)
+
+
+def test_band0_zero_is_the_unsharded_call(cuda):
+  """band0 = 0 and halo off are the unsharded kernels: K1 bit for bit the
+  default call, K2 within its gate (its atomics sum in a varying order)."""
+  config = RasterConfig(**BWD_MODES["heuristics"])
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  assert torch.equal(sk.stream_forward(m, config, 0), img)
+  gen = torch.Generator(device=cuda).manual_seed(6)
+  gimg = torch.randn(img.shape, generator=gen, device=cuda)
+  columns_close(sk.stream_backward(m, img, gimg, config, 0, halo=False),
+                sk.stream_backward(m, img, gimg, config))
+
+
+def test_dryrun_multichip_on_one_card(cuda, capsys):
+  from tpu_splatting_torch.parallel.dryrun import dryrun_multichip
+  dryrun_multichip(4, devices=[cuda] * 4)
+  assert "OK" in capsys.readouterr().out
+
+
+@pytest.fixture
+def cards():
+  """Every visible CUDA device, where there are at least two."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip("needs two or more CUDA devices")
+  return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_band_sharded_path_across_cards(cards):
+  """One shard a card: the image bit for bit the one-card K1 image, the
+  per-point gradients against the one-card backward_reduce per column."""
+  from tpu_splatting_torch.parallel.stream_sharded import band_sharded_grad
+  from tpu_splatting_torch.rasterizer.stream_function import backward_reduce
+  config = RasterConfig(**BWD_MODES["heuristics"])
+  m = mapping_for(cards[0], config, size=(128, 128))
+  if m.tiles_high % len(cards):
+    pytest.skip(f"{m.tiles_high} bands over {len(cards)} cards")
+  full = sk.stream_forward(m, config)
+  gen = torch.Generator(device=cards[0]).manual_seed(5)
+  gimg = torch.randn(full.shape, generator=gen, device=cards[0])
+  want = backward_reduce(m, full, gimg, config)
+  img, got = band_sharded_grad(m, gimg, config, make_mesh())
+  torch.cuda.synchronize()
+  assert img.device == got.device == cards[0]
+  assert torch.equal(img, full)
+  columns_close(got, want)
+
+
+def test_data_parallel_across_cards(cards, capsys):
+  """One camera a card: loss and visibility against a one-card loop over
+  the same cameras; then the dry run over every card."""
+  from tpu_splatting_torch.parallel.data_parallel import data_parallel_loss
+  from tpu_splatting_torch.parallel.dryrun import (_synthetic_scene,
+                                                   dryrun_multichip)
+  from tpu_splatting_torch.renderer import render_gaussians
+  dev = cards[0]
+  g, camera = _synthetic_scene(2000, (128, 96), seed=4, device=dev)
+  config = RasterConfig(compute_visibility=True)
+  b = len(cards)
+  poses = camera.T_camera_world.repeat(b, 1, 1)
+  poses[:, 0, 3] = 1e-2 * torch.arange(b, device=dev)
+  projections = camera.projection.repeat(b, 1)
+  targets = torch.rand((b, 96, 128, 3), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+  probe = torch.zeros((2000, 1), device=dev, requires_grad=True)
+  loss, fwd_vis = data_parallel_loss(make_mesh(), camera, config, None)(
+      g, probe, projections, poses, targets)
+  (gpr,) = torch.autograd.grad(loss, probe)
+  probe1 = torch.zeros((2000, 1), device=dev, requires_grad=True)
+  losses = [torch.mean((render_gaussians(
+      g, camera.replace(T_camera_world=poses[i]), config,
+      probe=probe1).image - targets[i]) ** 2) for i in range(b)]
+  loss1 = torch.stack(losses).mean()
+  (gpr1,) = torch.autograd.grad(loss1, probe1)
+  assert float(gpr1.max()) > 0.1
+  torch.testing.assert_close(loss.detach(), loss1.detach(), atol=0,
+                             rtol=1e-5)
+  torch.testing.assert_close(fwd_vis + gpr[:, 0], gpr1[:, 0], atol=1e-6,
+                             rtol=1e-4)
+  dryrun_multichip(b)
+  assert "OK" in capsys.readouterr().out

@@ -6,8 +6,12 @@ is the counterpart of ``tpu_splatting/rasterizer/stream.py``), and holds
 the same public names for the parts ported so far: the render and
 training path through the tile-stream and the sorted-overlap pipelines
 (``render_gaussians``, ``render_with_heuristics``, ``map_to_tiles``,
-``rasterize``, ``rasterize_with_tiles``) and the fractional optimizers
-(``tpu_splatting_torch.optim``).  Plain code is torch; the TPU's
+``rasterize``, ``rasterize_with_tiles``), the fractional optimizers
+(``tpu_splatting_torch.optim``) and the multi-device paths
+(``tpu_splatting_torch.parallel``: camera-batch data parallelism,
+point-sharded projection, band-sharded stream rasterization, over a
+single-process mesh of devices), a subpackage as in the reference.
+Plain code is torch; the TPU's
 Pallas kernels become hand-written CUDA kernels for Hopper (``csrc/``),
 built at first use.  The package imports torch and numpy only.
 """

@@ -50,6 +50,18 @@
 // stay in registers across slabs; a block stops once every pixel is frozen
 // and skips the remaining slabs, as the forward does.
 //
+// Band sharding (parallel/stream_sharded.py): a shard runs K2 on its own
+// bands with `band0`, the absolute band of its first tile, and in halo mode
+// adds into a buffer of th_local + 2 bands of homes, its own bands with one
+// halo band above and one below: every home its windows reach.  Home band
+// b of local tile band ty is then ty + b, not ty + b - 1.  With
+// halo_merge_kernel below this replaces the reference's halo mode of
+// _merge_kernel (:996, merge_grad_slabs(..., halo=True), :1099): the
+// reference trades its neighbours' source slab blocks and merges them;
+// here a shard sends its two halo bands of finished home-major rows, and
+// halo_merge_kernel adds the two it receives into its first and last own
+// bands.
+//
 // Instantiations <most features, V>: <6, 16>, <22, 32> and <56, 32> keep a
 // pixel's image cotangent in registers; stream_backward_generic_kernel<16>
 // (V = 16) keeps it in shared memory ([feature][thread]) and takes any F
@@ -80,6 +92,9 @@ struct Params {
   int num_tiles, tiles_wide, group_width, num_slabs, w_max, strip_cap;
   int slab_cap, sort_cap, rpb, w_pad, f, tile_size, antialias, run_cap;
   int slabw, with_vis, heur;
+  // band sharding: the absolute band of the first tile, and 1 where `out`
+  // holds a halo band of homes above (and below) the mapping's own
+  int band0, halo;
   float alpha_threshold, clamp_max_alpha, lcut;
 };
 
@@ -139,9 +154,9 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
   const int tx = tile % p.tiles_wide, ty = tile / p.tiles_wide;
   const float half = ts * 0.5f;
   const float ox = static_cast<float>(tx * ts) + half;
-  const float oy = static_cast<float>(ty * ts) + half;
+  const float oy = static_cast<float>((p.band0 + ty) * ts) + half;
   const int band_stride = 2 * p.strip_cap + kStripSlack;
-  const int r_rows = p.num_tiles * p.run_cap;
+  const int r_rows = (p.num_tiles + 2 * p.halo * p.tiles_wide) * p.run_cap;
   const int c_vis = 7 + p.f;             // visibility, prune, split columns
 
   // the buffer column this lane adds after each batch's reduction, or -1
@@ -215,8 +230,9 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         s_win[4 * w + 1] = ln;
         s_win[4 * w + 2] = p.strip_blk[g * 3 + b] * p.strip_cap
                            + (lo - b * band_stride);
-        // home (band y+b-1, column x+k-1); dst = run offset + (i+k)*run_cap
-        const int home = (ty + b - 1) * p.tiles_wide + tx + k - 1;
+        // home (band y+b-1, column x+k-1; in halo mode the buffer's bands
+        // start one above the shard's); dst = run offset + (i+k)*run_cap
+        const int home = (ty + b - 1 + p.halo) * p.tiles_wide + tx + k - 1;
         s_win[4 * w + 3] = (home - ti - k) * p.run_cap + dst_off;
         if (ln > 0) cur += ((head + ln + p.rpb - 1) / p.rpb) * p.rpb;
         valid += ln;
@@ -493,6 +509,34 @@ const void* kernel_for(int max_features) {
   }
 }
 
+// The halo merge of band-sharded K2: adds the band received from the
+// shard above (its bottom halo band) into this shard's first own band and
+// the band received from the shard below (its top halo band) into its last
+// own band, in place; a missing peer (null) adds nothing.  `n` is the
+// floats of one band, `last` the offset of the last own band from the
+// first (0 for a shard of one band, which takes both adds in the twin's
+// order).  Bound by bytes: it reads four bands and writes two, one float a
+// thread, neighbouring threads on neighbouring floats.
+__global__ void __launch_bounds__(256)
+halo_merge_kernel(float* own, const float* above, const float* below,
+                  long long n, long long last) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) {
+    if (last == 0) {
+      float x = own[i];
+      if (above != nullptr) x = x + above[i];
+      if (below != nullptr) x = x + below[i];
+      own[i] = x;
+    } else {
+      if (above != nullptr) own[i] = own[i] + above[i];
+      if (below != nullptr) own[last + i] = own[last + i] + below[i];
+    }
+  }
+}
+
+constexpr int kMergeThreads = 256;
+
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes: rank keys, per-row
@@ -524,8 +568,11 @@ extern "C" int tpu_splat_stream_backward_occupancy(int max_features,
 
 // Launch on `stream` the instantiation `max_features` (6, 22, 56, or 0:
 // generic) with `threads` threads a block: the 10 + F gradient terms of a
-// thread in batches of V slots.  Returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue where no instantiation matches.
+// thread in batches of V slots.  `band0` is the absolute tile band of the
+// mapping's first band; with `halo` 1 `out` holds (tiles_high + 2) bands of
+// homes, a halo band above and below the mapping's own.  Returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
+// instantiation matches.
 // `out` must be zero-initialised: the kernel only adds to it.
 extern "C" int tpu_splat_stream_backward(
     const float* table, const int* desc, const int* strip_blk,
@@ -533,8 +580,8 @@ extern "C" int tpu_splat_stream_backward(
     int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
     int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
     int antialias, int run_cap, int slabw, int with_vis, int heur,
-    int max_features, int threads, float alpha_threshold,
-    float clamp_max_alpha, float lcut, void* stream) {
+    int max_features, int threads, int band0, int halo,
+    float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
   Params p;
   p.table = table;
   p.desc = desc;
@@ -560,6 +607,8 @@ extern "C" int tpu_splat_stream_backward(
   p.slabw = slabw;
   p.with_vis = with_vis;
   p.heur = heur;
+  p.band0 = band0;
+  p.halo = halo ? 1 : 0;
   p.alpha_threshold = alpha_threshold;
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
@@ -569,4 +618,28 @@ extern "C" int tpu_splat_stream_backward(
       slab_cap, w_max, feature_size, slabw, max_features, threads));
   return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
                        static_cast<cudaStream_t>(stream));
+}
+
+// {resident blocks per SM, registers, local bytes} of the halo merge.
+extern "C" int tpu_splat_halo_merge_occupancy(int* out) {
+  return kernel_occupancy((const void*)&halo_merge_kernel, kMergeThreads, 0,
+                          out);
+}
+
+// Launch the halo merge on `stream` over bands of `band_floats` floats:
+// `own` points at the first own band, `tiles_high` own bands follow it;
+// `above` / `below` may be null.  Returns cudaGetLastError().
+extern "C" int tpu_splat_halo_merge(float* own, const float* above,
+                                    const float* below,
+                                    long long band_floats, int tiles_high,
+                                    void* stream) {
+  if (band_floats <= 0 || tiles_high <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks =
+      static_cast<int>((band_floats + kMergeThreads - 1) / kMergeThreads);
+  halo_merge_kernel<<<blocks, kMergeThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      own, above, below, band_floats,
+      static_cast<long long>(tiles_high - 1) * band_floats);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -71,6 +71,7 @@ struct Params {
   float* out;              // (T, F+1, tile_area)
   int tiles_wide, group_width, num_slabs, w_max, strip_cap, slab_cap;
   int sort_cap, rpb, w_pad, f, tile_size, antialias, blending;
+  int band0;           // absolute tile band of the first tile (sharding)
   float alpha_threshold, clamp_max_alpha, lcut, quantile_thr;
   double log_thr;      // log(alpha_threshold), for the footprints
 };
@@ -111,7 +112,8 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
   const int g = tile / p.group_width;
   const float half = ts * 0.5f;
   const float ox = static_cast<float>((tile % p.tiles_wide) * ts) + half;
-  const float oy = static_cast<float>((tile / p.tiles_wide) * ts) + half;
+  const float oy =
+      static_cast<float>((p.band0 + tile / p.tiles_wide) * ts) + half;
   // tile-centred pixel coordinates (the reference's centred basis)
   const float px = static_cast<float>(pixel % ts) + 0.5f - half;
   const float py = static_cast<float>(pixel / ts) + 0.5f - half;
@@ -393,7 +395,9 @@ extern "C" int tpu_splat_stream_forward_occupancy(int max_features,
 
 // Launch the instantiation `max_features` (4, 8, 24, 56, or 0: generic;
 // with `walk` 0 the floor probe) with `threads` threads a block (the
-// tile's pixels in whole warps) on `stream`; returns
+// tile's pixels in whole warps) on `stream`.  `band0` is the absolute
+// tile band of the mapping's first band: 0 unless the mapping is one
+// shard of a band-sharded image.  Returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
 // instantiation matches.
 extern "C" int tpu_splat_stream_forward(
@@ -401,7 +405,7 @@ extern "C" int tpu_splat_stream_forward(
     int num_tiles, int tiles_wide, int group_width, int num_slabs, int w_max,
     int strip_cap, int slab_cap, int rpb, int w_pad, int feature_size,
     int tile_size, int antialias, int blending, int max_features,
-    int threads, int walk, float alpha_threshold,
+    int threads, int walk, int band0, float alpha_threshold,
     float clamp_max_alpha, float lcut, float quantile_thr, void* stream) {
   Params p;
   p.table = table;
@@ -422,6 +426,7 @@ extern "C" int tpu_splat_stream_forward(
   p.tile_size = tile_size;
   p.antialias = antialias;
   p.blending = blending;
+  p.band0 = band0;
   p.alpha_threshold = alpha_threshold;
   p.log_thr = log(static_cast<double>(alpha_threshold));
   p.clamp_max_alpha = clamp_max_alpha;

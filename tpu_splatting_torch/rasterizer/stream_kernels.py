@@ -13,6 +13,13 @@ Counterpart of ``tpu_splatting/rasterizer/stream_kernels.py``.
   ``grad_src`` / ``dup_src`` point at).  This is the output boundary of
   the reference's ``merge_grad_slabs(stream_backward(...))``, as one
   (R + 1, slabw) matrix instead of slabw (R,) columns.
+* Band sharding (``parallel/stream_sharded.py``): both take ``band0``,
+  the absolute tile band of a shard's first band, and ``stream_backward``
+  with ``halo=True`` adds into a buffer of ``tiles_high + 2`` bands of
+  homes (a halo band above and below the shard's own).  ``halo_merge``
+  (the reference's ``merge_grad_slabs(..., halo=True)``, K3's halo mode)
+  adds the halo bands received from the neighbouring shards into a
+  shard's first and last own bands.
 
 A mapping on a CUDA device goes to the hand-written Hopper kernels in
 ``csrc/`` (built at first use); each wrapper checks shapes and types,
@@ -27,9 +34,9 @@ There is no fallback between the two.
 Both passes compute alpha with the forward's formula (``_alpha_raw``:
 the quadratic form with log(point alpha) folded in), so the forward and
 the backward make the same threshold, clamp and freeze decisions (ROADMAP
-F1).  The reference's ``ablate`` and ``with_counts`` instruments,
-``band0`` (band sharding, ROADMAP P13) and ``with_asm`` /
-``stream_share_asm`` (TPU-only residuals) are not ported.
+F1).  The reference's ``ablate`` and ``with_counts`` instruments and
+``with_asm`` / ``stream_share_asm`` (TPU-only residuals) are not
+ported.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from .kernels import _NEG_BIG, _antialias_grads, _s_sig, quad_coeffs
 from .stream import STRIP_SLACK, StreamMapping
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
-launch_counts = {"stream_forward": 0, "stream_backward": 0}
+launch_counts = {"stream_forward": 0, "stream_backward": 0, "halo_merge": 0}
 # launches of the floor probe, which lies on no path of the system
 probe_launch_counts = {"stream_forward_floor": 0}
 
@@ -104,8 +111,11 @@ def _window_slots(mapping: StreamMapping):
   return slot0, lnc, row0
 
 
-def window_grad_rows(mapping: StreamMapping) -> torch.Tensor:
-  """(T, S, W) home-major gradient-buffer row of each window's first row.
+def window_grad_rows(mapping: StreamMapping,
+                     halo: bool = False) -> torch.Tensor:
+  """(T, S, W) home-major gradient-buffer row of each window's first row
+  (``halo``: in a buffer whose home bands start one band above the
+  mapping's, ``stream_backward(..., halo=True)``'s).
 
   A window of tile i (position i in its group) and class b*3+k reads the
   run of home (band y+b-1, column x+k-1), and its descriptor's gbuf_dst
@@ -119,7 +129,7 @@ def window_grad_rows(mapping: StreamMapping) -> torch.Tensor:
   dst, b, k = desc[..., 2], desc[..., 3] // 3, desc[..., 3] % 3
   tiles = torch.arange(t, device=desc.device)[:, None, None]
   tw, rc = mapping.tiles_wide, mapping.run_cap
-  home = (tiles // tw + b - 1) * tw + tiles % tw + k - 1
+  home = (tiles // tw + b - 1 + int(halo)) * tw + tiles % tw + k - 1
   return (home - tiles % mapping.group_width - k) * rc + dst
 
 
@@ -195,8 +205,8 @@ def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None):
   return valid, rows, grad_idx
 
 
-def stream_forward_reference(mapping: StreamMapping,
-                             config: RasterConfig) -> torch.Tensor:
+def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
+                             band0: int = 0) -> torch.Tensor:
   """Plain-torch twin of the stream forward kernel, vectorised over
   chunks of tiles: gather each (tile, slab)'s window rows, order them by
   the rank key ``depth << 11 | slot``, alpha at every pixel, exclusive
@@ -221,7 +231,7 @@ def stream_forward_reference(mapping: StreamMapping,
   pyl = ((p // ts).to(dtype) + 0.5 - ts * 0.5)
   tiles = torch.arange(t_all, device=dev)
   ox_all = ((tiles % tw) * ts).to(dtype) + ts * 0.5
-  oy_all = ((tiles // tw) * ts).to(dtype) + ts * 0.5
+  oy_all = ((band0 + tiles // tw) * ts).to(dtype) + ts * 0.5
   out = torch.zeros((t_all, f + 1, pix), dtype=dtype, device=dev)
 
   chunk = max(1, (1 << 23) // (mapping.slab_cap * pix))
@@ -304,9 +314,11 @@ def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
 def stream_backward_reference(mapping: StreamMapping,
                               image_tiled: torch.Tensor,
                               g_image_tiled: torch.Tensor,
-                              config: RasterConfig) -> torch.Tensor:
+                              config: RasterConfig, band0: int = 0,
+                              halo: bool = False) -> torch.Tensor:
   """Plain-torch twin of the stream backward kernel: (T*run_cap + 1,
-  slabw) home-major gradient buffer.
+  slabw) home-major gradient buffer ((T + 2*tiles_wide)*run_cap + 1 rows
+  with ``halo``).
 
   Per chunk of tiles and per slab it recomputes the forward (the same
   gathers, rank order, alpha, log transmittance and freeze as
@@ -329,17 +341,17 @@ def stream_backward_reference(mapping: StreamMapping,
   heur = config.compute_point_heuristic
   with_vis = heur or config.compute_visibility
   slabw = slab_width(config, f)
-  r_rows = t_all * mapping.run_cap
+  r_rows = (t_all + (2 * tw if halo else 0)) * mapping.run_cap
 
   slot0, lnc, row0 = _window_slots(mapping)
-  grow0 = window_grad_rows(mapping)
+  grow0 = window_grad_rows(mapping, halo)
   used = mapping.desc.view(t_all, s_all, mapping.w_max, 4)[:, :, 0, 1] > 0
   p = torch.arange(pix, device=dev)
   pxl = ((p % ts).to(dtype) + 0.5 - ts * 0.5)
   pyl = ((p // ts).to(dtype) + 0.5 - ts * 0.5)
   tiles = torch.arange(t_all, device=dev)
   ox_all = ((tiles % tw) * ts).to(dtype) + ts * 0.5
-  oy_all = ((tiles // tw) * ts).to(dtype) + ts * 0.5
+  oy_all = ((band0 + tiles // tw) * ts).to(dtype) + ts * 0.5
   img = image_tiled.to(dtype)
   gimg = g_image_tiled.to(dtype)
   s_total_all = (gimg * img).sum(1)                           # (T, PIX)
@@ -485,21 +497,23 @@ def _kernel():
   lib = load_kernel_library("stream_forward.cu")
   lib.tpu_splat_stream_forward.restype = ctypes.c_int
   lib.tpu_splat_stream_forward.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_stream_forward", 5)
   return lib
 
 
-def stream_forward(mapping: StreamMapping,
-                   config: RasterConfig) -> torch.Tensor:
+def stream_forward(mapping: StreamMapping, config: RasterConfig,
+                   band0: int = 0) -> torch.Tensor:
   """Forward rasterization over a stream mapping: (T, F+1, PIX).
+  ``band0``: the absolute tile band of the mapping's first band (a shard
+  of a band-sharded image; 0 otherwise).
 
   CPU mapping -> ``stream_forward_reference``; CUDA mapping -> the
   ``csrc/stream_forward.cu`` kernel, or an exception."""
   if mapping.table.device.type == "cpu":
-    return stream_forward_reference(mapping, config)
-  out = _launch_forward(mapping, config, True, "stream_forward")
+    return stream_forward_reference(mapping, config, band0)
+  out = _launch_forward(mapping, config, True, "stream_forward", band0)
   launch_counts["stream_forward"] += 1
   return out
 
@@ -534,7 +548,7 @@ def stream_forward_floor(mapping: StreamMapping,
 
 
 def _launch_forward(mapping: StreamMapping, config: RasterConfig,
-                    walk: bool, name: str) -> torch.Tensor:
+                    walk: bool, name: str, band0: int = 0) -> torch.Tensor:
   """Check, plan and launch ``csrc/stream_forward.cu``: the compositing
   kernel, or (``walk`` False) its floor probe."""
   dev = mapping.table.device
@@ -562,7 +576,7 @@ def _launch_forward(mapping: StreamMapping, config: RasterConfig,
         mapping.slab_cap, mapping.rows_per_block, w_pad, f,
         config.tile_size, int(config.antialias),
         int(config.use_alpha_blending), plan.max_features, plan.threads,
-        int(walk), config.alpha_threshold,
+        int(walk), band0, config.alpha_threshold,
         config.clamp_max_alpha, _log_cut(config), config.saturate_threshold,
         stream)
   if err != 0:
@@ -575,24 +589,39 @@ def _bwd_kernel():
   lib = load_kernel_library("stream_backward.cu")
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_float] * 3
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20 + [ctypes.c_float] * 3
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_stream_backward", 6)
+  lib.tpu_splat_halo_merge.restype = ctypes.c_int
+  lib.tpu_splat_halo_merge.argtypes = (
+      [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_void_p])
+  lib.tpu_splat_halo_merge_occupancy.restype = ctypes.c_int
+  lib.tpu_splat_halo_merge_occupancy.argtypes = [
+      ctypes.POINTER(ctypes.c_int)]
   return lib
 
 
 def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
-                    g_image_tiled: torch.Tensor,
-                    config: RasterConfig) -> torch.Tensor:
+                    g_image_tiled: torch.Tensor, config: RasterConfig,
+                    band0: int = 0, halo: bool = False) -> torch.Tensor:
   """Backward rasterization: the (T*run_cap + 1, slabw) home-major
-  gradient buffer of ``stream_forward``'s image cotangent.
+  gradient buffer of ``stream_forward``'s image cotangent.  ``band0`` as
+  in ``stream_forward``; with ``halo`` the buffer holds tiles_high + 2
+  bands of homes, ((T + 2*tiles_wide)*run_cap + 1, slabw): a halo band
+  above the mapping's bands, its own, and a halo band below.  A shard
+  (``band0`` > 0) needs the halo: rows homed outside its own bands belong
+  to its neighbours.
 
   CPU mapping -> ``stream_backward_reference``; CUDA mapping -> the
   ``csrc/stream_backward.cu`` kernel, or an exception."""
+  if band0 != 0 and not halo:
+    raise ValueError("stream_backward: band0 > 0 without halo would drop "
+                     "the rows homed in the neighbouring shards")
   dev = mapping.table.device
   if dev.type == "cpu":
     return stream_backward_reference(mapping, image_tiled, g_image_tiled,
-                                     config)
+                                     config, band0, halo)
   if dev.type != "cuda":
     raise ValueError(f"stream_backward: unsupported device {dev}")
   if not config.use_alpha_blending:
@@ -621,8 +650,9 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
              f"{mapping.w_max}, {f} features, {slabw} gradient columns, "
              f"{pix} pixels")
   lib = _bwd_kernel()
-  out = torch.zeros((t * mapping.run_cap + 1, slabw), dtype=torch.float32,
-                    device=dev)
+  bands = t + (2 * mapping.tiles_wide if halo else 0)
+  out = torch.zeros((bands * mapping.run_cap + 1, slabw),
+                    dtype=torch.float32, device=dev)
   with launch_stream(dev) as stream:
     err = lib.tpu_splat_stream_backward(
         mapping.table.data_ptr(), mapping.desc.data_ptr(),
@@ -632,10 +662,71 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.w_max, mapping.strip_cap, mapping.slab_cap,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
-        int(heur), plan.max_features, plan.threads, config.alpha_threshold,
-        config.clamp_max_alpha, _log_cut(config), stream)
+        int(heur), plan.max_features, plan.threads, band0, int(halo),
+        config.alpha_threshold, config.clamp_max_alpha, _log_cut(config),
+        stream)
   if err != 0:
     raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
                        f"{err}")
   launch_counts["stream_backward"] += 1
   return out
+
+
+def halo_merge_reference(buf: torch.Tensor, tiles_high: int, band_rows: int,
+                         above=None, below=None) -> torch.Tensor:
+  """Plain twin of ``halo_merge``: the same adds with torch, in place."""
+  own = buf[band_rows:(tiles_high + 1) * band_rows]
+  if above is not None:
+    own[:band_rows] += above
+  if below is not None:
+    own[(tiles_high - 1) * band_rows:] += below
+  return own
+
+
+def halo_merge(buf: torch.Tensor, tiles_high: int, band_rows: int,
+               above=None, below=None) -> torch.Tensor:
+  """K3's halo mode: a shard's merged own bands, in place.
+
+  ``buf`` is the shard's ``stream_backward(..., halo=True)`` buffer of
+  ``tiles_high + 2`` bands of ``band_rows`` (tiles_wide * run_cap) rows,
+  then the zero row.  ``above`` is the bottom halo band of the shard above
+  (rows homed in this shard's first own band by its tiles), ``below`` the
+  top halo band of the shard below; either may be None (no peer: the
+  reference's ``ppermute`` zeros).  Adds them into the first and the last
+  own band (both, above first, where the shard has one band) and returns
+  the own bands, rows [band_rows, (tiles_high + 1) * band_rows) of ``buf``.
+
+  CPU buffer -> ``halo_merge_reference``; CUDA buffer -> the
+  ``csrc/stream_backward.cu`` halo merge kernel, or an exception."""
+  dev = buf.device
+  if dev.type == "cpu":
+    return halo_merge_reference(buf, tiles_high, band_rows, above, below)
+  if dev.type != "cuda":
+    raise ValueError(f"halo_merge: unsupported device {dev}")
+  if buf.dtype != torch.float32 or not buf.is_contiguous():
+    raise TypeError("halo_merge: buf must be a contiguous float32 tensor")
+  if buf.dim() != 2 or buf.shape[0] < (tiles_high + 2) * band_rows:
+    raise ValueError(f"halo_merge: buf shape {tuple(buf.shape)} holds no "
+                     f"{tiles_high} + 2 bands of {band_rows} rows")
+  band = (band_rows, buf.shape[1])
+  for name, x in (("above", above), ("below", below)):
+    if x is None:
+      continue
+    if x.device != dev or x.dtype != torch.float32 or (
+        tuple(x.shape) != band) or not x.is_contiguous():
+      raise ValueError(f"halo_merge: {name} must be a contiguous float32 "
+                       f"{band} tensor on {dev}, got {tuple(x.shape)} "
+                       f"{x.dtype} on {x.device}")
+  own = buf[band_rows:(tiles_high + 1) * band_rows]
+  if above is None and below is None:
+    return own
+  lib = _bwd_kernel()
+  with launch_stream(dev) as stream:
+    err = lib.tpu_splat_halo_merge(
+        own.data_ptr(), None if above is None else above.data_ptr(),
+        None if below is None else below.data_ptr(),
+        band_rows * buf.shape[1], tiles_high, stream)
+  if err != 0:
+    raise RuntimeError(f"halo_merge kernel launch failed: CUDA error {err}")
+  launch_counts["halo_merge"] += 1
+  return own
