@@ -9,7 +9,7 @@ Phases (any failure raises and exits non-zero):
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2
    with the halo merge, the sorted forward K4 and backward K5, the layout
-   kernels K6, K7 and the row-gather probe)
+   kernels K6, K7 and the row-gather probe, the exp_mosaic probes T1-T4)
    and prints each kernel instantiation's registers and spills (K2's and
    K5's as <most features, reduction width V>; the generic
    instantiations, which take any feature count and tile, as
@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero):
    shared-memory formulas (Python) against the kernels' own ``*_smem``
    entries (C) over a grid of feature counts, tiles and capacities; and
    that the floor probes of K1 and K4 (their walk taken out) kept their
-   staging loads and shared stores in the SASS (``cuobjdump -sass``).
+   staging loads and shared stores in the SASS (``cuobjdump -sass``), and
+   that T3's kernel and T4's bulk instantiation kept a bulk asynchronous
+   copy (the SASS opcode found is printed; T4's loads instantiation has
+   none).
 2. Kernels against their plain twins on the card: 200k splats at
    1024x768 (``scenes.uniform_scene``; K1 in blending, antialias and
    quantile modes, K2 in blending, antialias and heuristics + visibility
@@ -125,15 +128,28 @@ Phases (any failure raises and exits non-zero):
    a one-device loop over the same cameras; two ``make_train_step`` steps
    (finite loss, the first equal to the checked loss; ms and peak
    memory); and ``dryrun_multichip(4, devices=[cuda:0] * 4)``.
+8. The data-movement probes of ``benchmarks/exp_mosaic.py``
+   (``tpu_splatting_torch.benchmarks.exp_mosaic``), on no path: on the
+   probes' own inputs each kernel and instantiation bit for bit its twin
+   and the probe's expect; then at 12,288 blocks (one per tile of the
+   headline at tile 16), each bit for bit its twin, timed by events and by
+   device time in turns with what it is compared with: T1 staged against
+   direct, T2 against the copy of the reshaped view, T3 against K6
+   (``layout.window_copy`` with full counts, also bit for bit), T4's bulk
+   copy against per-thread loads; with the twin's time, torch indexing
+   (T1, T3), the bound (the rows needed read once, the offsets, the
+   output) and the resident warps per SM.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
 full shapes (K1 and K2 with their band-sharded launches and errors, the
 halo merge with the band-sharded run's launches and its device time,
 K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
-K5 with its run-to-run difference, and the two floor probes and the
-row-gather probe, which lie on no path: ``main_path`` false,
-``launches`` read from their counters after the main path's run), and
+K5 with its run-to-run difference, and the two floor probes, the
+row-gather probe and the four exp_mosaic probes (each second
+instantiation's times as fields of their own), which lie on no path:
+``main_path`` false, ``launches`` read from their counters after the
+main path's run), and
 ``{"ok": true, "device": ...}``.  The
 walked shares are the plain footprint model's estimate over the mapping,
 printed in the log and not in the kernels line: the kernels do not count
@@ -205,6 +221,9 @@ def device_ms(fn, reps=20, kernels=None):
   return sum(device_split(fn, reps, kernels).values())
 
 
+SPIN_CYCLES = 50_000   # device_split's session bounds: ~25 us each
+
+
 def device_split(fn, reps=20, kernels=None, attempts=5):
   """{CUDA kernel name: its device ms per fn() call}, under torch.profiler
   over reps calls.  A profiling session on the card's machine now and then
@@ -213,7 +232,10 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
   ran a whole multiple of reps times (every call launches the same
   kernels) and, where the caller gives ``kernels`` (the device operations
   one call launches), reps * kernels times in all.  A session that fails
-  is run again, up to ``attempts`` times; then this raises."""
+  is run again, up to ``attempts`` times; then this raises.  Late in a
+  long run, every session lost one record of the 4-microsecond halo
+  merge; a spin kernel (``torch.cuda._sleep``) before and after the timed
+  calls, left out of the counts and times, ended those losses."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
@@ -222,12 +244,14 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
   for _ in range(attempts):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+      torch.cuda._sleep(SPIN_CYCLES)
       for _ in range(reps):
         fn()
+      torch.cuda._sleep(SPIN_CYCLES)
       torch.cuda.synchronize()
     us, count = {}, {}
     for e in prof.events():
-      if e.device_type == DeviceType.CUDA:
+      if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
         us[e.name] = us.get(e.name, 0.0) + e.device_time_total
         count[e.name] = count.get(e.name, 0) + 1
     whole = bool(count) and all(k % reps == 0 for k in count.values())
@@ -421,7 +445,8 @@ def backward_vs_twin(mapping, config, label, reps=3):
 
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
            "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
-           "K6, K7, row_gather": "layout.cu"}
+           "K6, K7, row_gather": "layout.cu",
+           "T1-T4 (exp_mosaic probes)": "exp_mosaic.cu"}
 # f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
 # count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
 K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
@@ -432,7 +457,8 @@ def entry_label(ptxas_line):
   'Compiling entry function' line (or a SASS 'Function :' line)."""
   m = re.search(r"\d([A-Za-z_]+_kernel)I(.+?)EEv", ptxas_line)
   if m is None:
-    return ptxas_line.strip()
+    m = re.search(r"\d([A-Za-z_]+_kernel)E", ptxas_line)
+    return m.group(1) if m else ptxas_line.strip()
   args = [v if k == "i" else ("true" if v == "1" else "false")
           for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))] or [
       {"j": "uint32", "m": "uint64", "f": "float", "d": "double"}.get(
@@ -440,9 +466,9 @@ def entry_label(ptxas_line):
   return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def sass_counts(lib):
-  """{kernel label: (global loads, shared stores)} in the SASS of a built
-  library (``cuobjdump -sass``)."""
+def sass_functions(lib):
+  """{kernel label: its SASS lines} of a built library (``cuobjdump
+  -sass``)."""
   import shutil
   tool = next((c for c in (shutil.which("cuobjdump"),
                            "/usr/local/cuda/bin/cuobjdump")
@@ -450,15 +476,42 @@ def sass_counts(lib):
   assert tool, "cuobjdump not found"
   sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
                         text=True, check=True).stdout
-  counts, name = {}, None
+  functions, name = {}, None
   for line in sass.splitlines():
     if "Function :" in line:
       name = entry_label(line)
-      counts[name] = [0, 0]
+      functions[name] = []
     elif name is not None:
-      counts[name][0] += bool(re.search(r"\bLDG\b", line))
-      counts[name][1] += bool(re.search(r"\bSTS\b", line))
-  return counts
+      functions[name].append(line)
+  return functions
+
+
+def sass_counts(lib):
+  """{kernel label: (global loads, shared stores)} in the SASS of a built
+  library."""
+  return {name: [sum(bool(re.search(p, line)) for line in lines)
+                 for p in (r"\bLDG\b", r"\bSTS\b")]
+          for name, lines in sass_functions(lib).items()}
+
+
+def check_bulk_sass():
+  """T3's kernel and T4's bulk instantiation still issue a bulk
+  asynchronous copy (a UBLK* / UTMA* opcode in their SASS), and T4's
+  per-thread-loads instantiation issues none.  Returns {kernel: the
+  opcodes found}."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  functions = sass_functions(em._kernel())
+  found = {k: sorted({m.group(1) for line in functions[k]
+                      for m in [re.search(r"\b((?:UBLK|UTMA)[A-Z0-9_.]*)",
+                                          line)] if m})
+           for k in ("double_block_window_kernel",
+                     "dma_residue_sum_kernel<true>",
+                     "dma_residue_sum_kernel<false>")}
+  log(f"  bulk-copy opcodes in the SASS: {found}")
+  assert found["double_block_window_kernel"], found
+  assert found["dma_residue_sum_kernel<true>"], found
+  assert not found["dma_residue_sum_kernel<false>"], found
+  return found
 
 
 def check_floor_sass():
@@ -583,6 +636,7 @@ def phase_device():
       elif "registers" in line or "spill" in line:
         log(f"    ptxas: {line.strip()}")
   check_floor_sass()
+  check_bulk_sass()
   return card, phase_plans()
 
 
@@ -2127,6 +2181,211 @@ def phase_sharded(dev, g3d, cams, cfg_caps, shard_checks, phase2_out):
 
 
 
+# phase 8: one block per tile of the 2048x1536 headline at tile 16
+MOSAIC_BLOCKS = (SIZE_FULL[0] // 16) * (SIZE_FULL[1] // 16)
+
+
+def mosaic_at_scale(dev):
+  """Phase 8's inputs at scale, from a seed: {probe: its arguments}.  T1
+  (12,288, 256, 16) f32 blocks with d uniform in [-256, 256), so starts
+  wrap and clamp; T2 a (786,432, 128) table to rows of 16; T3 a
+  (2,097,152, 16) table, g 128, src uniform in [0, P - g); T4 a
+  (262,144, 128) table (2,097,152 rows of 16 packed 8 a row), s uniform
+  in [0, R - 64]."""
+  b = MOSAIC_BLOCKS
+  gen = torch.Generator(device=dev).manual_seed(8)
+  rng = np.random.default_rng(8)
+
+  def table(*shape):
+    return torch.rand(shape, generator=gen, device=dev)
+
+  def ints(lo, hi):
+    return torch.from_numpy(rng.integers(lo, hi, b).astype(np.int32)).to(dev)
+  return {"T1": (table(b, 256, 16), ints(-256, 256), 128),
+          "T2": (table(b * 64, 128), 16),
+          "T3": (table(2_097_152, 16), ints(0, 2_097_152 - 128), 128),
+          "T4": (table(262_144, 128), ints(0, 262_144 - 64 + 1), 64)}
+
+
+def rows_needed(starts, width, total):
+  """Distinct rows of a ``total``-row table that windows of ``width`` rows
+  at ``starts`` (int32) read."""
+  mark = torch.zeros(total, dtype=torch.bool, device=starts.device)
+  mark[(starts.long()[:, None] + torch.arange(width, device=starts.device))
+       .reshape(-1)] = True
+  return int(mark.sum())
+
+
+def timed_in_turns(fns):
+  """{name: (ms a call by events over 5 calls, device ms a call)} of two
+  versions of one function, measured in turns (a, b, b, a); each time the
+  mean of its two readings."""
+  names = list(fns) + list(fns)[::-1]
+  got = {k: ([], []) for k in fns}
+  for k in names:
+    got[k][0].append(cuda_ms(fns[k], 5))
+    got[k][1].append(device_ms(fns[k]))
+  for k, (ms, dev_ms) in got.items():
+    log(f"    {k}: a call {ms[0]:.4f} / {ms[1]:.4f} ms, device "
+        f"{dev_ms[0]:.4f} / {dev_ms[1]:.4f} ms")
+  return {k: (sum(ms) / 2, sum(dev_ms) / 2) for k, (ms, dev_ms) in
+          got.items()}
+
+
+def phase_mosaic(dev, launches):
+  """Phase 8: the data-movement probes of ``benchmarks/exp_mosaic.py``.
+  Each kernel and instantiation bit for bit its twin and the probe's own
+  expect on the probe's inputs, then at 12,288 blocks against its twin
+  and timed: T1 staged against direct, T2 against the copy of the view,
+  T3 against K6 (``layout.window_copy`` with full counts, bit for bit),
+  T4 bulk against loads.  ``launches``: the probes' counts after the main
+  path's run.  Returns the four entries of the kernels line."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  from tpu_splatting_torch.rasterizer import layout
+  log("phase 8: the exp_mosaic probes")
+  t_phase = time.perf_counter()
+  for key, (args, expect) in em.probe_inputs(dev).items():
+    label, fn, variants = em.PROBES[key]
+    want = getattr(em, fn.__name__ + "_reference")(*args)
+    for kw in variants:
+      got = fn(*args, **kw)
+      torch.cuda.synchronize()
+      assert torch.equal(got, want), (key, kw)
+      assert np.array_equal(got.cpu().numpy(), expect), (key, kw)
+    log(f"  {label}: OK ({len(variants)} instantiation"
+        f"{'s' if len(variants) > 1 else ''}, bit for bit the twin and the "
+        "probe's expect)")
+
+  big = mosaic_at_scale(dev)
+  entries = {}
+  src = "tpu_splatting_torch/csrc/exp_mosaic.cu"
+
+  def entry(name, line, probe_of, err, fn_ms, plain, b, lib, occ, **extra):
+    return dict(name=name, route="cuda", source=src,
+                replaces=f"benchmarks/exp_mosaic.py:{line}",
+                launches=launches[name], max_abs_err=err, ms=fn_ms[0],
+                device_ms=fn_ms[1], plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None if lib is None else lib[0],
+                library_device_ms=None if lib is None else lib[1],
+                resident_warps_per_sm=occ["warps_per_sm"], main_path=False,
+                probe_of=probe_of, **extra)
+
+  def held(got, want, label):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    assert torch.equal(got, want), f"{label} differs from its twin"
+    return float((got - want).abs().max())
+
+  # T1: staged against direct; torch indexing by a precomputed row index
+  x, d, n = big["T1"]
+  b, r, c = x.shape
+  want = em.dynamic_slice_rows_reference(x, d, n)
+  err = max(held(em.dynamic_slice_rows(x, d, n, staged=s), want,
+                 f"T1 staged={s}") for s in (True, False))
+  flat = ((torch.arange(b, device=dev) * r + em.slice_starts(d, r, n))[:, None]
+          + torch.arange(n, device=dev)).reshape(-1)
+  xf = x.reshape(-1, c)
+  assert torch.equal(xf[flat], want.reshape(-1, c))
+  log(f"  T1 at {tuple(x.shape)}, n {n}: staged and direct bit for bit the "
+      "twin")
+  t = timed_in_turns({
+      "staged": lambda: em.dynamic_slice_rows(x, d, n, staged=True),
+      "direct": lambda: em.dynamic_slice_rows(x, d, n, staged=False)})
+  lib = (cuda_ms(lambda: xf[flat], 5), device_ms(lambda: xf[flat]))
+  plain = cuda_ms(lambda: em.dynamic_slice_rows_reference(x, d, n), 5)
+  bound = bound_ms(0, 2 * nbytes(want) + nbytes(d))
+  occ = {k: em.occupancy(f"T1 {k}", r * c * 4 if k == "staged" else 0)
+         for k in ("staged", "direct")}
+  log(f"  T1: torch indexing a call {lib[0]:.4f} ms, device {lib[1]:.4f}; "
+      f"twin {plain:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); device "
+      f"time at {bound[0] / t['staged'][1]:.1%} (staged), "
+      f"{bound[0] / t['direct'][1]:.1%} (direct) of it; resident warps "
+      f"{occ['staged']['warps_per_sm']} / {occ['direct']['warps_per_sm']}")
+  entries["T1"] = entry(
+      "dynamic_slice_rows", 26, "window_copy", err, t["staged"], plain,
+      bound, lib, occ["staged"], instantiation="staged",
+      direct_ms=t["direct"][0], direct_device_ms=t["direct"][1],
+      direct_resident_warps_per_sm=occ["direct"]["warps_per_sm"])
+  del x, d, want, flat, xf
+
+  # T2: the shuffle relayout against the copy of the reshaped view
+  x, w = big["T2"]
+  want = em.reshape_rows_reference(x, w)
+  err = held(em.reshape_rows(x, w), want, "T2")
+  t = timed_in_turns({"kernel": lambda: em.reshape_rows(x, w),
+                      "clone": lambda: x.reshape(-1, w).clone()})
+  plain = cuda_ms(lambda: em.reshape_rows_reference(x, w), 5)
+  bound = bound_ms(0, 2 * nbytes(x))
+  occ = em.occupancy("T2", 0)
+  log(f"  T2 {tuple(x.shape)} -> {tuple(want.shape)}: bit for bit the twin;"
+      f" twin {plain:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); device "
+      f"time at {bound[0] / t['kernel'][1]:.1%} of it ("
+      f"{occ['registers']} registers, {occ['local_bytes']} local bytes, "
+      f"{occ['warps_per_sm']} warps resident)")
+  entries["T2"] = entry("reshape_rows", 43, "stream_forward", err,
+                        t["kernel"], plain, bound, t["clone"], occ)
+  del x, want
+
+  # T3: against K6 with full counts, bit for bit and timed
+  x, s3, g = big["T3"]
+  want = em.double_block_window_reference(x, s3, g)
+  err = held(em.double_block_window(x, s3, g), want, "T3")
+  cnt = torch.full_like(s3, g)
+  assert torch.equal(layout.window_copy(x, s3, cnt, g),
+                     want.reshape(-1, x.shape[1])), "T3 differs from K6"
+  idx = s3.long()[:, None] + torch.arange(g, device=dev)
+  assert torch.equal(x[idx], want)
+  t = timed_in_turns({
+      "T3": lambda: em.double_block_window(x, s3, g),
+      "K6 window_copy": lambda: layout.window_copy(x, s3, cnt, g)})
+  lib = (cuda_ms(lambda: x[idx], 5), device_ms(lambda: x[idx]))
+  plain = cuda_ms(lambda: em.double_block_window_reference(x, s3, g), 5)
+  need = rows_needed(s3, g, x.shape[0])
+  bound = bound_ms(0, need * x.shape[1] * 4 + nbytes(want, s3))
+  occ = em.occupancy("T3", 2 * g * x.shape[1] * 4)
+  log(f"  T3 at {tuple(x.shape)}, {s3.shape[0]} windows of {g}: bit for "
+      f"bit the twin and K6; {need} rows needed; torch indexing a call "
+      f"{lib[0]:.4f} ms, device {lib[1]:.4f}; twin {plain:.4f} ms; bound "
+      f"{bound[0]:.4f} ms ({bound[1]}); device time at "
+      f"{bound[0] / t['T3'][1]:.1%} (T3), "
+      f"{bound[0] / t['K6 window_copy'][1]:.1%} (K6) of it; "
+      f"{occ['warps_per_sm']} warps resident")
+  entries["T3"] = entry(
+      "double_block_window", 75, "window_copy", err, t["T3"], plain, bound,
+      lib, occ, window_copy_ms=t["K6 window_copy"][0],
+      window_copy_device_ms=t["K6 window_copy"][1],
+      window_copy_bit_for_bit=True)
+  del x, want, idx
+
+  # T4: one bulk copy a block against per-thread loads
+  x, s4, rows = big["T4"]
+  want = em.dma_residue_sum_reference(x, s4, rows)
+  err = max(held(em.dma_residue_sum(x, s4, rows, bulk=k), want,
+                 f"T4 bulk={k}") for k in (True, False))
+  t = timed_in_turns({
+      "bulk": lambda: em.dma_residue_sum(x, s4, rows, bulk=True),
+      "loads": lambda: em.dma_residue_sum(x, s4, rows, bulk=False)})
+  plain = cuda_ms(lambda: em.dma_residue_sum_reference(x, s4, rows), 5)
+  need = rows_needed(s4, rows, x.shape[0])
+  bound = bound_ms(0, need * x.shape[1] * 4 + nbytes(want, s4))
+  occ = {k: em.occupancy(f"T4 {k}", rows * x.shape[1] * 4)
+         for k in ("bulk", "loads")}
+  log(f"  T4 at {tuple(x.shape)}, {s4.shape[0]} slabs of {rows} rows: bulk "
+      f"and loads bit for bit the twin; {need} rows needed; twin "
+      f"{plain:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); device time at"
+      f" {bound[0] / t['bulk'][1]:.1%} (bulk), "
+      f"{bound[0] / t['loads'][1]:.1%} (loads) of it; resident warps "
+      f"{occ['bulk']['warps_per_sm']} / {occ['loads']['warps_per_sm']}")
+  entries["T4"] = entry(
+      "dma_residue_sum", 98, "stream_forward", err, t["bulk"], plain, bound,
+      None, occ["bulk"], instantiation="bulk", loads_ms=t["loads"][0],
+      loads_device_ms=t["loads"][1],
+      loads_resident_warps_per_sm=occ["loads"]["warps_per_sm"])
+  del x, want, big
+  log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+  return [entries[k] for k in ("T1", "T2", "T3", "T4")]
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -2137,6 +2396,8 @@ def main():
   t_start = time.perf_counter()
   err2, err2b, shard_checks, phase2_out = phase_twin(dev)
   cross_device_check(dev)
+  from tpu_splatting_torch.benchmarks import exp_mosaic
+  exp_mosaic.reset_launch_counts()       # the probes lie on no path: 0
   k1, k1_floor, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
@@ -2148,6 +2409,7 @@ def main():
   del shard_checks, phase2_out
   log(f"phases 2-7: {time.perf_counter() - t_start:.1f} s, phase 7 "
       f"{time.perf_counter() - t_sharded:.1f} s")
+  mosaic_entries = phase_mosaic(dev, dict(exp_mosaic.probe_launch_counts))
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
@@ -2175,7 +2437,8 @@ def main():
       *sorted_entries,
       dict(name="stream_forward_floor", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",
-           probe_of="stream_forward", **k1_floor)]}))
+           probe_of="stream_forward", **k1_floor),
+      *mosaic_entries]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -5,6 +5,7 @@ every test skips.  On the card:  python -m pytest tests/test_torch_gpu.py
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -845,3 +846,105 @@ def test_data_parallel_across_cards(cards, capsys):
                              rtol=1e-4)
   dryrun_multichip(b)
   assert "OK" in capsys.readouterr().out
+
+
+# --- the data-movement probes of benchmarks/exp_mosaic.py -----------------
+
+def finish_within(seconds):
+  """Synchronise the card, failing after ``seconds``: a block whose
+  mbarrier never sees its bytes spins (until the kernel's own 2 s
+  watchdog traps)."""
+  done = torch.cuda.Event()
+  done.record()
+  deadline = time.monotonic() + seconds
+  while not done.query():
+    if time.monotonic() > deadline:
+      pytest.fail(f"the probe kernel did not finish within {seconds} s")
+    time.sleep(0.001)
+  torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("key", ["T1", "T2", "T3", "T4"])
+def test_mosaic_probes_on_their_inputs(cuda, key):
+  """Each probe kernel, every instantiation, bit for bit its twin and the
+  reference probe's own expect, on the probe's inputs; counted once a
+  call as a probe."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  args, expect = em.probe_inputs(cuda)[key]
+  _, fn, variants = em.PROBES[key]
+  twin = getattr(em, fn.__name__ + "_reference")
+  em.reset_launch_counts()
+  for kw in variants:
+    got = fn(*args, **kw)
+    finish_within(30)
+    assert torch.equal(got, twin(*args)), kw
+    assert np.array_equal(got.cpu().numpy(), expect), kw
+  assert em.probe_launch_counts[fn.__name__] == len(variants)
+  assert sum(em.probe_launch_counts.values()) == len(variants)
+
+
+def mosaic_case(dev, key, b=512, seed=0):
+  """A probe's arguments at a mid size, b windows, from a seed."""
+  rng = np.random.default_rng(seed)
+  gen = torch.Generator(device=dev).manual_seed(seed)
+
+  def table(*shape):
+    return torch.randn(shape, generator=gen, device=dev)
+
+  def ints(lo, hi):
+    return torch.from_numpy(rng.integers(lo, hi, b).astype(np.int32)).to(dev)
+  if key == "T1":
+    return table(b, 256, 16), ints(-256, 256), 128
+  if key == "T2":
+    return table(b * 64, 128), 16
+  if key == "T3":
+    return table(b * 128, 16), ints(0, b * 128 - 128), 128
+  return table(b * 64, 128), ints(0, b * 64 - 64 + 1), 64
+
+
+@pytest.mark.parametrize("key, kw", [
+    ("T1", {"staged": True}), ("T1", {"staged": False}),
+    ("T2", {}),
+    ("T3", {}), ("T4", {"bulk": True}), ("T4", {"bulk": False})])
+def test_mosaic_kernels_match_twins(cuda, key, kw):
+  """At 512 windows (T2: a (32768, 128) table), bit for bit against the
+  twin."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  args = mosaic_case(cuda, key)
+  _, fn, _ = em.PROBES[key]
+  got = fn(*args, **kw)
+  finish_within(30)
+  want = getattr(em, fn.__name__ + "_reference")(*args)
+  assert got.shape == want.shape
+  assert torch.equal(got, want)
+
+
+def test_mosaic_window_is_window_copy(cuda):
+  """T3 with every count g is K6: bit for bit layout.window_copy."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  from tpu_splatting_torch.rasterizer import layout
+  x, src, g = mosaic_case(cuda, "T3", seed=1)
+  got = em.double_block_window(x, src, g)
+  finish_within(30)
+  cnt = torch.full_like(src, g)
+  assert torch.equal(got.reshape(-1, x.shape[1]),
+                     layout.window_copy(x, src, cnt, g))
+
+
+def test_mosaic_kernels_reject_bad_inputs(cuda):
+  """What the kernels cannot take raises before a launch."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  em.reset_launch_counts()
+  d = torch.zeros(1, dtype=torch.int32, device=cuda)
+  with pytest.raises(ValueError, match="multiple of 16 bytes"):
+    em.dynamic_slice_rows(torch.zeros((1, 8, 6), device=cuda), d, 4)
+  flat = torch.zeros(1 + 256 * 128, device=cuda)
+  with pytest.raises(ValueError, match="x's address"):
+    em.dma_residue_sum(flat[1:].view(256, 128), d)
+  with pytest.raises(TypeError, match="int32"):
+    em.double_block_window(torch.zeros((256, 16), device=cuda), d.long(), 128)
+  with pytest.raises(ValueError, match="it takes 16"):
+    em.reshape_rows(torch.zeros((4, 12), device=cuda), 12)
+  with pytest.raises(ValueError, match="232448 B"):
+    em.dma_residue_sum(torch.zeros((512, 128), device=cuda), d, rows=500)
+  assert sum(em.probe_launch_counts.values()) == 0
