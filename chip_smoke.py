@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero):
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2
    with the halo merge, the sorted forward K4 and backward K5, the layout
-   kernels K6, K7 and the row-gather probe, the exp_mosaic probes T1-T4)
+   kernels K6, K7 and the row-gather probe, the exp_mosaic probes T1-T4,
+   the exp_pack probes)
    and prints each kernel instantiation's registers and spills (K2's and
    K5's as <most features, reduction width V>; the generic
    instantiations, which take any feature count and tile, as
@@ -139,6 +140,21 @@ Phases (any failure raises and exits non-zero):
    copy against per-thread loads; with the twin's time, torch indexing
    (T1, T3), the bound (the rows needed read once, the offsets, the
    output) and the resident warps per SM.
+9. The packed-table probes of ``benchmarks/exp_pack.py``
+   (``tpu_splatting_torch.benchmarks.exp_pack``), on no path: on the
+   probes' own inputs ``unpack_rows`` (U1, U1b, U2) bit for bit its twin
+   and the probe's ``x.T``, ``slab_relayout`` and ``column_sums`` the
+   twins' zeros on the probes' zero tables; then at scale from a seed,
+   each held to its twin and timed from a flushed L2 (device time by
+   ``device_split`` without the flush's kernel; a device time below the
+   byte bound raises): ``unpack_rows`` at 12,288 blocks of 512 rows (w 16
+   and 11 row-major, 12 column-major; bit for bit) against the copy of
+   the reshaped view, ``slab_relayout`` over 12,288 slabs (flat C 12,
+   packed, flat C 32: the stream table's padded stride; bit for bit, the
+   last slab's block) in turns, and ``column_sums`` over 2M rows in 1,953
+   blocks at W 11, 12, 32 and packed (250,000, 128) against ``x.sum(0)``
+   (within 1e-5 of each column's sum of |x| of the twin, bit for bit a
+   second run).
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -146,8 +162,10 @@ full shapes (K1 and K2 with their band-sharded launches and errors, the
 halo merge with the band-sharded run's launches and its device time,
 K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
 K5 with its run-to-run difference, and the two floor probes, the
-row-gather probe and the four exp_mosaic probes (each second
-instantiation's times as fields of their own), which lie on no path:
+row-gather probe, the four exp_mosaic probes (each second
+instantiation's times as fields of their own) and the ten exp_pack
+entries (one per kernel and width, ``variant`` naming it), which lie on
+no path:
 ``main_path`` false, ``launches`` read from their counters after the
 main path's run), and
 ``{"ok": true, "device": ...}``.  The
@@ -446,7 +464,8 @@ def backward_vs_twin(mapping, config, label, reps=3):
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
            "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
            "K6, K7, row_gather": "layout.cu",
-           "T1-T4 (exp_mosaic probes)": "exp_mosaic.cu"}
+           "T1-T4 (exp_mosaic probes)": "exp_mosaic.cu",
+           "U1-U2, T1, F1 (exp_pack probes)": "exp_pack.cu"}
 # f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
 # count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
 K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
@@ -2216,15 +2235,21 @@ def rows_needed(starts, width, total):
   return int(mark.sum())
 
 
-def timed_in_turns(fns):
-  """{name: (ms a call by events over 5 calls, device ms a call)} of two
-  versions of one function, measured in turns (a, b, b, a); each time the
-  mean of its two readings."""
+def timed_in_turns(fns, flush=None):
+  """{name: (ms a call by events over 5 calls, device ms a call)} of
+  versions of one function, measured in turns (a, b, ..., b, a); each
+  time the mean of its two readings.  ``flush``: (flush, its kernel
+  names) from ``l2_flush``; then each device time is ``device_split`` of
+  (flush, fn) without the flush's kernels, from a flushed L2."""
   names = list(fns) + list(fns)[::-1]
   got = {k: ([], []) for k in fns}
   for k in names:
     got[k][0].append(cuda_ms(fns[k], 5))
-    got[k][1].append(device_ms(fns[k]))
+    if flush is None:
+      got[k][1].append(device_ms(fns[k]))
+    else:
+      split = device_split(lambda: (flush[0](), fns[k]()))
+      got[k][1].append(sum(t for n, t in split.items() if n not in flush[1]))
   for k, (ms, dev_ms) in got.items():
     log(f"    {k}: a call {ms[0]:.4f} / {ms[1]:.4f} ms, device "
         f"{dev_ms[0]:.4f} / {dev_ms[1]:.4f} ms")
@@ -2386,6 +2411,181 @@ def phase_mosaic(dev, launches):
   return [entries[k] for k in ("T1", "T2", "T3", "T4")]
 
 
+# phase 9: a table of 2M rows, as f1_fetch's n, in blocks of s_cap rows
+PACK_N, PACK_S_CAP = 2_000_000, 1024
+
+
+def l2_flush(dev):
+  """(flush, its kernel names): flush() writes a buffer of twice the L2
+  (``bitwise_not_`` of int32, a kernel no probe and no library call of
+  phase 9 launches)."""
+  size = torch.cuda.get_device_properties(dev).L2_cache_size
+  buf = torch.zeros(2 * size // 4, dtype=torch.int32, device=dev)
+
+  def flush():
+    buf.bitwise_not_()
+  return flush, set(device_split(flush, kernels=1))
+
+
+def phase_pack(dev, launches):
+  """Phase 9: the packed-table probes of ``benchmarks/exp_pack.py``.  On
+  the probes' own inputs each kernel, in each order and mode, bit for bit
+  its twin and the probe's expect; then at scale from a seed, each held
+  to its twin and timed from a flushed L2 beside its bound (a device time
+  below the bound raises: slabs would have gone unread): unpack_rows at
+  12,288 blocks of 512 rows (w 16 and 11 row-major, 12 column-major)
+  against the copy of the reshaped view, slab_relayout over 12,288 slabs
+  (flat C 12, packed, flat C 32 as the stream table's padded stride) in
+  turns, column_sums over 2M rows in 1,953 blocks (W 11, 12, 32 and
+  packed) against ``x.sum(0)``, within 1e-5 of each column's sum of |x|
+  and bit for bit a second run.  ``launches``: the probes' counts after
+  the main path's run.  Returns the ten entries of the kernels line."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  log("phase 9: the exp_pack probes")
+  t_phase = time.perf_counter()
+  for label, (xp, w, order), expect in ep.unpack_inputs(dev).values():
+    got = ep.unpack_rows(xp, w, order)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ep.unpack_rows_reference(xp, w, order)), label
+    assert np.array_equal(got.cpu().numpy(), expect), label
+    log(f"  {label}: OK (bit for bit the twin and the probe's x.T)")
+  steps = MOSAIC_BLOCKS
+  for packed, shape in ((False, (steps * 512, 12)), (True, (steps * 64, 128))):
+    x = torch.zeros(shape, device=dev)
+    assert torch.equal(ep.slab_relayout(x, packed),
+                       torch.zeros((12, 128), device=dev)), packed
+  for shape, rows in (((PACK_N, 12), PACK_S_CAP),
+                      ((PACK_N // 8, 128), PACK_S_CAP // 8)):
+    x = torch.zeros(shape, device=dev)
+    assert torch.equal(ep.column_sums(x, rows),
+                       torch.zeros((1, shape[1]), device=dev)), shape
+  del x
+  log(f"  T1 ({steps} slabs) and F1 (n {PACK_N}) on the probes' zero "
+      "tables: the twins' zeros, flat and packed")
+
+  flush = l2_flush(dev)
+  gen = torch.Generator(device=dev).manual_seed(9)
+  src = "tpu_splatting_torch/csrc/exp_pack.cu"
+  entries = []
+
+  def entry(name, variant, line, err, fn_ms, plain, b, lib, occ, **extra):
+    entries.append(dict(
+        name=name, variant=variant, route="cuda", source=src,
+        replaces=f"benchmarks/exp_pack.py:{line}", launches=launches[name],
+        max_abs_err=err, ms=fn_ms[0], device_ms=fn_ms[1], plain_ms=plain,
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=None if lib is None else lib[0],
+        library_device_ms=None if lib is None else lib[1],
+        resident_warps_per_sm=occ["warps_per_sm"], main_path=False,
+        probe_of="stream_forward", **extra))
+
+  def above_bound(label, device, bound):
+    assert device >= bound[0], (
+        f"{label}: device time {device:.4f} ms below its bound "
+        f"{bound[0]:.4f} ms: some of its input went unread")
+
+  # unpack_rows against the copy of the reshaped (or permuted) view
+  for key, w, order, line in (("U1", 16, "row", 53), ("U1b", 11, "row", 76),
+                              ("U2", 12, "col", 100)):
+    xp = torch.rand((MOSAIC_BLOCKS, 64, 8 * w), generator=gen, device=dev)
+    want = ep.unpack_rows_reference(xp, w, order)
+    got = ep.unpack_rows(xp, w, order)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"unpack_rows {key} differs from its twin"
+    del got
+    b = xp.shape[0]
+    if order == "row":
+      view = xp.reshape(b, 512, w).transpose(1, 2)
+    else:
+      view = xp.reshape(b, 64, w, 8).permute(0, 2, 1, 3)
+    t = timed_in_turns({
+        "kernel": lambda: ep.unpack_rows(xp, w, order),
+        "library": lambda: view.contiguous()}, flush)
+    plain = cuda_ms(lambda: ep.unpack_rows_reference(xp, w, order), 5)
+    bound = bound_ms(0, 2 * nbytes(xp))
+    occ = ep.occupancy(f"unpack_rows {order}", ep.unpack_smem(64, w))
+    above_bound(f"unpack_rows {key}", t["kernel"][1], bound)
+    log(f"  unpack_rows {key} (w {w}, {order}) at {tuple(xp.shape)}: bit for "
+        f"bit the twin; twin {plain:.4f} ms; bound {bound[0]:.4f} ms "
+        f"({bound[1]}); device time at {bound[0] / t['kernel'][1]:.1%} "
+        f"(kernel), {bound[0] / t['library'][1]:.1%} (library) of it; "
+        f"{occ['registers']} registers, {occ['local_bytes']} local bytes, "
+        f"{occ['warps_per_sm']} warps resident")
+    entry("unpack_rows", f"{key} w {w} {order}", line, 0.0, t["kernel"],
+          plain, bound, t["library"], occ)
+    del xp, want, view
+
+  # slab_relayout: flat C 12, packed, flat at the stream table's stride
+  slabs = {"flat C 12": (torch.rand((steps * 512, 12), generator=gen,
+                                    device=dev), False, 130),
+           "packed": (torch.rand((steps * 64, 128), generator=gen,
+                                 device=dev), True, 138),
+           "flat C 32": (torch.rand((steps * 512, 32), generator=gen,
+                                    device=dev), False, 130)}
+  for k, (x, packed, _) in slabs.items():
+    assert torch.equal(ep.slab_relayout(x, packed),
+                       ep.slab_relayout_reference(x, packed)), k
+  t = timed_in_turns({k: (lambda x=x, p=p: ep.slab_relayout(x, p))
+                      for k, (x, p, _) in slabs.items()}, flush)
+  others = {}
+  for k, (x, packed, line) in slabs.items():
+    plain = cuda_ms(lambda: ep.slab_relayout_reference(x, packed), 5)
+    bound = bound_ms(0, nbytes(x) + 12 * 128 * 4)
+    occ = ep.occupancy(f"slab_relayout {'packed' if packed else 'flat'}",
+                       ep.slab_smem(x.shape[1], packed))
+    above_bound(f"slab_relayout {k}", t[k][1], bound)
+    log(f"  slab_relayout {k} at {tuple(x.shape)}: bit for bit the twin (the "
+        f"last slab's block); twin {plain:.4f} ms; bound {bound[0]:.4f} ms "
+        f"({bound[1]}); device time at {bound[0] / t[k][1]:.1%} of it; "
+        f"{occ['registers']} registers, {occ['warps_per_sm']} warps resident")
+    others[k] = dict(ms=t[k][0], device_ms=t[k][1])
+    entry("slab_relayout", k, line, 0.0, t[k], plain, bound, None, occ)
+  for e in entries[-3:]:
+    e["in_turns_with"] = {k: v for k, v in others.items()
+                          if k != e["variant"]}
+  del slabs
+
+  # column_sums over the covered rows against x.sum(0)
+  for k, w, rows, line in (("flat W 12", 12, PACK_S_CAP, 169),
+                           ("packed", 128, PACK_S_CAP // 8, 177),
+                           ("dense W 11", 11, PACK_S_CAP, 169),
+                           ("padded W 32", 32, PACK_S_CAP, 169)):
+    n = PACK_N // 8 if w == 128 else PACK_N
+    x = torch.randn((n, w), generator=gen, device=dev)
+    g = n // rows
+    covered = x[:g * rows]
+    got = ep.column_sums(x, rows)
+    again = ep.column_sums(x, rows)
+    want = ep.column_sums_reference(x, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), f"column_sums {k}: two runs differ"
+    scale = covered.abs().sum(0, keepdim=True)
+    err = float((got - want).abs().max())
+    assert bool(((got - want).abs() <= 1e-5 * scale).all()), (k, err)
+    t = timed_in_turns({
+        "kernel": lambda: ep.column_sums(x, rows),
+        "library": lambda: covered.sum(0)}, flush)
+    plain = cuda_ms(lambda: ep.column_sums_reference(x, rows), 5)
+    bound = bound_ms(covered.numel(), nbytes(covered) + 4 * w)
+    occ = ep.occupancy("column_partials", 0)
+    above_bound(f"column_sums {k}", t["kernel"][1], bound)
+    split = device_split(lambda: ep.column_sums(x, rows), kernels=2)
+    log(f"  column_sums {k} at {tuple(x.shape)}, {g} blocks of {rows} rows: "
+        f"within 1e-5 of each column's sum of |x| of the twin (max abs "
+        f"{err:.3e}), bit for bit a second run; twin {plain:.4f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); device time at "
+        f"{bound[0] / t['kernel'][1]:.1%} (kernel), "
+        f"{bound[0] / t['library'][1]:.1%} (x.sum(0)) of it; the passes "
+        + ", ".join(f"{short_kernel_name(n)} {v:.4f}" for n, v in
+                    split.items())
+        + f" ms; {occ['warps_per_sm']} warps resident")
+    entry("column_sums", k, line, err, t["kernel"], plain, bound,
+          t["library"], occ, blocks=g, deterministic=True)
+    del x, covered
+  log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+  return entries
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -2396,8 +2596,9 @@ def main():
   t_start = time.perf_counter()
   err2, err2b, shard_checks, phase2_out = phase_twin(dev)
   cross_device_check(dev)
-  from tpu_splatting_torch.benchmarks import exp_mosaic
+  from tpu_splatting_torch.benchmarks import exp_mosaic, exp_pack
   exp_mosaic.reset_launch_counts()       # the probes lie on no path: 0
+  exp_pack.reset_launch_counts()
   k1, k1_floor, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
@@ -2410,6 +2611,7 @@ def main():
   log(f"phases 2-7: {time.perf_counter() - t_start:.1f} s, phase 7 "
       f"{time.perf_counter() - t_sharded:.1f} s")
   mosaic_entries = phase_mosaic(dev, dict(exp_mosaic.probe_launch_counts))
+  pack_entries = phase_pack(dev, dict(exp_pack.probe_launch_counts))
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
@@ -2438,7 +2640,7 @@ def main():
       dict(name="stream_forward_floor", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",
            probe_of="stream_forward", **k1_floor),
-      *mosaic_entries]}))
+      *mosaic_entries, *pack_entries]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -948,3 +948,120 @@ def test_mosaic_kernels_reject_bad_inputs(cuda):
   with pytest.raises(ValueError, match="232448 B"):
     em.dma_residue_sum(torch.zeros((512, 128), device=cuda), d, rows=500)
   assert sum(em.probe_launch_counts.values()) == 0
+
+
+# --- the packed-table probes of benchmarks/exp_pack.py --------------------
+
+@pytest.mark.parametrize("key", ["U1", "U1b", "U2"])
+def test_pack_probes_on_their_inputs(cuda, key):
+  """unpack_rows bit for bit its twin and the probe's own expect (x.T) on
+  the probe's inputs; counted once a call as a probe."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  _, (xp, w, order), expect = ep.unpack_inputs(cuda)[key]
+  ep.reset_launch_counts()
+  got = ep.unpack_rows(xp, w, order)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ep.unpack_rows_reference(xp, w, order))
+  assert np.array_equal(got.cpu().numpy(), expect)
+  assert ep.probe_launch_counts == {"unpack_rows": 1, "slab_relayout": 0,
+                                    "column_sums": 0}
+
+
+@pytest.mark.parametrize("w, order", [(16, "row"), (11, "row"), (12, "col"),
+                                      (12, "row"), (16, "col"), (11, "col"),
+                                      (7, "row"), (32, "col")])
+@pytest.mark.parametrize("p", [64, 37])
+def test_unpack_rows_kernel_matches_twin(cuda, w, order, p):
+  """Every order at the probes' widths and others, 300 blocks, bit for
+  bit the twin."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  gen = torch.Generator(device=cuda).manual_seed(w * p)
+  xp = torch.randn((300, p, 8 * w), generator=gen, device=cuda)
+  got = ep.unpack_rows(xp, w, order)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ep.unpack_rows_reference(xp, w, order))
+
+
+@pytest.mark.parametrize("c, packed", [(12, False), (32, False), (13, False),
+                                       (128, True)])
+@pytest.mark.parametrize("slabs", [1, 3, 1000])
+def test_slab_relayout_kernel_matches_twin(cuda, c, packed, slabs):
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  rows = 64 if packed else 512
+  gen = torch.Generator(device=cuda).manual_seed(c + slabs)
+  x = torch.randn((slabs * rows, c), generator=gen, device=cuda)
+  got = ep.slab_relayout(x, packed)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ep.slab_relayout_reference(x, packed))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_slab_relayout_is_the_last_slab(cuda, packed):
+  """Every slab but the last holds NaN: the result is the last slab's
+  block, whatever order the blocks ran in."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  rows, c = (64, 128) if packed else (512, 12)
+  x = torch.full((500 * rows, c), float("nan"), device=cuda)
+  x[-rows:] = torch.arange(rows * c, dtype=torch.float32,
+                           device=cuda).reshape(rows, c)
+  got = ep.slab_relayout(x, packed)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all()
+  assert torch.equal(got, ep.slab_relayout_reference(x[-rows:], packed))
+
+
+COLUMN_CASES = [(12, 1024), (11, 1024), (32, 1024), (128, 128), (300, 64),
+                (12, 1000)]
+
+
+@pytest.mark.parametrize("w, rows", COLUMN_CASES)
+def test_column_sums_kernel_matches_twin(cuda, w, rows):
+  """Within 1e-5 of each column's sum of |x| of the twin; the tail rows
+  (NaN here) are not read."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  gen = torch.Generator(device=cuda).manual_seed(w + rows)
+  g = 37
+  x = torch.randn((g * rows + rows // 2, w), generator=gen, device=cuda)
+  x[g * rows:] = float("nan")
+  got = ep.column_sums(x, rows)
+  torch.cuda.synchronize()
+  want = ep.column_sums_reference(x[:g * rows], rows)
+  scale = x[:g * rows].abs().sum(0, keepdim=True)
+  assert got.shape == (1, w) and torch.isfinite(got).all()
+  assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("w, rows", COLUMN_CASES[:5])
+def test_column_sums_kernel_is_deterministic(cuda, w, rows):
+  """Two runs on the same table agree bit for bit (no atomics)."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  gen = torch.Generator(device=cuda).manual_seed(7 * w)
+  x = torch.randn((1953 * rows // 8, w), generator=gen, device=cuda)
+  a = ep.column_sums(x, rows // 8)
+  b = ep.column_sums(x, rows // 8)
+  torch.cuda.synchronize()
+  assert torch.equal(a, b)
+
+
+def test_pack_kernels_reject_bad_inputs(cuda):
+  """What the kernels cannot take raises before a launch."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  ep.reset_launch_counts()
+  flat = torch.zeros(1 + 4 * 64 * 128, device=cuda)
+  with pytest.raises(ValueError, match="x's address"):
+    ep.unpack_rows(flat[1:].view(4, 64, 128), 16)
+  with pytest.raises(ValueError, match="x's address"):
+    ep.slab_relayout(flat[1:].view(256, 128), packed=True)
+  with pytest.raises(ValueError, match="232448 B"):
+    ep.unpack_rows(torch.zeros((1, 1024, 128), device=cuda), 16)
+  with pytest.raises(ValueError, match="232448 B"):
+    ep.slab_relayout(torch.zeros((512, 200), device=cuda))
+  with pytest.raises(TypeError, match="float64"):
+    ep.column_sums(torch.zeros((8, 12), dtype=torch.float64, device=cuda), 4)
+  with pytest.raises(ValueError, match=r"\(B, P, 8 w\)"):
+    ep.unpack_rows(torch.zeros((1, 4, 90), device=cuda), 11)
+  with pytest.raises(ValueError, match=r"\(S 64, 128\)"):
+    ep.slab_relayout(torch.zeros((64, 96), device=cuda), packed=True)
+  with pytest.raises(ValueError, match="block_rows > 0"):
+    ep.column_sums(torch.zeros((8, 12), device=cuda), 0)
+  assert sum(ep.probe_launch_counts.values()) == 0

@@ -12,10 +12,13 @@ one pass: see ``rasterizer/stream_function.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from .lib import transforms
 
 
 @dataclass(frozen=True, eq=True, kw_only=True)
@@ -109,11 +112,62 @@ class Gaussians3D:
   def __len__(self):
     return self.position.shape[0]
 
+  @property
+  def batch_size(self):
+    return (self.position.shape[0],)
+
+  def packed(self) -> torch.Tensor:
+    """(N, 11): position, log_scaling, rotation, alpha_logit."""
+    return torch.cat(
+        [self.position, self.log_scaling, self.rotation, self.alpha_logit], -1)
+
+  @staticmethod
+  def from_packed(packed: torch.Tensor,
+                  feature: torch.Tensor) -> "Gaussians3D":
+    return Gaussians3D(
+        position=packed[:, 0:3], log_scaling=packed[:, 3:6],
+        rotation=packed[:, 6:10], alpha_logit=packed[:, 10:11],
+        feature=feature)
+
   def shape_tensors(self):
     return (self.position, self.log_scaling, self.rotation, self.alpha_logit)
 
+  @property
+  def scale(self):
+    return torch.exp(self.log_scaling)
+
+  @property
+  def alpha(self):
+    return transforms.sigmoid(self.alpha_logit)
+
+  def scaled(self, scale: float) -> "Gaussians3D":
+    return dataclasses.replace(
+        self, position=self.position * scale,
+        log_scaling=self.log_scaling + math.log(scale))
+
+  def translated(self, translation: torch.Tensor) -> "Gaussians3D":
+    return dataclasses.replace(
+        self, position=self.position + translation.reshape(1, 3))
+
+  def transform_rigid(self, m44: torch.Tensor) -> "Gaussians3D":
+    """Rigid transform of positions and orientations: q' = q_m * q, with
+    q_m the quaternion of m44's rotation."""
+    position = transforms.transform_points(m44, self.position)
+    r, _ = transforms.split_rt(m44)
+    q_m = mat_to_quat(r)
+    rotation = transforms.quat_mul(q_m.expand_as(self.rotation),
+                                   self.rotation)
+    return dataclasses.replace(self, position=position, rotation=rotation)
+
   def replace(self, **kw) -> "Gaussians3D":
     return dataclasses.replace(self, **kw)
+
+  @staticmethod
+  def concat(gaussians) -> "Gaussians3D":
+    """Each field of the list's mixtures concatenated along dim 0."""
+    return Gaussians3D(**{
+        f.name: torch.cat([getattr(g, f.name) for g in gaussians], 0)
+        for f in dataclasses.fields(Gaussians3D)})
 
 
 @dataclass
@@ -138,5 +192,46 @@ class Gaussians2D:
   def __len__(self):
     return self.position.shape[0]
 
+  @property
+  def batch_size(self):
+    return (self.position.shape[0],)
+
+  @property
+  def opacity(self):
+    return transforms.sigmoid(self.alpha_logit)
+
+  @property
+  def scaling(self):
+    return torch.exp(self.log_scaling)
+
+  def set_scaling(self, scaling) -> "Gaussians2D":
+    return dataclasses.replace(self, log_scaling=torch.log(scaling))
+
   def replace(self, **kw) -> "Gaussians2D":
     return dataclasses.replace(self, **kw)
+
+
+def mat_to_quat(r: torch.Tensor) -> torch.Tensor:
+  """Rotation matrix (3, 3) -> quaternion xyzw (branch-free Shepperd: four
+  candidates, the one of the largest pivot of (trace, m00, m11, m22)
+  taken, the first of tied maxima, then normalised)."""
+  m00, m01, m02 = r[0, 0], r[0, 1], r[0, 2]
+  m10, m11, m12 = r[1, 0], r[1, 1], r[1, 2]
+  m20, m21, m22 = r[2, 0], r[2, 1], r[2, 2]
+  tr = m00 + m11 + m22
+
+  def q_from(t, a, b, c, d):
+    s = torch.sqrt(torch.clamp(t, min=1e-12)) * 2.0
+    return torch.stack([a / s, b / s, c / s, d / s])
+
+  qw = q_from(1.0 + tr, m21 - m12, m02 - m20, m10 - m01, 1.0 + tr)
+  qx = q_from(1.0 + m00 - m11 - m22, 1.0 + m00 - m11 - m22, m01 + m10,
+              m02 + m20, m21 - m12)
+  qy = q_from(1.0 - m00 + m11 - m22, m01 + m10, 1.0 - m00 + m11 - m22,
+              m12 + m21, m02 - m20)
+  qz = q_from(1.0 - m00 - m11 + m22, m02 + m20, m12 + m21,
+              1.0 - m00 - m11 + m22, m10 - m01)
+
+  idx = torch.argmax(torch.stack([tr, m00, m11, m22]))
+  q = torch.stack([qw, qx, qy, qz])[idx]
+  return transforms.normalize(q)

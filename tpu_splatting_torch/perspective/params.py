@@ -73,6 +73,12 @@ class CameraParams:
   def transformed(self, t: torch.Tensor) -> "CameraParams":
     return dataclasses.replace(self, T_camera_world=t @ self.T_camera_world)
 
+  def scale_image(self, scale: float) -> "CameraParams":
+    image_size = (int(self.image_size[0] * scale),
+                  int(self.image_size[1] * scale))
+    return dataclasses.replace(
+        self, image_size=image_size, projection=self.projection * scale)
+
   def to(self, *args, **kw) -> "CameraParams":
     return dataclasses.replace(
         self, projection=self.projection.to(*args, **kw),

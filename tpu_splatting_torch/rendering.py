@@ -51,12 +51,21 @@ class RenderedPoints:
     return self._split_score
 
   @property
+  def visible_mask(self) -> torch.Tensor:
+    return self.visibility > 0.0
+
+  @property
   def screen_scale(self) -> torch.Tensor:
     return self.gaussians2d[:, 4:6]
 
   @property
   def opacity(self) -> torch.Tensor:
     return self.gaussians2d[:, 6]
+
+  def gaussian_scale(self, alpha_threshold: float = 1.0 / 255.0):
+    return torch.sqrt(torch.clamp(
+        2.0 * torch.log(torch.clamp(self.opacity, min=1e-30)
+                        / alpha_threshold), min=0.0))
 
   def replace(self, **kw):
     return dataclasses.replace(self, **kw)
