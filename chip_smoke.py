@@ -10,7 +10,7 @@ Phases (any failure raises and exits non-zero):
    per source, all in parallel: the stream forward K1 and backward K2
    with the halo merge, the sorted forward K4 and backward K5, the layout
    kernels K6, K7 and the row-gather probe, the exp_mosaic probes T1-T4,
-   the exp_pack probes)
+   the exp_pack and exp_pack2 probes)
    and prints each kernel instantiation's registers and spills (K2's and
    K5's as <most features, reduction width V>; the generic
    instantiations, which take any feature count and tile, as
@@ -155,17 +155,46 @@ Phases (any failure raises and exits non-zero):
    blocks at W 11, 12, 32 and packed (250,000, 128) against ``x.sum(0)``
    (within 1e-5 of each column's sum of |x| of the twin, bit for bit a
    second run).
+10. The packed-table probes of ``benchmarks/exp_pack2.py``
+   (``tpu_splatting_torch.benchmarks.exp_pack2``), on no path: on the
+   probes' own inputs each kernel bit for bit its twin and the probe's
+   expect (``permuted_unpack`` ``rows.T`` in ``perm_cprime`` order,
+   ``repeat_rows`` ``np.tile`` / ``np.repeat``, ``unpack_direct``
+   ``rows.T``, ``permute_lanes`` ``x[:, inv]``) and T2's three kernels
+   the last slab's block; then at 12,288 blocks from a seed, each bit for
+   bit its twin and timed from a flushed L2 beside its byte bound (below
+   it raises): the permuted unpack in turns with the direct one, exp_pack's
+   staged ``unpack_rows`` and the copies of the views (the H100 answer:
+   does the permuted slot order save time?), ``repeat_rows`` with
+   ``x.repeat`` / ``repeat_interleave``, ``permute_lanes`` on a
+   (12,288, 16, 512) gradient with ``index_select``, and V_a's slab
+   relayout in turns with exp_pack's flat and packed ones.
+11. The fit-image training path (``tpu_splatting_torch.examples.
+   fit_image_gaussians``; ``misc.renderer2d``, ``optim.ParameterClass``,
+   ``utils.check_finite``): one ``render_with_heuristics`` 2D step of
+   seeded splats on the card against the CPU twins at 48x32 (120 splats)
+   and 256x192 (1000): image within TOL, loss within 1e-5, gradients,
+   heuristics and visibility within 1e-3 of each one's largest magnitude;
+   the trainer at tests/test_fit_image.py's fast config on the card and
+   on the CPU from one seed (PSNR > 10 each, within 0.5 dB), its
+   converge (> 15) and antialias (> 12) configs on the card; then the
+   example's default size (256x192, 1000 splats, 500 iterations, PSNR >
+   15) from zeroed counts, with the median step time by CUDA events, the
+   splats at the end, and K1's and K2's launches, which must equal the
+   steps.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
 full shapes (K1 and K2 with their band-sharded launches and errors, the
 halo merge with the band-sharded run's launches and its device time,
-K6 and K7 with ``device_ms`` and ``library_device_ms`` too,
+K6 and K7 with ``device_ms`` and ``library_device_ms`` too, K1 and K2
+with their launches on phase 11's default-size run
+(``fit_image_launches``),
 K5 with its run-to-run difference, and the two floor probes, the
 row-gather probe, the four exp_mosaic probes (each second
-instantiation's times as fields of their own) and the ten exp_pack
-entries (one per kernel and width, ``variant`` naming it), which lie on
-no path:
+instantiation's times as fields of their own), the ten exp_pack entries
+and the six exp_pack2 entries (one per kernel and width or mode,
+``variant`` naming it), which lie on no path:
 ``main_path`` false, ``launches`` read from their counters after the
 main path's run), and
 ``{"ok": true, "device": ...}``.  The
@@ -465,7 +494,8 @@ SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
            "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
            "K6, K7, row_gather": "layout.cu",
            "T1-T4 (exp_mosaic probes)": "exp_mosaic.cu",
-           "U1-U2, T1, F1 (exp_pack probes)": "exp_pack.cu"}
+           "U1-U2, T1, F1 (exp_pack probes)": "exp_pack.cu",
+           "V_a-V_p, T2 (exp_pack2 probes)": "exp_pack2.cu"}
 # f32 operations per (row, pixel) pair of the sorted forward (K4): K1's
 # count plus the visibility sum; K5: K2's count for its 7 + F + 2 columns
 K4_OPS_PER_PAIR = K1_OPS_PER_PAIR + 1
@@ -2257,6 +2287,23 @@ def timed_in_turns(fns, flush=None):
           got.items()}
 
 
+def held(got, want, label):
+  """got bit for bit want (a probe kernel against its twin): the max abs
+  difference, 0.0."""
+  torch.cuda.synchronize()
+  assert got.shape == want.shape, (label, got.shape, want.shape)
+  assert torch.equal(got, want), f"{label} differs from its twin"
+  return float((got - want).abs().max())
+
+
+def above_bound(label, device, bound):
+  """A probe's device time is no less than its bound (else some of its
+  input went unread)."""
+  assert device >= bound[0], (
+      f"{label}: device time {device:.4f} ms below its bound "
+      f"{bound[0]:.4f} ms: some of its input went unread")
+
+
 def phase_mosaic(dev, launches):
   """Phase 8: the data-movement probes of ``benchmarks/exp_mosaic.py``.
   Each kernel and instantiation bit for bit its twin and the probe's own
@@ -2294,12 +2341,6 @@ def phase_mosaic(dev, launches):
                 library_device_ms=None if lib is None else lib[1],
                 resident_warps_per_sm=occ["warps_per_sm"], main_path=False,
                 probe_of=probe_of, **extra)
-
-  def held(got, want, label):
-    torch.cuda.synchronize()
-    assert got.shape == want.shape, (label, got.shape, want.shape)
-    assert torch.equal(got, want), f"{label} differs from its twin"
-    return float((got - want).abs().max())
 
   # T1: staged against direct; torch indexing by a precomputed row index
   x, d, n = big["T1"]
@@ -2479,11 +2520,6 @@ def phase_pack(dev, launches):
         resident_warps_per_sm=occ["warps_per_sm"], main_path=False,
         probe_of="stream_forward", **extra))
 
-  def above_bound(label, device, bound):
-    assert device >= bound[0], (
-        f"{label}: device time {device:.4f} ms below its bound "
-        f"{bound[0]:.4f} ms: some of its input went unread")
-
   # unpack_rows against the copy of the reshaped (or permuted) view
   for key, w, order, line in (("U1", 16, "row", 53), ("U1b", 11, "row", 76),
                               ("U2", 12, "col", 100)):
@@ -2586,6 +2622,350 @@ def phase_pack(dev, launches):
   return entries
 
 
+
+def phase_pack2(dev, launches):
+  """Phase 10: the packed-table probes of ``benchmarks/exp_pack2.py``.  On
+  the probes' own inputs each kernel, in each mode, bit for bit its twin
+  and the probe's expect (V_a ``rows.T`` in ``perm_cprime`` order, V_b
+  ``np.tile`` / ``np.repeat``, V_c ``rows.T``, V_p ``x[:, inv]``), and
+  T2's three kernels the last slab's block of 4 seeded slabs; then at
+  12,288 blocks from a seed, each held to its twin bit for bit and timed
+  from a flushed L2 beside its bound (a device time below the bound
+  raises): ``permuted_unpack`` in turns with ``unpack_direct``, exp_pack's
+  staged ``unpack_rows`` and the copies of the permuted and transposed
+  views; ``repeat_rows`` (tile, element) with ``x.repeat`` /
+  ``repeat_interleave``; ``permute_lanes`` on a (12,288, 16, 512)
+  gradient with ``index_select``; ``slab_relayout_permuted`` with
+  ``exp_pack.slab_relayout`` flat C 12 and packed.  ``launches``: the
+  probes' counts after the main path's run.  Returns the six entries of
+  the kernels line."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  log("phase 10: the exp_pack2 probes")
+  t_phase = time.perf_counter()
+  rows, xr, gr = ep2.probe_rows(), ep2.probe_repeat_input(), \
+      ep2.probe_gradient()
+  perm_np = ep2.perm_cprime()
+  inv = np.empty(512, np.int64)
+  inv[perm_np] = np.arange(512)
+  perm = torch.as_tensor(perm_np, dtype=torch.int32)
+  xp = torch.as_tensor(rows.reshape(1, 64, 128), device=dev)
+  x = torch.as_tensor(xr[None], device=dev)
+  g = torch.as_tensor(gr[None], device=dev)
+  for label, got, twin, expect in (
+      ("V_a permuted_unpack", ep2.permuted_unpack(xp, 16),
+       ep2.permuted_unpack_reference(xp, 16), rows.T[:, perm_np]),
+      ("V_b repeat_rows tile", ep2.repeat_rows(x, 2),
+       ep2.repeat_rows_reference(x, 2), np.tile(xr, (2, 1))),
+      ("V_b repeat_rows element", ep2.repeat_rows(x, 2, "element"),
+       ep2.repeat_rows_reference(x, 2, "element"), np.repeat(xr, 2, 0)),
+      ("V_c unpack_direct", ep2.unpack_direct(xp, 16),
+       ep2.unpack_direct_reference(xp, 16), rows.T),
+      ("V_p permute_lanes", ep2.permute_lanes(g, perm),
+       ep2.permute_lanes_reference(g, perm), gr[:, inv])):
+    torch.cuda.synchronize()
+    assert torch.equal(got, twin), f"{label} differs from its twin"
+    assert np.array_equal(got[0].cpu().numpy(), expect), label
+    log(f"  {label}: OK (bit for bit the twin and the probe's expect)")
+  gen = torch.Generator(device=dev).manual_seed(10)
+  x_flat = torch.rand((4 * 512, 12), generator=gen, device=dev)
+  x_pack = torch.rand((4 * 64, 128), generator=gen, device=dev)
+  last = x_pack[-64:].reshape(512, 16).cpu().numpy()
+  for label, got, want in (
+      ("today", ep.slab_relayout(x_flat),
+       x_flat[-512:].cpu().numpy().T[:12, :128]),
+      ("V_a", ep2.slab_relayout_permuted(x_pack),
+       last.T[:, perm_np][:12, :128]),
+      ("V_c", ep.slab_relayout(x_pack, packed=True), last.T[:12, :128])):
+    assert np.array_equal(got.cpu().numpy(), want), f"T2 {label}"
+  log("  T2's three kernels (today, V_a, V_c) on 4 seeded slabs: the last "
+      "slab's block")
+
+  flush = l2_flush(dev)
+  b = MOSAIC_BLOCKS
+  src = "tpu_splatting_torch/csrc/exp_pack2.cu"
+  entries = []
+
+  def entry(name, variant, line, fn_ms, plain, bnd, lib, occ, probe_of,
+            **extra):
+    entries.append(dict(
+        name=name, variant=variant, route="cuda", source=src,
+        replaces=f"benchmarks/exp_pack2.py:{line}", main_path=False,
+        launches=launches[name], max_abs_err=0.0, ms=fn_ms[0],
+        device_ms=fn_ms[1], plain_ms=plain, bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=None if lib is None else lib[0],
+        library_device_ms=None if lib is None else lib[1],
+        resident_warps_per_sm=occ["warps_per_sm"], probe_of=probe_of,
+        **extra))
+
+  def occ_log(occ):
+    return (f"{occ['registers']} registers, {occ['local_bytes']} local "
+            f"bytes, {occ['warps_per_sm']} warps resident")
+
+  # the unpacks at w 16: permuted, direct and exp_pack's staged, in turns
+  xp = torch.rand((b, 64, 128), generator=gen, device=dev)
+  held(ep2.permuted_unpack(xp, 16), ep2.permuted_unpack_reference(xp, 16),
+       "permuted_unpack")
+  direct = ep2.unpack_direct(xp, 16)
+  held(direct, ep2.unpack_direct_reference(xp, 16), "unpack_direct")
+  held(direct, ep.unpack_rows(xp, 16), "unpack_direct vs unpack_rows")
+  del direct
+  t = timed_in_turns({
+      "permuted_unpack": lambda: ep2.permuted_unpack(xp, 16),
+      "unpack_direct": lambda: ep2.unpack_direct(xp, 16),
+      "unpack_rows": lambda: ep.unpack_rows(xp, 16),
+      "permuted view copy": lambda: xp.view(b, 64, 8, 16).permute(
+          0, 3, 2, 1).reshape(b, 16, 512),
+      "transposed view copy": lambda: xp.view(b, 512, 16).transpose(
+          1, 2).contiguous()}, flush)
+  bnd = bound_ms(0, 2 * nbytes(xp))
+  turns = {k: dict(ms=v[0], device_ms=v[1]) for k, v in t.items()}
+  for name, line, lib, smem in (
+      ("permuted_unpack", 65, "permuted view copy", ep2.permuted_smem(64, 16)),
+      ("unpack_direct", 129, "transposed view copy", 0)):
+    twin = getattr(ep2, name + "_reference")
+    plain = cuda_ms(lambda: twin(xp, 16), 5)
+    occ = ep2.occupancy(name, smem)
+    above_bound(name, t[name][1], bnd)
+    log(f"  {name} (w 16) at {tuple(xp.shape)}: bit for bit the twin; twin "
+        f"{plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); device time at "
+        f"{bnd[0] / t[name][1]:.1%} of it (library {lib} "
+        f"{bnd[0] / t[lib][1]:.1%}); {occ_log(occ)}")
+    entry(name, "w 16", line, t[name], plain, bnd, t[lib], occ,
+          "stream_forward",
+          in_turns_with={k: v for k, v in turns.items() if k != name})
+  log(f"  the H100 answer: permuted {t['permuted_unpack'][1]:.4f} ms, "
+      f"direct {t['unpack_direct'][1]:.4f}, staged fetch order (unpack_rows) "
+      f"{t['unpack_rows'][1]:.4f} ms of device time; permuted over staged "
+      f"{t['permuted_unpack'][1] / t['unpack_rows'][1]:.3f}x")
+  del xp
+
+  # repeat_rows, n 2, both modes, against x.repeat / repeat_interleave
+  x = torch.rand((b, 64, 128), generator=gen, device=dev)
+  for mode in ep2.MODES:
+    held(ep2.repeat_rows(x, 2, mode), ep2.repeat_rows_reference(x, 2, mode),
+         f"repeat_rows {mode}")
+  t = timed_in_turns({
+      "tile": lambda: ep2.repeat_rows(x, 2),
+      "element": lambda: ep2.repeat_rows(x, 2, "element"),
+      "x.repeat": lambda: x.repeat(1, 2, 1),
+      "x.repeat_interleave": lambda: x.repeat_interleave(2, 1)}, flush)
+  bnd = bound_ms(0, 3 * nbytes(x))
+  for mode, lib in (("tile", "x.repeat"), ("element", "x.repeat_interleave")):
+    plain = cuda_ms(lambda: ep2.repeat_rows_reference(x, 2, mode), 5)
+    occ = ep2.occupancy(f"repeat_rows {mode}", 0)
+    above_bound(f"repeat_rows {mode}", t[mode][1], bnd)
+    log(f"  repeat_rows {mode} (n 2) at {tuple(x.shape)}: bit for bit the "
+        f"twin; twin {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"device time at {bnd[0] / t[mode][1]:.1%} of it ({lib} "
+        f"{bnd[0] / t[lib][1]:.1%}); {occ_log(occ)}")
+    entry("repeat_rows", f"{mode} n 2", 86, t[mode], plain, bnd, t[lib], occ,
+          "stream_forward")
+  del x
+
+  # permute_lanes on a (12,288, 16, 512) gradient, the probe's perm
+  gx = torch.randn((b, 16, 512), generator=gen, device=dev)
+  inv_dev = torch.as_tensor(inv, device=dev)
+  got = ep2.permute_lanes(gx, perm)
+  held(got, ep2.permute_lanes_reference(gx, perm), "permute_lanes")
+  held(got, gx[..., inv_dev], "permute_lanes vs x[..., inv]")
+  del got
+  t = timed_in_turns({
+      "kernel": lambda: ep2.permute_lanes(gx, perm),
+      "index_select": lambda: gx.index_select(-1, inv_dev)}, flush)
+  bnd = bound_ms(0, 2 * nbytes(gx) + nbytes(inv_dev) // 2)
+  plain = cuda_ms(lambda: ep2.permute_lanes_reference(gx, perm), 5)
+  occ = ep2.occupancy("permute_lanes", ep2.lane_smem(512))
+  above_bound("permute_lanes", t["kernel"][1], bnd)
+  log(f"  permute_lanes at {tuple(gx.shape)} (perm_cprime): bit for bit the "
+      f"twin and x[..., inv]; twin {plain:.4f} ms; bound {bnd[0]:.4f} ms "
+      f"({bnd[1]}); device time at {bnd[0] / t['kernel'][1]:.1%} of it "
+      f"(index_select {bnd[0] / t['index_select'][1]:.1%}); {occ_log(occ)}")
+  entry("permute_lanes", "(12288, 16, 512) perm_cprime", 167, t["kernel"],
+        plain, bnd, t["index_select"], occ, "stream_backward")
+  del gx
+
+  # T2: V_a's relayout in turns with today's and V_c's (exp_pack)
+  x_flat = torch.rand((b * 512, 12), generator=gen, device=dev)
+  x_pack = torch.rand((b * 64, 128), generator=gen, device=dev)
+  held(ep2.slab_relayout_permuted(x_pack),
+       ep2.slab_relayout_permuted_reference(x_pack), "slab_relayout_permuted")
+  t = timed_in_turns({
+      "V_a": lambda: ep2.slab_relayout_permuted(x_pack),
+      "today flat C 12": lambda: ep.slab_relayout(x_flat),
+      "V_c packed": lambda: ep.slab_relayout(x_pack, packed=True)}, flush)
+  bnd = bound_ms(0, nbytes(x_pack) + 12 * 128 * 4)
+  plain = cuda_ms(lambda: ep2.slab_relayout_permuted_reference(x_pack), 5)
+  occ = ep2.occupancy("slab_relayout_permuted", ep2.permuted_smem(64, 16))
+  above_bound("slab_relayout_permuted", t["V_a"][1], bnd)
+  log(f"  T2 over {b} slabs: V_a slab_relayout_permuted bit for bit its twin;"
+      f" twin {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); device time "
+      f"at {bnd[0] / t['V_a'][1]:.1%} of it (V_c packed "
+      f"{bnd[0] / t['V_c packed'][1]:.1%}); {occ_log(occ)}")
+  entry("slab_relayout_permuted", f"{b} slabs", 212, t["V_a"], plain, bnd,
+        None, occ, "stream_forward",
+        in_turns_with={k: dict(ms=v[0], device_ms=v[1])
+                       for k, v in t.items() if k != "V_a"})
+  del x_flat, x_pack
+  log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
+  return entries
+
+
+# phase 11: tests/test_fit_image.py's configurations, and the example's
+# default size
+FIT_FAST = ["--n", "120", "--iters", "10", "--epoch", "5", "--max_epoch",
+            "5", "--image_size", "48,32", "--max_overlaps", "4096"]
+FIT_CONVERGE = ["--n", "200", "--iters", "40", "--epoch", "10", "--max_epoch",
+                "20", "--image_size", "64,48", "--prune", "--max_overlaps",
+                "16384", "--debug"]
+FIT_ANTIALIAS = ["--n", "100", "--iters", "20", "--epoch", "10",
+                 "--image_size", "48,32", "--antialias", "--max_overlaps",
+                 "8192"]
+FIT_DEFAULT = ["--n", "1000", "--iters", "500", "--image_size", "256,192"]
+
+
+def fit_step_vs_cpu(dev, size, n):
+  """One ``renderer2d.render_with_heuristics`` step of seeded splats on
+  the card (K1, K2) and on the CPU (twins), with the trainer's loss and
+  calibrated config: image within TOL, loss within 1e-5, each gradient
+  leaf, the heuristics and the visibility within 1e-3 of its largest
+  magnitude (F8)."""
+  from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.examples import fit_image_gaussians as fit
+  from tpu_splatting_torch.misc.renderer2d import render_with_heuristics
+  from tpu_splatting_torch.optim import ParameterClass
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  g = fit.random_gaussians2d(torch.Generator().manual_seed(11), n, size,
+                             device="cpu")
+  params = ParameterClass.create(
+      {f.name: getattr(g, f.name) for f in dataclasses.fields(g)},
+      fit.make_parameter_groups(0.5))
+  cfg = fit.autosize_stream_caps(RasterConfig(**HEUR), params, size)
+  target = fit.load_image(fit.parse_args(["--image_size",
+                                          f"{size[0]},{size[1]}"]), "cpu")
+  w, h = size
+  out = []
+  for d in (dev, torch.device("cpu")):
+    gd = g.replace(**{f.name: getattr(g, f.name).to(d)
+                      for f in dataclasses.fields(g)})
+    tgt = target.to(d)
+
+    def loss_fn(r, gg, tgt=tgt):
+      scale = torch.exp(gg.log_scaling) / min(w, h)
+      return (torch.mean((r.image - tgt) ** 2) + 1e-2 * torch.mean(
+          gg.opacity) + 0.1 * torch.mean(scale ** 2))
+    sk.reset_launch_counts()
+    out.append(render_with_heuristics(loss_fn, gd, size, cfg))
+    want = 1 if d.type == "cuda" else 0
+    assert sk.launch_counts["stream_forward"] == want, sk.launch_counts
+    assert sk.launch_counts["stream_backward"] == want, sk.launch_counts
+  (l_gpu, o_gpu, d_gpu), (l_cpu, o_cpu, d_cpu) = out
+  assert int(o_gpu.num_overflow) == 0 and int(o_cpu.num_overflow) == 0
+  err = max(float((o_gpu.image.cpu() - o_cpu.image).abs().max()),
+            float((o_gpu.image_weight.cpu() - o_cpu.image_weight).abs()
+                  .max()))
+  assert err <= TOL, f"fit step {size}: image differs by {err:.3e}"
+  assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5, (float(l_gpu),
+                                                    float(l_cpu))
+  worst = 0.0
+  pairs = [(f.name, getattr(d_gpu, f.name), getattr(d_cpu, f.name))
+           for f in dataclasses.fields(d_cpu)]
+  pairs += [("point_heuristic", o_gpu.point_heuristic, o_cpu.point_heuristic),
+            ("visibility", o_gpu.visibility, o_cpu.visibility)]
+  for name, a, c in pairs:
+    a = a.cpu()
+    assert torch.isfinite(a).all(), name
+    scale = float(c.abs().max())
+    rel = float((a - c).abs().max()) / max(scale, 1e-30)
+    assert rel <= 1e-3 or scale == 0, (name, rel)
+    worst = max(worst, rel if scale else 0.0)
+  log(f"  render_with_heuristics {size[0]}x{size[1]}, {n} splats: card vs "
+      f"CPU image max abs {err:.3e}, loss {float(l_gpu):.7f} / "
+      f"{float(l_cpu):.7f}, worst gradient / heuristic leaf {worst:.2e} of "
+      "its scale")
+
+
+def phase_fit(dev, card):
+  """Phase 11: P11's fit-image training path on the card, from
+  ``tpu_splatting_torch`` alone.  ``render_with_heuristics`` 2D against
+  the CPU twins at 48x32 (120 splats) and 256x192 (1000); the trainer's
+  ``main`` at tests/test_fit_image.py's fast config on the card and on the
+  CPU from one seed (PSNR > 10 each, within 0.5 dB), its converge (> 15)
+  and antialias (> 12) configs on the card; then the example's default
+  size, 256x192 with 1000 splats for 500 iterations (PSNR > 15), with the
+  median step time by CUDA events and K1's and K2's launches, which must
+  equal the steps.  Returns {kernel: launches on that run}."""
+  from tpu_splatting_torch.examples import fit_image_gaussians as fit
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  log("phase 11: fit-image training (tpu_splatting_torch.examples."
+      "fit_image_gaussians)")
+  t_phase = time.perf_counter()
+  for size, n in (((48, 32), 120), ((256, 192), 1000)):
+    fit_step_vs_cpu(dev, size, n)
+  card_psnr, cpu_psnr = (fit.main(FIT_FAST + ["--device", str(d)])
+                         for d in (dev, "cpu"))
+  log(f"  fast config: PSNR card {card_psnr:.3f}, CPU {cpu_psnr:.3f}")
+  assert min(card_psnr, cpu_psnr) > 10, (card_psnr, cpu_psnr)
+  assert abs(card_psnr - cpu_psnr) <= 0.5, (card_psnr, cpu_psnr)
+  for label, args, floor in (("converge", FIT_CONVERGE, 15),
+                             ("antialias", FIT_ANTIALIAS, 12)):
+    p = fit.main(args + ["--device", str(dev)])
+    log(f"  {label} config: PSNR card {p:.3f} (floor {floor})")
+    assert p > floor, (label, p)
+
+  events, last = [], []
+  real_step = fit.train_step
+
+  def timed_step(*args, **kw):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = real_step(*args, **kw)
+    end.record()
+    events.append((start, end, out[0]["position"].shape[0]))
+    last[:] = [args, kw]
+    return out
+  fit.train_step = timed_step
+  try:
+    sk.reset_launch_counts()       # the slice's main path: from zero
+    t0 = time.perf_counter()
+    p = fit.main(FIT_DEFAULT + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.launch_counts)
+  finally:
+    fit.train_step = real_step
+  steps = len(events)
+  ms = sorted(a.elapsed_time(b) for a, b, _ in events)
+  assert launches["stream_forward"] == steps == 500, (launches, steps)
+  assert launches["stream_backward"] == steps, (launches, steps)
+  log(f"  default size 256x192, 1000 splats, {steps} steps: PSNR {p:.3f} "
+      f"(floor 15); step median {ms[len(ms) // 2]:.3f} ms by CUDA events "
+      f"(min {ms[0]:.3f}, max {ms[-1]:.3f}); {events[-1][2]} splats at the "
+      f"end; K1 {launches['stream_forward']} and K2 "
+      f"{launches['stream_backward']} launches; {wall:.1f} s of wall clock "
+      f"with its calibration; on {card}")
+  assert p > 15, p
+
+  # where a step's time goes: the last step again, its kernels' device
+  # time against its time by events
+  args, kw = last
+  split = device_split(lambda: real_step(*args, **kw), reps=5)
+  call = cuda_ms(lambda: real_step(*args, **kw), 5)
+  busy = sum(split.values())
+  k1 = sum(v for k, v in split.items() if "stream_forward" in k)
+  k2 = sum(v for k, v in split.items() if "stream_backward" in k)
+  top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
+  log(f"  the last step again: {call:.3f} ms a step by events over 5; "
+      f"device busy {busy:.3f} ms ({busy / call:.1%}, idle "
+      f"{1 - busy / call:.1%}) in {len(split)} kernels; K1 {k1:.4f} ms, K2 "
+      f"{k2:.4f} ms; the longest: " + ", ".join(
+          f"{short_kernel_name(k)} {v:.4f}" for k, v in top))
+  log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+  return {"stream_forward": launches["stream_forward"],
+          "stream_backward": launches["stream_backward"]}
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -2596,9 +2976,10 @@ def main():
   t_start = time.perf_counter()
   err2, err2b, shard_checks, phase2_out = phase_twin(dev)
   cross_device_check(dev)
-  from tpu_splatting_torch.benchmarks import exp_mosaic, exp_pack
+  from tpu_splatting_torch.benchmarks import exp_mosaic, exp_pack, exp_pack2
   exp_mosaic.reset_launch_counts()       # the probes lie on no path: 0
   exp_pack.reset_launch_counts()
+  exp_pack2.reset_launch_counts()
   k1, k1_floor, g3d, cams, cfg = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
@@ -2612,6 +2993,8 @@ def main():
       f"{time.perf_counter() - t_sharded:.1f} s")
   mosaic_entries = phase_mosaic(dev, dict(exp_mosaic.probe_launch_counts))
   pack_entries = phase_pack(dev, dict(exp_pack.probe_launch_counts))
+  pack2_entries = phase_pack2(dev, dict(exp_pack2.probe_launch_counts))
+  fit = phase_fit(dev, card)
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
@@ -2623,12 +3006,15 @@ def main():
       dict(name="stream_forward", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",
            library_ms=None, **k1, **k1_sharded,
-           also_on=["band_sharded_forward", "band_sharded_grad"],
-           with_band0=True),
+           also_on=["band_sharded_forward", "band_sharded_grad",
+                    "fit_image_gaussians"],
+           fit_image_launches=fit["stream_forward"], with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
            library_ms=None, **k2, **k2_sharded,
-           also_on=["band_sharded_grad"], with_band0=True, with_halo=True),
+           also_on=["band_sharded_grad", "fit_image_gaussians"],
+           fit_image_launches=fit["stream_backward"], with_band0=True,
+           with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),
@@ -2640,7 +3026,7 @@ def main():
       dict(name="stream_forward_floor", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",
            probe_of="stream_forward", **k1_floor),
-      *mosaic_entries, *pack_entries]}))
+      *mosaic_entries, *pack_entries, *pack2_entries]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -1065,3 +1065,148 @@ def test_pack_kernels_reject_bad_inputs(cuda):
   with pytest.raises(ValueError, match="block_rows > 0"):
     ep.column_sums(torch.zeros((8, 12), device=cuda), 0)
   assert sum(ep.probe_launch_counts.values()) == 0
+
+
+# --- the packed-table probes of benchmarks/exp_pack2.py -------------------
+
+def test_pack2_probes_on_their_inputs(cuda):
+  """Each kernel bit for bit its twin and the probe's own expect on the
+  probe's inputs; counted once a call as a probe."""
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  rows = ep2.probe_rows()
+  xp = torch.as_tensor(rows.reshape(1, 64, 128), device=cuda)
+  x = torch.as_tensor(ep2.probe_repeat_input()[None], device=cuda)
+  g = torch.as_tensor(ep2.probe_gradient()[None], device=cuda)
+  perm = torch.as_tensor(ep2.perm_cprime(), dtype=torch.int32)
+  inv = np.empty(512, np.int64)
+  inv[ep2.perm_cprime()] = np.arange(512)
+  ep2.reset_launch_counts()
+  cases = [
+      (ep2.permuted_unpack(xp, 16), ep2.permuted_unpack_reference(xp, 16),
+       rows.T[:, ep2.perm_cprime()][None]),
+      (ep2.repeat_rows(x, 2), ep2.repeat_rows_reference(x, 2),
+       np.tile(x[0].cpu().numpy(), (2, 1))[None]),
+      (ep2.repeat_rows(x, 2, "element"),
+       ep2.repeat_rows_reference(x, 2, "element"),
+       np.repeat(x[0].cpu().numpy(), 2, axis=0)[None]),
+      (ep2.unpack_direct(xp, 16), ep2.unpack_direct_reference(xp, 16),
+       rows.T[None]),
+      (ep2.permute_lanes(g, perm), ep2.permute_lanes_reference(g, perm),
+       g[0].cpu().numpy()[:, inv][None])]
+  torch.cuda.synchronize()
+  for i, (got, twin, expect) in enumerate(cases):
+    assert torch.equal(got, twin), i
+    assert np.array_equal(got.cpu().numpy(), expect), i
+  assert ep2.probe_launch_counts == {
+      "permuted_unpack": 1, "slab_relayout_permuted": 0, "repeat_rows": 2,
+      "unpack_direct": 1, "permute_lanes": 1}
+
+
+@pytest.mark.parametrize("w, p", [(16, 64), (11, 64), (12, 64), (16, 37),
+                                  (7, 5), (32, 64)])
+def test_pack2_unpacks_match_twins(cuda, w, p):
+  """permuted_unpack and unpack_direct at the probe's widths and others,
+  300 blocks, bit for bit their twins; unpack_direct bit for bit
+  exp_pack.unpack_rows in row order."""
+  from tpu_splatting_torch.benchmarks import exp_pack as ep
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  gen = torch.Generator(device=cuda).manual_seed(w * p)
+  xp = torch.randn((300, p, 8 * w), generator=gen, device=cuda)
+  perm = ep2.permuted_unpack(xp, w)
+  direct = ep2.unpack_direct(xp, w)
+  torch.cuda.synchronize()
+  assert torch.equal(perm, ep2.permuted_unpack_reference(xp, w))
+  assert torch.equal(direct, ep2.unpack_direct_reference(xp, w))
+  assert torch.equal(direct, ep.unpack_rows(xp, w, "row"))
+
+
+@pytest.mark.parametrize("slabs", [1, 3, 1000])
+def test_slab_relayout_permuted_matches_twin(cuda, slabs):
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  gen = torch.Generator(device=cuda).manual_seed(slabs)
+  x = torch.randn((slabs * 64, 128), generator=gen, device=cuda)
+  got = ep2.slab_relayout_permuted(x)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ep2.slab_relayout_permuted_reference(x))
+
+
+def test_slab_relayout_permuted_is_the_last_slab(cuda):
+  """Every slab but the last holds NaN: the result is the last slab's
+  block, whatever order the blocks ran in."""
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  x = torch.full((500 * 64, 128), float("nan"), device=cuda)
+  x[-64:] = torch.arange(64 * 128, dtype=torch.float32,
+                         device=cuda).reshape(64, 128)
+  got = ep2.slab_relayout_permuted(x)
+  torch.cuda.synchronize()
+  assert torch.isfinite(got).all()
+  assert torch.equal(got, ep2.slab_relayout_permuted_reference(x[-64:]))
+
+
+@pytest.mark.parametrize("mode", ["tile", "element"])
+@pytest.mark.parametrize("shape, n", [((300, 64, 128), 2), ((7, 5, 12), 3),
+                                      ((2, 1, 4), 8)])
+def test_repeat_rows_kernel_matches_twin(cuda, mode, shape, n):
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  gen = torch.Generator(device=cuda).manual_seed(n)
+  x = torch.randn(shape, generator=gen, device=cuda)
+  got = ep2.repeat_rows(x, n, mode)
+  torch.cuda.synchronize()
+  assert torch.equal(got, ep2.repeat_rows_reference(x, n, mode))
+
+
+@pytest.mark.parametrize("shape", [(300, 16, 512), (3, 5, 64), (1, 17, 36)])
+def test_permute_lanes_kernel_matches_twin(cuda, shape):
+  """A random permutation (and the probe's at L 512), bit for bit the
+  twin and the definition."""
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  gen = torch.Generator(device=cuda).manual_seed(shape[2])
+  x = torch.randn(shape, generator=gen, device=cuda)
+  perms = [torch.as_tensor(np.random.default_rng(shape[0]).permutation(
+      shape[2]))]
+  if shape[2] == 512:
+    perms.append(torch.as_tensor(ep2.perm_cprime(), device=cuda))
+  for perm in perms:
+    got = ep2.permute_lanes(x, perm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ep2.permute_lanes_reference(x, perm))
+    want = torch.empty_like(x)
+    want[..., perm.to(cuda).long()] = x
+    assert torch.equal(got, want)
+
+
+def test_pack2_kernels_reject_bad_inputs(cuda):
+  """What the kernels cannot take raises before a launch."""
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  ep2.reset_launch_counts()
+  flat = torch.zeros(1 + 4 * 64 * 128, device=cuda)
+  with pytest.raises(ValueError, match="x's address"):
+    ep2.permuted_unpack(flat[1:].view(4, 64, 128), 16)
+  with pytest.raises(ValueError, match="x's address"):
+    ep2.slab_relayout_permuted(flat[1:].view(256, 128))
+  with pytest.raises(ValueError, match="x's address"):
+    ep2.unpack_direct(flat[1:].view(4, 64, 128), 16)
+  with pytest.raises(ValueError, match="a row is"):
+    ep2.repeat_rows(torch.zeros((1, 8, 6), device=cuda), 2)
+  with pytest.raises(ValueError, match="a row is"):
+    ep2.permute_lanes(torch.zeros((1, 8, 6), device=cuda), torch.arange(6))
+  with pytest.raises(ValueError, match="232448 B"):
+    ep2.permuted_unpack(torch.zeros((1, 1024, 128), device=cuda), 16)
+  with pytest.raises(ValueError, match="not a permutation"):
+    ep2.permute_lanes(torch.zeros((1, 2, 4), device=cuda),
+                      torch.tensor([0, 1, 1, 3]))
+  with pytest.raises(TypeError, match="float64"):
+    ep2.repeat_rows(torch.zeros((1, 8, 4), dtype=torch.float64, device=cuda),
+                    2)
+  assert sum(ep2.probe_launch_counts.values()) == 0
+
+
+def test_pack2_smem_formulas_match_the_kernels(cuda):
+  """The wrapper's shared-memory formulas equal the C entry's."""
+  from tpu_splatting_torch.benchmarks import exp_pack2 as ep2
+  lib = ep2._kernel()
+  for p in (1, 5, 37, 64, 100):
+    for w in (7, 11, 12, 16, 32):
+      assert lib.tpu_splat_pack2_smem(0, p, w) == ep2.permuted_smem(p, w)
+  for l in (4, 36, 64, 512, 1000):
+    assert lib.tpu_splat_pack2_smem(1, l, 0) == ep2.lane_smem(l)
