@@ -182,6 +182,32 @@ Phases (any failure raises and exits non-zero):
    15) from zeroed counts, with the median step time by CUDA events, the
    splats at the end, and K1's and K2's launches, which must equal the
    steps.
+12. The checkpoint-render path (``tpu_splatting_torch.io.ply`` ->
+   ``render_gaussians(use_sh=True)``): phase 3's 2M-splat SH-3 scene
+   saved with ``save_gaussians`` into a temporary directory (removed at
+   the end; the PLY library built with ``g++`` first), read back natively
+   and through ``_read_ply_raw_numpy`` (the raw tables equal), loaded onto
+   the card both ways (every field bit for bit the scene's), with the
+   file's bytes and the seconds to save, to read, to assemble the
+   native table into tensors, to load and to copy host to device; the
+   identity pose rendered with phase 3's capacities from zeroed counts
+   (one K1 launch; its image against phase 3's: bit for bit or within
+   TOL, the log says which) and timed by
+   ``utils.benchmarked``; ``misc.morton.argsort_morton`` on the 2M
+   positions, the card's permutation equal to the CPU's, timed; then the
+   examples on the card from zeroed counts: ``render_ply.render`` at
+   ``--synthetic 500 --image_size 64,48`` and at its default 1024x768
+   with ``--synthetic 100000`` (finite image, weight mean > 0; the
+   default overflows its capacities), ``vis_split.main`` (both images
+   written) and ``test_backward.main``, with K1's (5) and K2's (1)
+   launches, every one of those K1 and K2 calls recorded and held
+   against its twin on the same inputs (K1 within TOL, K2 per column);
+   then each example again with ``--device cpu`` on the same arguments:
+   render_ply's mapping equal but for its float rows (the same windows,
+   order and drops), its image difference logged (F8: its f32
+   projection differs across the two devices), vis_split's two images
+   within TOL, test_backward's loss to 1e-5 relative and each gradient
+   to 1e-4 of its largest magnitude.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -189,7 +215,8 @@ full shapes (K1 and K2 with their band-sharded launches and errors, the
 halo merge with the band-sharded run's launches and its device time,
 K6 and K7 with ``device_ms`` and ``library_device_ms`` too, K1 and K2
 with their launches on phase 11's default-size run
-(``fit_image_launches``),
+(``fit_image_launches``) and on phase 12's render of the loaded
+checkpoint (``ply_launches``) and its examples (``examples_launches``),
 K5 with its run-to-run difference, and the two floor probes, the
 row-gather probe, the four exp_mosaic probes (each second
 instantiation's times as fields of their own), the ten exp_pack entries
@@ -205,6 +232,7 @@ the rows they walk.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -978,6 +1006,8 @@ def phase_full(dev):
       assert torch.isfinite(r.image_weight).all(), i
       w_min, w_max = float(r.image_weight.min()), float(r.image_weight.max())
       assert w_min >= 0.0 and w_max <= 1.0 + 1e-6, (i, w_min, w_max)
+      if i == 0:
+        image0 = r.image.clone()     # phase 12 renders the same pose again
       if median:
         assert torch.isfinite(r.median_depth_image).all()
       log(f"  request {i}: {times[-1]:.2f} ms  weight in [{w_min:.4f}, "
@@ -1042,7 +1072,7 @@ def phase_full(dev):
       nbytes(m.table, m.desc, m.strip_blk), "full")}
   log(f"  K1 {k_ms:.3f} ms = floor (staging and sort) "
       f"{k1_floor['ms']:.3f} + walk {k_ms - k1_floor['ms']:.3f} ms")
-  return k1, k1_floor, g3d, cams, cfg
+  return k1, k1_floor, g3d, cams, cfg, image0
 
 
 def phase_train(dev, g3d, cams, cfg_caps):
@@ -2948,10 +2978,24 @@ def phase_fit(dev, card):
   assert p > 15, p
 
   # where a step's time goes: the last step again, its kernels' device
-  # time against its time by events
+  # time against its time by events.  On some machines every profiling
+  # session of this step (~760 kernels a call) loses the same record or
+  # two; sessions of fewer calls are tried next, and a split that no
+  # session gives whole is not measured.
   args, kw = last
-  split = device_split(lambda: real_step(*args, **kw), reps=5)
   call = cuda_ms(lambda: real_step(*args, **kw), 5)
+  for reps in (5, 2):
+    try:
+      split = device_split(lambda: real_step(*args, **kw), reps=reps)
+      break
+    except AssertionError as e:
+      log(f"  device split over {reps} calls: {str(e)[:90]}...")
+  else:
+    log(f"  the last step again: {call:.3f} ms a step by events over 5; "
+        f"its device split not measured (torch.profiler lost records)")
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return {"stream_forward": launches["stream_forward"],
+            "stream_backward": launches["stream_backward"]}
   busy = sum(split.values())
   k1 = sum(v for k, v in split.items() if "stream_forward" in k)
   k2 = sum(v for k, v in split.items() if "stream_backward" in k)
@@ -2964,6 +3008,257 @@ def phase_fit(dev, card):
   log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
   return {"stream_forward": launches["stream_forward"],
           "stream_backward": launches["stream_backward"]}
+
+
+@contextlib.contextmanager
+def recorded_stream_calls():
+  """Records every K1 and K2 call made through
+  ``rasterizer.stream_function`` while open, with its inputs and output:
+  {"K1": [(mapping, config, image)], "K2": [(mapping, image, g_image,
+  config, buffer)]}.  The recorder launches nothing itself."""
+  from tpu_splatting_torch.rasterizer import stream_function as sf
+  calls = {"K1": [], "K2": []}
+  fwd, bwd = sf.stream_forward, sf.stream_backward
+
+  def forward(mapping, config):
+    out = fwd(mapping, config)
+    calls["K1"].append((mapping, config, out))
+    return out
+
+  def backward(mapping, image, g_image, config):
+    out = bwd(mapping, image, g_image, config)
+    calls["K2"].append((mapping, image, g_image, config, out))
+    return out
+  sf.stream_forward, sf.stream_backward = forward, backward
+  try:
+    yield calls
+  finally:
+    sf.stream_forward, sf.stream_backward = fwd, bwd
+
+
+def stream_calls_vs_twins(calls, label):
+  """Each recorded K1 output against stream_forward_reference on its
+  inputs (max abs <= TOL), each K2 buffer against stream_backward_reference
+  per column (<= 1e-4 * max |twin column| + 1e-6), as kernel_vs_twin and
+  backward_vs_twin hold them."""
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  for mapping, config, out in calls["K1"]:
+    err = float((out.detach() - sk.stream_forward_reference(mapping, config))
+                .abs().max())
+    log(f"  {label} K1 at {tuple(out.shape)}, overflow "
+        f"{int(mapping.num_overflow)}: max_abs_err {err:.3e} against its twin"
+        f" on the same inputs (tol {TOL:g})")
+    assert err <= TOL, (label, err)
+  for mapping, image, g_image, config, out in calls["K2"]:
+    want = sk.stream_backward_reference(mapping, image, g_image, config)
+    err_col = (out.detach() - want).abs().amax(0)
+    tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+    log(f"  {label} K2 at {tuple(out.shape)}: max_abs_err "
+        f"{float(err_col.max()):.3e}, worst column at "
+        f"{float((err_col / tol_col).max()):.3f} of its tolerance")
+    assert bool((err_col <= tol_col).all()), (label, err_col.tolist())
+
+
+def phase_ply(dev, g3d, cams, cfg, image0, card):
+  """Phase 12: the checkpoint-render path (``io.ply`` ->
+  ``render_gaussians(use_sh=True)``) at the headline's full width, Morton
+  order at 2M points, and the three examples on the card, each held
+  against the same example with ``--device cpu``.
+  Returns {kernel: {"ply_launches": .., "examples_launches": ..}}."""
+  import shutil
+  import tempfile
+  from tpu_splatting_torch.examples import render_ply, test_backward, vis_split
+  from tpu_splatting_torch.io import ply
+  from tpu_splatting_torch.misc.morton import argsort_morton
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.renderer import render_gaussians
+  from tpu_splatting_torch.utils import cuda_build
+  from tpu_splatting_torch.utils.benchmarked import benchmarked
+
+  log(f"phase 12: checkpoint PLY -> render at {N_FULL} splats {SIZE_FULL} "
+      "SH degree 3, Morton order, the examples")
+  t_phase = time.perf_counter()
+  names = [f.name for f in dataclasses.fields(g3d)]
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_ply_")
+  try:
+    # (a) save phase 3's scene, read it back natively and through numpy
+    t0 = time.perf_counter()
+    cuda_build.load_host_library("ply_io.cpp")
+    log(f"  g++ build of ply_io.cpp: {time.perf_counter() - t0:.2f} s")
+    path = os.path.join(tmp, "headline.ply")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ply.save_gaussians(path, g3d)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    props = 3 + 3 + 3 * 16 + 1 + 3 + 4
+    assert size > N_FULL * props * 4, size
+    t0 = time.perf_counter()
+    raw = ply.read_ply_raw(path)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ply._gaussians_from_props(raw, "cpu")
+    t_assemble = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_np = ply._read_ply_raw_numpy(path)
+    t_read_np = time.perf_counter() - t0
+    assert list(raw) == list(raw_np) and len(raw) == props, list(raw)
+    for k in raw:
+      assert np.array_equal(raw[k], raw_np[k]), k
+    del raw, raw_np
+    t0 = time.perf_counter()
+    on_cpu = ply.load_gaussians(path, device="cpu")
+    t_load_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    copied = on_cpu.replace(**{k: getattr(on_cpu, k).to(dev) for k in names})
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    del on_cpu, copied
+    t0 = time.perf_counter()
+    loaded = ply.load_gaussians(path, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded_np = ply._gaussians_from_props(ply._read_ply_raw_numpy(path), dev)
+    torch.cuda.synchronize()
+    t_load_np = time.perf_counter() - t0
+    for k in names:
+      want = getattr(g3d, k)
+      for label, g in (("native", loaded), ("numpy", loaded_np)):
+        got = getattr(g, k)
+        assert got.is_cuda and got.shape == want.shape, (label, k)
+        assert torch.equal(got, want), (label, k)
+    del loaded_np
+    log(f"  PLY of {N_FULL} splats, {props} float properties: {size} bytes "
+        f"({size / 2 ** 20:.1f} MiB); save {t_save:.3f} s (from the card); "
+        f"read native {t_read:.3f} s, numpy {t_read_np:.3f} s (to host "
+        f"arrays, the file in the page cache); _gaussians_from_props on the "
+        f"native table to the host {t_assemble:.3f} s; load_gaussians to the "
+        f"host {t_load_cpu:.3f} s, host to device {t_h2d:.3f} s; "
+        f"load_gaussians onto the card native {t_load:.3f} s, through numpy "
+        f"{t_load_np:.3f} s; both loads bit for bit the scene")
+
+    # the identity pose, phase 3's capacities: phase 3's image again
+    cam = cams[0]
+    sk.reset_launch_counts()       # the slice's path: from zero
+    with torch.no_grad():
+      r = render_gaussians(loaded, cam, cfg, use_sh=True)
+    torch.cuda.synchronize()
+    ply_launches = dict(sk.launch_counts)
+    assert int(r.num_overflow) == 0, r.overflow_by_cause.tolist()
+    assert torch.isfinite(r.image).all()
+    assert ply_launches["stream_forward"] == 1, ply_launches
+    err = float((r.image - image0).abs().max())
+    same = torch.equal(r.image, image0)
+    log(f"  render of the loaded scene, identity pose: "
+        f"{'bit for bit' if same else 'NOT bit for bit'} phase 3's image "
+        f"(max abs {err:.3e}); K1 launches {ply_launches['stream_forward']}")
+    assert err <= TOL, err
+    with torch.no_grad():
+      ms = benchmarked("render_ply 2M", lambda g: render_gaussians(
+          g, cam, cfg, use_sh=True), (loaded,), iters=5, warmup=1)
+    log(f"  render ms by utils.benchmarked (CUDA events, 5 calls after 1): "
+        f"{ms:.3f}")
+
+    # (b) Morton order of the 2M positions: card against CPU
+    pos = loaded.position
+    perm = argsort_morton(pos)
+    t0 = time.perf_counter()
+    perm_cpu = argsort_morton(pos.cpu())
+    t_cpu = time.perf_counter() - t0
+    assert torch.equal(perm.cpu(), perm_cpu)
+    ms_morton = benchmarked("argsort_morton 2M", argsort_morton, (pos,),
+                            iters=10, warmup=1)
+    log(f"  argsort_morton of {N_FULL} positions: the card's permutation "
+        f"equals the CPU's; card {ms_morton:.3f} ms (CUDA events), CPU "
+        f"{t_cpu * 1e3:.1f} ms (host clock, once)")
+    del loaded, r, pos, perm, perm_cpu
+
+    # (c) the examples on the card, every K1 and K2 call recorded and held
+    # against its twin on the same inputs (render_ply's default 1024x768
+    # overflows its capacities); then each example again with --device cpu
+    # on the same arguments
+    render_argv = [
+        ("64x48, 500 splats", [os.path.join(tmp, "small.ply"), "--synthetic",
+                               "500", "--image_size", "64,48"]),
+        ("1024x768, 100000 splats", [os.path.join(tmp, "default.ply"),
+                                     "--synthetic", "100000"])]
+    vis_dir = os.path.join(tmp, "vis_split")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_stream_calls() as calls:
+      renders = [render_ply.render(render_ply.parse_args(argv))
+                 for _, argv in render_argv]
+      before, after = vis_split.main(["--out", vis_dir])
+      loss, grads = test_backward.main([])
+    torch.cuda.synchronize()
+    examples_launches = dict(sk.launch_counts)
+    t_card = time.perf_counter() - t0
+    log(f"  the examples on the card: {t_card:.2f} s; K1 and K2 launches "
+        f"{examples_launches['stream_forward']} and "
+        f"{examples_launches['stream_backward']}")
+    assert examples_launches["stream_forward"] == 5, examples_launches
+    assert examples_launches["stream_backward"] == 1, examples_launches
+    assert (len(calls["K1"]), len(calls["K2"])) == (5, 1), calls.keys()
+    stream_calls_vs_twins(calls, "the examples")
+
+    # the CPU runs: the same mapping (rows, order, windows and drops) and
+    # the same overflow; render_ply's image differs by F8 (its projection
+    # in f32 on the two devices: near-isotropic axes, depth ranks), so its
+    # end-to-end difference is logged, while the 2D examples are held at
+    # TOL and their gradients at 1e-4 of each leaf's scale
+    t0 = time.perf_counter()
+    for (label, argv), got, (m_card, _, _) in zip(render_argv, renders,
+                                                  calls["K1"]):
+      with recorded_stream_calls() as cpu_calls:
+        want = render_ply.render(render_ply.parse_args([*argv, "--device",
+                                                        "cpu"]))
+      (m_cpu, _, _), = cpu_calls["K1"]
+      for f in dataclasses.fields(m_cpu):
+        x = getattr(m_cpu, f.name)
+        if isinstance(x, torch.Tensor) and not x.is_floating_point():
+          assert torch.equal(getattr(m_card, f.name).cpu(), x), (label, f.name)
+      diff = (got.image.cpu() - want.image).abs()
+      wm = float(got.image_weight.mean())
+      log(f"  render_ply {label}: image {tuple(got.image.shape)}, weight "
+          f"mean {wm:.4f}, overflow {int(got.num_overflow)}; the CPU run's "
+          f"mapping the same but for its float rows (max difference "
+          f"{float((m_card.table.cpu() - m_cpu.table).abs().max()):.3e}); "
+          f"its image max abs {float(diff.max()):.3e}, "
+          f"{int((diff.amax(-1) > TOL).sum())} of "
+          f"{diff.shape[0] * diff.shape[1]} pixels beyond TOL")
+      assert torch.isfinite(got.image).all() and wm > 0, (label, wm)
+    written = sorted(os.listdir(vis_dir))
+    assert [os.path.splitext(f)[0] for f in written] == [
+        "after_split", "before_split"], written
+    cpu_images = vis_split.main(["--out", os.path.join(tmp, "vis_cpu"),
+                                 "--device", "cpu"])
+    errs = [float((got.cpu() - want).abs().max())
+            for got, want in zip((before, after), cpu_images)]
+    log(f"  vis_split: {written}, against the CPU run max abs: before "
+        f"{errs[0]:.3e}, after {errs[1]:.3e} (tol {TOL:g})")
+    assert max(errs) <= TOL, errs
+    loss_cpu, grads_cpu = test_backward.main(["--device", "cpu"])
+    loss_err = abs(loss - loss_cpu) / abs(loss_cpu)
+    grad_errs = {}
+    for k, want in grads_cpu.items():
+      got = grads[k]
+      assert got.is_cuda and torch.isfinite(got).all(), k
+      grad_errs[k] = float((got.cpu() - want).abs().max()
+                           / max(float(want.abs().max()), 1e-30))
+    log(f"  test_backward: loss {loss:.6f}, {loss_err:.3e} relative from the "
+        f"CPU run (tol 1e-5); gradients' max abs difference over their "
+        f"largest magnitude (tol 1e-4): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grad_errs.items()))
+    assert loss_err <= 1e-5, loss_err
+    assert max(grad_errs.values()) <= 1e-4, grad_errs
+    log(f"  the examples' CPU runs: {time.perf_counter() - t0:.2f} s")
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s, on {card}")
+  return {k: {"ply_launches": ply_launches[k],
+              "examples_launches": examples_launches[k]}
+          for k in ("stream_forward", "stream_backward")}
 
 
 def main():
@@ -2980,7 +3275,7 @@ def main():
   exp_mosaic.reset_launch_counts()       # the probes lie on no path: 0
   exp_pack.reset_launch_counts()
   exp_pack2.reset_launch_counts()
-  k1, k1_floor, g3d, cams, cfg = phase_full(dev)
+  k1, k1_floor, g3d, cams, cfg, image0 = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
   sorted_cross_device_check(dev)
@@ -2995,6 +3290,7 @@ def main():
   pack_entries = phase_pack(dev, dict(exp_pack.probe_launch_counts))
   pack2_entries = phase_pack2(dev, dict(exp_pack2.probe_launch_counts))
   fit = phase_fit(dev, card)
+  ply_path = phase_ply(dev, g3d, cams, cfg, image0, card)
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
@@ -3007,14 +3303,17 @@ def main():
            source=src + "stream_forward.cu", replaces=ref + "412",
            library_ms=None, **k1, **k1_sharded,
            also_on=["band_sharded_forward", "band_sharded_grad",
-                    "fit_image_gaussians"],
-           fit_image_launches=fit["stream_forward"], with_band0=True),
+                    "fit_image_gaussians", "render_ply", "vis_split",
+                    "test_backward"],
+           fit_image_launches=fit["stream_forward"],
+           **ply_path["stream_forward"], with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
            library_ms=None, **k2, **k2_sharded,
-           also_on=["band_sharded_grad", "fit_image_gaussians"],
-           fit_image_launches=fit["stream_backward"], with_band0=True,
-           with_halo=True),
+           also_on=["band_sharded_grad", "fit_image_gaussians",
+                    "test_backward"],
+           fit_image_launches=fit["stream_backward"],
+           **ply_path["stream_backward"], with_band0=True, with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),

@@ -1210,3 +1210,82 @@ def test_pack2_smem_formulas_match_the_kernels(cuda):
       assert lib.tpu_splat_pack2_smem(0, p, w) == ep2.permuted_smem(p, w)
   for l in (4, 36, 64, 512, 1000):
     assert lib.tpu_splat_pack2_smem(1, l, 0) == ep2.lane_smem(l)
+
+
+def test_ply_load_on_card_equals_cpu(cuda, tmp_path):
+  """A checkpoint loaded onto the card (the default device) equals the
+  CPU load bit for bit, and saving from the card writes the same bytes."""
+  from tpu_splatting_torch.examples.render_ply import synthetic_checkpoint
+  from tpu_splatting_torch.io import ply
+  path = str(tmp_path / "s.ply")
+  synthetic_checkpoint(path, 5000)
+  on_card = ply.load_gaussians(path)
+  on_cpu = ply.load_gaussians(path, device="cpu")
+  for f in dataclasses.fields(on_cpu):
+    a = getattr(on_card, f.name)
+    assert a.is_cuda, f.name
+    assert torch.equal(a.cpu(), getattr(on_cpu, f.name)), f.name
+  ply.save_gaussians(str(tmp_path / "card.ply"), on_card)
+  assert (tmp_path / "card.ply").read_bytes() == open(path, "rb").read()
+
+
+def test_argsort_morton_on_card_equals_cpu(cuda):
+  """The Morton codes and the permutation on the card equal the CPU's
+  exactly, duplicate points (ties) included."""
+  from tpu_splatting_torch.misc.morton import argsort_morton, morton_codes_60
+  rng = np.random.default_rng(0)
+  base = rng.normal(0.0, 1.2, (20_000, 3)).astype(np.float32)
+  p = torch.from_numpy(base[rng.integers(0, 20_000, 200_000)])
+  for a, b in zip(morton_codes_60(p.to(cuda)), morton_codes_60(p)):
+    assert torch.equal(a.cpu(), b)
+  assert torch.equal(argsort_morton(p.to(cuda)).cpu(), argsort_morton(p))
+
+
+def test_render_ply_example_on_card(cuda, tmp_path):
+  """``render_ply`` on the card (its default device) at the JAX test's
+  setting: one K1 launch, and the image and weight equal the CPU run's
+  (the plain twins) to 1e-4, the overflow count exactly."""
+  from tpu_splatting_torch.examples import render_ply
+  argv = [str(tmp_path / "s.ply"), "--synthetic", "500", "--image_size",
+          "64,48", "--out", str(tmp_path / "r.npy")]
+  sk.reset_launch_counts()
+  wm = render_ply.main(argv)
+  assert sk.launch_counts["stream_forward"] == 1
+  assert wm > 0
+  img = np.load(tmp_path / "r.npy")
+  assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+  got = render_ply.render(render_ply.parse_args(argv))
+  want = render_ply.render(render_ply.parse_args([*argv, "--device", "cpu"]))
+  for name in ("image", "image_weight"):
+    torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                               atol=1e-4, rtol=0)
+  assert int(got.num_overflow) == int(want.num_overflow)
+
+
+def test_2d_examples_on_card(cuda, tmp_path):
+  """``vis_split`` and ``test_backward`` at their defaults on the card:
+  both images written, K1 and K2 launched.  Against the same examples
+  with ``--device cpu`` (the plain twins): the images to 1e-4, the loss
+  to 1e-5 relative, each gradient to 1e-4 of its largest magnitude."""
+  from tpu_splatting_torch.examples import test_backward, vis_split
+  sk.reset_launch_counts()
+  card = tmp_path / "card"
+  before, after = vis_split.main(["--out", str(card)])
+  loss, grads = test_backward.main([])
+  assert sk.launch_counts["stream_forward"] == 3
+  assert sk.launch_counts["stream_backward"] == 1
+  assert before.is_cuda
+  assert sorted(p.stem for p in card.iterdir()) == ["after_split",
+                                                    "before_split"]
+  cpu_images = vis_split.main(["--out", str(tmp_path / "cpu"), "--device",
+                               "cpu"])
+  for got, want in zip((before, after), cpu_images):
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+  loss_cpu, grads_cpu = test_backward.main(["--device", "cpu"])
+  assert loss > 0 and abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu)
+  for name, want in grads_cpu.items():
+    got = grads[name]
+    assert got.is_cuda and torch.isfinite(got).all(), name
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=0,
+                               msg=name)

@@ -114,3 +114,13 @@ def ndc_depth(depth, near: float, far: float):
 def inverse_ndc_depth(ndc, near: float, far: float):
   """NDC [0, 1] -> depth."""
   return 1.0 / ((1.0 - ndc) * (1.0 / near - 1.0 / far) + 1.0 / far)
+
+
+def unproject_points(uv, depth, T_image_world):
+  """Image uv + depth -> world points (inverse of the camera's
+  ``T_image_world``)."""
+  t_world_image = torch.linalg.inv(T_image_world)
+  depth = depth if depth.dim() == uv.dim() else depth[..., None]
+  homog = torch.cat([uv * depth, depth, torch.ones_like(depth)], -1)
+  world = homog @ t_world_image.transpose(-1, -2)
+  return world[..., :3] / world[..., 3:4]

@@ -3,7 +3,9 @@
 ``uniform_scene`` and ``heavy_scene`` are copies of the 2D scene
 generators of the repository's ``bench.py`` (plain numpy: the same seed
 gives the same arrays), and ``lift_to_3d`` is the counterpart of
-``bench.lift_to_3d``, which builds JAX arrays.
+``bench.lift_to_3d``, which builds JAX arrays.  ``random_2d_gaussians``
+is a copy of the test fixture of the same name (``tests/random_data.py``),
+the same numpy draws in the same order, as port tensors.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .data_types import Gaussians3D
+from .data_types import Gaussians2D, Gaussians3D
 from .perspective.params import CameraParams
 
 
@@ -110,3 +112,33 @@ def lift_to_3d(packed, depth_ndc, feats, image_size, near, far, fov_deg,
       T_camera_world=torch.eye(4, dtype=torch.float32, device=device),
       near_plane=near, far_plane=far, image_size=image_size)
   return g3d, cam
+
+
+def random_2d_gaussians(rng: np.random.Generator, n: int, image_size,
+                        num_channels: int = 3, scale_factor: float = 1.0,
+                        alpha_range=(0.1, 0.9), depth_range=(0.0, 1.0),
+                        dtype=torch.float32, device="cuda") -> Gaussians2D:
+  """n random 2D gaussians over the image, drawn from ``rng`` (an alpha
+  range ending at 1 gives an alpha logit of +inf, as the fixture does)."""
+  w, h = image_size
+  position = rng.random((n, 2)) * np.array([w, h])
+  depth = (rng.random(n) * (depth_range[1] - depth_range[0])
+           + depth_range[0])
+
+  density_scale = scale_factor * w / (1 + math.sqrt(n))
+  scaling = (rng.random((n, 2)) + 0.2) * density_scale
+
+  rotation = rng.standard_normal((n, 2))
+  rotation = rotation / np.linalg.norm(rotation, axis=-1, keepdims=True)
+
+  low, high = alpha_range
+  alpha = rng.random(n) * (high - low) + low
+  with np.errstate(divide="ignore"):
+    alpha_logit = np.log(alpha / (1 - alpha))
+
+  def t(x):
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+  return Gaussians2D(
+      position=t(position), depths=t(depth), log_scaling=t(np.log(scaling)),
+      rotation=t(rotation), alpha_logit=t(alpha_logit[:, None]),
+      feature=t(rng.random((n, num_channels))))

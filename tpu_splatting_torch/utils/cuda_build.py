@@ -1,11 +1,13 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written CUDA kernels (and its one
+host library, the PLY reader of ``io/ply.py``, built with ``g++``).
 
 Each kernel source under ``tpu_splatting_torch/csrc/`` has a plain C entry
 point.  At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into ``tpu_splatting_torch/_build/`` (named by a hash of the source and
 the shared headers, so an edited source rebuilds) and loaded with
-``ctypes``.  Nothing is built at import time, and nothing here runs unless
-a CUDA tensor reaches a kernel wrapper.
+``ctypes``.  Nothing is built at import time: a kernel is built when a
+CUDA tensor first reaches its wrapper, the PLY library at the first PLY
+read or write.
 
 The compositing kernels' wrappers plan each launch here in plain Python
 (``KernelPlan``: instantiation, threads, shared memory), so the CPU tests
@@ -35,6 +37,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on Hopper
 
@@ -54,10 +57,12 @@ def _nvcc() -> str:
                      "are built at first use and need the CUDA toolkit")
 
 
-def load_kernel_library(source: str) -> ctypes.CDLL:
-  """Compile ``csrc/<source>`` (once per source content) and load it.
-  Thread-safe; calls for different sources run their ``nvcc`` in
-  parallel."""
+def _load(source: str, command, flags, headers) -> ctypes.CDLL:
+  """Build ``csrc/<source>`` with ``command() + flags`` (once per content
+  of the source, its ``headers`` and the flags) into ``BUILD_DIR`` and
+  load it.  The output is named by that hash and written through a
+  temporary file and ``os.replace``, so processes building the same
+  source at once never load a half-written library."""
   with _locks_guard:
     lock = _locks.setdefault(source, threading.Lock())
   with lock:
@@ -65,10 +70,8 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
     if lib is not None:
       return lib
     path = os.path.join(CSRC, source)
-    sha = hashlib.sha1(repr(NVCC_FLAGS).encode())
-    # the source and every shared header it may include
-    for name in [source] + sorted(n for n in os.listdir(CSRC)
-                                  if n.endswith(".cuh")):
+    sha = hashlib.sha1(repr(flags).encode())
+    for name in [source] + list(headers):
       with open(os.path.join(CSRC, name), "rb") as fh:
         sha.update(fh.read())
     digest = sha.hexdigest()
@@ -79,16 +82,35 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
     if not os.path.exists(so):
       os.makedirs(BUILD_DIR, exist_ok=True)
       tmp = f"{so}.{os.getpid()}.tmp"
-      proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, path],
-                            capture_output=True, text=True)
+      cmd = [command(), *flags, "-o", tmp, path]
+      try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+      except OSError as e:
+        raise RuntimeError(f"{cmd[0]} failed to build {source}: {e}") from e
       if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed to build {source}:\n"
+                           f"{proc.stderr}")
       os.replace(tmp, so)
       log = proc.stderr
     build_info[source] = {"seconds": time.perf_counter() - t0, "log": log}
     lib = ctypes.CDLL(so)
     _libs[source] = lib
     return lib
+
+
+def load_kernel_library(source: str) -> ctypes.CDLL:
+  """Compile ``csrc/<source>`` with ``nvcc`` (once per source content and
+  shared headers) and load it.  Thread-safe; calls for different sources
+  run their ``nvcc`` in parallel."""
+  return _load(source, _nvcc, NVCC_FLAGS,
+               sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")))
+
+
+def load_host_library(source: str) -> ctypes.CDLL:
+  """Compile the host (CPU) source ``csrc/<source>`` with ``g++`` and load
+  it, as ``load_kernel_library`` does with ``nvcc``.  RuntimeError where
+  ``g++`` is missing or fails: there is no fallback."""
+  return _load(source, lambda: "g++", GXX_FLAGS, ())
 
 
 def load_kernel_libraries(sources) -> dict:
