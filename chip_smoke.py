@@ -208,6 +208,24 @@ Phases (any failure raises and exits non-zero):
    projection differs across the two devices), vis_split's two images
    within TOL, test_backward's loss to 1e-5 relative and each gradient
    to 1e-4 of its largest magnitude.
+13. The port's bench (``tpu_splatting_torch.bench`` and its companions in
+   ``tpu_splatting_torch.benchmarks``), called as functions, each path's
+   K1 / K2 (or K4-K7) launches counted from zero around it: (a) the heavy
+   scene at 2M splats, 2048x1536, group width 8, calibrated by the
+   bench (its cache under ``tpu_splatting_torch/_build``) and printed
+   field by field beside the repository's ``.bench_cal.json``
+   ``heavy_gw8_v7`` (and the uniform scene beside ``uniform_gw8_v7``; a
+   difference is printed, not failed on), its mapping's overflow [0, 0, 0,
+   0, 0], K1 and K2 once against their twins on that mapping (K1 max abs
+   <= TOL, K2 per column); (b) ``bench.run`` at its defaults, its JSON
+   line printed on a line of its own and no ``errors``, then the full
+   step's device busy share (``device_split``); (c) ``bench_4k`` at
+   4096x3072: depth_bits 12, 49,152 tiles, overflow 0, K1 and K2 against
+   their twins at those shapes, the map and forward + backward times; (d)
+   ``bench_components`` at its defaults (K4-K7 each launched, then held
+   against their twins on that mapping) and ``bench_stream`` (K1 and K2
+   against their twins on its mapping); (e) ``check_card``, every
+   quantity PASS.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -217,6 +235,8 @@ K6 and K7 with ``device_ms`` and ``library_device_ms`` too, K1 and K2
 with their launches on phase 11's default-size run
 (``fit_image_launches``) and on phase 12's render of the loaded
 checkpoint (``ply_launches``) and its examples (``examples_launches``),
+and on phase 13's bench paths (``bench_launches``, by path, and
+``bench_max_abs_err``; K4-K7 ``bench_components_launches``),
 K5 with its run-to-run difference, and the two floor probes, the
 row-gather probe, the four exp_mosaic probes (each second
 instantiation's times as fields of their own), the ten exp_pack entries
@@ -311,24 +331,11 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
   long run, every session lost one record of the 4-microsecond halo
   merge; a spin kernel (``torch.cuda._sleep``) before and after the timed
   calls, left out of the counts and times, ended those losses."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
   seen = []
   for _ in range(attempts):
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      torch.cuda._sleep(SPIN_CYCLES)
-      for _ in range(reps):
-        fn()
-      torch.cuda._sleep(SPIN_CYCLES)
-      torch.cuda.synchronize()
-    us, count = {}, {}
-    for e in prof.events():
-      if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-        us[e.name] = us.get(e.name, 0.0) + e.device_time_total
-        count[e.name] = count.get(e.name, 0) + 1
+    us, count = profiled_kernels(fn, reps)
     whole = bool(count) and all(k % reps == 0 for k in count.values())
     if kernels is not None:
       whole = whole and sum(count.values()) == reps * kernels
@@ -337,6 +344,44 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
     seen.append(count)
   raise AssertionError(f"torch.profiler lost kernel records in {attempts} "
                        f"sessions of {reps} calls: {seen}")
+
+
+def profiled_kernels(fn, reps):
+  """One torch.profiler session of reps fn() calls between two spin
+  kernels: ({CUDA kernel name: device us}, {name: records}), the spin
+  kernels left out."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(SPIN_CYCLES)
+    for _ in range(reps):
+      fn()
+    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize()
+  us, count = {}, {}
+  for e in prof.events():
+    if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+      us[e.name] = us.get(e.name, 0.0) + e.device_time_total
+      count[e.name] = count.get(e.name, 0) + 1
+  return us, count
+
+
+def step_split(fn, attempts=8):
+  """{CUDA kernel name: device ms} of one fn() call of a step that
+  launches many kernels, or None.  Sessions of one call cannot show a
+  lost record by their counts alone (device_split), so a session counts
+  once a second session recorded the same kernels the same number of
+  times: records are lost at random, not alike twice."""
+  fn()
+  torch.cuda.synchronize()
+  seen = []
+  for _ in range(attempts):
+    us, count = profiled_kernels(fn, 1)
+    if count in seen:
+      return {k: t / 1e3 for k, t in us.items()}
+    seen.append(count)
+  return None
 
 
 class Stages:
@@ -850,6 +895,7 @@ def cross_device_check(dev):
   from tpu_splatting_torch.rasterizer.stream_function import (
       stream_map_with_config)
   from tpu_splatting_torch.renderer import render_projected
+  from tpu_splatting_torch.benchmarks.check_card import mapping_differences
   from tpu_splatting_torch.scenes import lift_to_3d, uniform_scene
   from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
   size = (256, 192)
@@ -872,10 +918,8 @@ def cross_device_check(dev):
             for d in (dev, "cpu")]
     r_cpu = render_projected(in_view.cpu(), g2d.cpu(), sh.cpu(),
                              depths.cpu(), cam.to("cpu"), cfg)
-  for name in ("table", "pid_order", "desc", "strip_blk", "run_starts",
-               "overflow", "grad_src", "dup_src", "dup_pid"):
-    a, b = getattr(maps[0], name).cpu(), getattr(maps[1], name)
-    assert torch.equal(a, b), f"mapper differs between card and CPU: {name}"
+  differ = mapping_differences(*maps)
+  assert not differ, f"mapper differs between card and CPU: {differ}"
   err = torch.cat([(r.image.cpu() - r_cpu.image).abs().flatten(),
                    (r.image_weight.cpu() - r_cpu.image_weight).abs()
                    .flatten()])
@@ -3261,6 +3305,235 @@ def phase_ply(dev, g3d, cams, cfg, image0, card):
           for k in ("stream_forward", "stream_backward")}
 
 
+
+# the bench paths of phase 13 that launch K1 and K2
+BENCH_PATHS = ("bench", "bench_4k", "bench_stream", "check_card")
+# the calibration fields that .bench_cal.json records for each scene
+REF_CAL_FIELDS = ("num_slabs", "slab_cap", "w_max", "run_cap", "strip_cap",
+                  "big_tile_window", "wide_cap", "dup_cap", "num_wide",
+                  "num_dup_rows", "max_tile_rows", "max_strip_rows",
+                  "max_run", "max_slab_rows", "overflow")
+
+
+def cal_beside_reference(label, cal, ref_key):
+  """The port's calibration beside the repository's ``.bench_cal.json``
+  entry ``ref_key`` (the JAX package's, read as data), field by field.  A
+  difference is printed, not failed on.  Returns the differing fields."""
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      ".bench_cal.json")
+  with open(path) as fh:
+    ref = json.load(fh).get(ref_key, {})
+  differ = [k for k in REF_CAL_FIELDS if cal.get(k) != ref.get(k)]
+  log(f"  {label} calibration, port against .bench_cal.json {ref_key}: " +
+      ", ".join(f"{k} {cal.get(k)}" + ("" if k not in differ else
+                                        f" [reference {ref.get(k)}]")
+                for k in REF_CAL_FIELDS))
+  log(f"  {label}: {len(differ)} fields differ: {differ}")
+  return differ
+
+
+def twins_once(m, config, label):
+  """K1, then K2 on a seeded cotangent of K1's image (the heuristics and
+  visibility columns), each once against its twin on the same inputs: K1
+  max abs <= TOL, K2 per column <= 1e-4 * max |twin column| + 1e-6.
+  Returns (K1 error, K2 error); each twin runs once, its time logged (host
+  clock with synchronisation)."""
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  hcfg = dataclasses.replace(config, **HEUR)
+  img = sk.stream_forward(m, config)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  want = sk.stream_forward_reference(m, config)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter() - t0
+  assert torch.isfinite(img).all(), f"{label}: non-finite K1 output"
+  e1 = float((img - want).abs().max())
+  del want
+  gen = torch.Generator(device=img.device).manual_seed(5)
+  gimg = torch.randn(img.shape, generator=gen, device=img.device)
+  got = sk.stream_backward(m, img, gimg, hcfg)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  want = sk.stream_backward_reference(m, img, gimg, hcfg)
+  torch.cuda.synchronize()
+  t2 = time.perf_counter() - t0
+  assert torch.isfinite(got).all(), f"{label}: non-finite K2 output"
+  err_col = (got - want).abs().amax(0)
+  tol_col = 1e-4 * want.abs().amax(0) + 1e-6
+  e2 = float(err_col.max())
+  log(f"  {label}: K1 max_abs_err {e1:.3e} (tol {TOL:g}), twin {t1:.1f} s; "
+      f"K2 ({tuple(got.shape)} buffer) max_abs_err {e2:.3e}, worst column "
+      f"at {float((err_col / tol_col).max()):.3f} of its tolerance, twin "
+      f"{t2:.1f} s")
+  assert e1 <= TOL, f"{label}: K1 disagrees with its twin ({e1})"
+  assert bool((err_col <= tol_col).all()), (
+      f"{label}: K2 disagrees with its twin", err_col.tolist(),
+      tol_col.tolist())
+  return e1, e2
+
+
+def mapping_summary(m):
+  return (f"{m.num_tiles} tiles ({m.tiles_wide}x{m.tiles_high}), "
+          f"depth_bits {m.depth_bits}, group width {m.group_width}, "
+          f"num_slabs {m.num_slabs}, slab_cap {m.slab_cap}, w_max "
+          f"{m.w_max}, run_cap {m.run_cap}, strip_cap {m.strip_cap}, dup_cap "
+          f"{m.dup_cap}, table {tuple(m.table.shape)}, overflow "
+          f"{m.overflow.tolist()}")
+
+
+def phase_bench(dev, card):
+  """Phase 13: the port's bench (``tpu_splatting_torch.bench`` and its
+  companions in ``tpu_splatting_torch.benchmarks``), called as functions.
+  Returns {"K1": .., "K2": .., "sorted": ..}: each kernel's launches on
+  each bench path (counted from zero around the path) and its largest
+  error against its twin there."""
+  from tpu_splatting_torch import bench
+  from tpu_splatting_torch.benchmarks import (bench_4k, bench_components,
+                                              bench_stream, check_card)
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.utils.benchmarked import benchmarked
+  t_phase = time.perf_counter()
+  stream_launches, errs = {}, {"K1": [], "K2": []}
+
+  def twins(m, cfg, label):
+    e1, e2 = twins_once(m, cfg, label)
+    errs["K1"].append(e1)
+    errs["K2"].append(e2)
+
+  def stream_counts(label, fn):
+    sk.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    stream_launches[label] = {k: sk.launch_counts[k] for k in
+                              ("stream_forward", "stream_backward")}
+    assert min(stream_launches[label].values()) >= 1, (
+        label, stream_launches[label])
+    return out
+
+  # (a) the heavy scene at 2M splats: calibration, mapping, twins
+  log(f"phase 13 (a): heavy scene, {bench.N} splats {bench.IMAGE_SIZE}, "
+      "group width 8")
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  s = bench.prepare_scene("heavy", *bench.to_device(
+      dev, *bench.scene_arrays("heavy")), bench.IMAGE_SIZE, 8)
+  torch.cuda.synchronize()
+  log(f"  calibration and mapping {time.perf_counter() - t0:.1f} s: "
+      f"{mapping_summary(s.mapping)}")
+  heavy_differ = cal_beside_reference("heavy", s.cal, "heavy_gw8_v7")
+  assert s.mapping.overflow.tolist() == [0] * 5, s.mapping.overflow.tolist()
+  twins(s.mapping, s.config, "heavy 2M")
+  log(f"  peak device memory of (a): "
+      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+  del s
+  s = bench.prepare_scene("uniform", *bench.to_device(
+      dev, *bench.scene_arrays("uniform")), bench.IMAGE_SIZE, 8)
+  uniform_differ = cal_beside_reference("uniform", s.cal, "uniform_gw8_v7")
+  del s
+  arrays = bench.scene_arrays("uniform")
+  _, g3d, cam, _ = bench.prepare_full("uniform", *arrays, 8, device=dev)
+  full_cal = bench.calibrate_full("uniform", g3d, cam, bench.to_device(
+      dev, arrays[2])[0], bench.IMAGE_SIZE, 8)
+  full_differ = cal_beside_reference("uniform full", full_cal,
+                                     "uniform_full_gw8_v7")
+  del g3d, cam
+
+  # (b) bench.py's whole main, its JSON line, the full step's busy share
+  log("phase 13 (b): tpu_splatting_torch.bench at its defaults")
+  t0 = time.perf_counter()
+  out = stream_counts("bench", lambda: bench.run(dev))
+  log(f"  bench.run: {time.perf_counter() - t0:.1f} s; K1 and K2 launches "
+      f"{stream_launches['bench']}")
+  log(json.dumps(out))
+  assert "errors" not in out, out["errors"]
+  step, g3d, _, _ = bench.prepare_full(
+      "uniform", *bench.scene_arrays("uniform"), 8, device=dev)
+  call = cuda_ms(lambda: step(g3d), 3)
+  split = step_split(lambda: step(g3d))
+  if split is None:
+    log(f"  the full step: {call:.3f} ms by events over 3; its device busy "
+        f"share not measured (no two profiler sessions recorded the same "
+        f"kernels)")
+  else:
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  the full step: {call:.3f} ms by events over 3; device busy "
+        f"{busy:.3f} ms ({busy / call:.1%}, idle {1 - busy / call:.1%}) in "
+        f"{len(split)} kernels; the longest: " + ", ".join(
+            f"{short_kernel_name(k)} {v:.4f}" for k, v in top))
+  del step, g3d
+
+  # (c) bench_4k: the depth12 key layout at 4096x3072
+  log(f"phase 13 (c): bench_4k, {bench_4k.N} splats {bench_4k.IMAGE_SIZE}")
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  s = bench_4k.prepare(dev)
+  torch.cuda.synchronize()
+  m = s.mapping
+  log(f"  calibration and mapping {time.perf_counter() - t0:.1f} s: "
+      f"{mapping_summary(m)}")
+  assert (m.depth_bits, m.num_tiles, int(m.num_overflow)) == (12, 49152, 0)
+  twins(m, s.config, "4096x3072 depth12")
+  r4 = stream_counts("bench_4k", lambda: bench_4k.run(s))
+  log(f"  4k frame {r4['frame_ms']:.3f} ms: map {r4['map_ms']:.3f}, "
+      f"fwd+bwd {r4['raster_ms']:.3f}; K1 and K2 launches "
+      f"{stream_launches['bench_4k']}; peak device memory "
+      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+  del s, m
+
+  # (d) bench_components (K4-K7) and bench_stream (K1, K2)
+  log("phase 13 (d): bench_components and bench_stream at their defaults")
+  kk.reset_launch_counts()
+  layout.reset_launch_counts()
+  bench_components.bench_projection(device=dev)
+  bench_components.bench_sh(device=dev)
+  bench_components.bench_tilemapper(device=dev)
+  rs = bench_components.rasterizer_setup(device=dev)
+  for backward in (False, True):
+    benchmarked(f"rasterize {'fwd+bwd' if backward else 'fwd'} n=1000000",
+                bench_components.rasterizer_step(rs, backward),
+                (rs.packed, rs.feats), iters=5)
+  torch.cuda.synchronize()
+  sorted_launches = {**kk.launch_counts, **layout.launch_counts}
+  log(f"  bench_components launches: {sorted_launches}")
+  for k in ("sorted_forward", "sorted_backward", "window_copy",
+            "segment_sum_sorted"):
+    assert sorted_launches[k] >= 1, (k, sorted_launches)
+  m, cfg = rs.mapping, rs.config
+  e4 = sorted_forward_vs_twin(m, cfg, "components", 1)[0]
+  e5, _, _, gout, _ = sorted_backward_vs_twin(m, cfg, "components", 1)
+  e7 = layout_vs_twins(m, gout, "components")
+  del rs, m, gout
+  ss = bench_stream.setup(device=dev)
+  stream_counts("bench_stream", lambda: bench_stream.run(ss, iters=3))
+  log(f"  bench_stream K1 and K2 launches {stream_launches['bench_stream']}")
+  twins(ss.mapping, ss.config, "bench_stream")
+  del ss
+
+  # (e) check_card
+  log("phase 13 (e): check_card")
+  ok = stream_counts("check_card", lambda: check_card.run(dev))
+  assert ok, "check_card: a quantity FAILed"
+  log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s, on {card}; "
+      f"calibration fields differing from .bench_cal.json: heavy "
+      f"{heavy_differ}, uniform {uniform_differ}, uniform full "
+      f"{full_differ}")
+  return {"K1": {"bench_launches": {k: v["stream_forward"] for k, v in
+                                    stream_launches.items()},
+                 "bench_max_abs_err": max(errs["K1"])},
+          "K2": {"bench_launches": {k: v["stream_backward"] for k, v in
+                                    stream_launches.items()},
+                 "bench_max_abs_err": max(errs["K2"])},
+          "sorted": {k: {"bench_components_launches": sorted_launches[k],
+                         "bench_components_max_abs_err": err}
+                     for k, err in (("sorted_forward", e4),
+                                    ("sorted_backward", e5),
+                                    ("window_copy", 0.0),
+                                    ("segment_sum_sorted", e7))}}
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -3291,8 +3564,11 @@ def main():
   pack2_entries = phase_pack2(dev, dict(exp_pack2.probe_launch_counts))
   fit = phase_fit(dev, card)
   ply_path = phase_ply(dev, g3d, cams, cfg, image0, card)
+  bench_paths = phase_bench(dev, card)
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
+    if e["name"] in bench_paths["sorted"]:
+      e.update(bench_paths["sorted"][e["name"]], also_on=["bench_components"])
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
       f"{e4:.3e} K5 {e5:.3e} K7 {e7:.3e}")
   log(card)                    # name, power limit as nvidia-smi prints them
@@ -3304,16 +3580,18 @@ def main():
            library_ms=None, **k1, **k1_sharded,
            also_on=["band_sharded_forward", "band_sharded_grad",
                     "fit_image_gaussians", "render_ply", "vis_split",
-                    "test_backward"],
+                    "test_backward", *BENCH_PATHS],
            fit_image_launches=fit["stream_forward"],
-           **ply_path["stream_forward"], with_band0=True),
+           **ply_path["stream_forward"], **bench_paths["K1"],
+           with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
            library_ms=None, **k2, **k2_sharded,
            also_on=["band_sharded_grad", "fit_image_gaussians",
-                    "test_backward"],
+                    "test_backward", *BENCH_PATHS],
            fit_image_launches=fit["stream_backward"],
-           **ply_path["stream_backward"], with_band0=True, with_halo=True),
+           **ply_path["stream_backward"], **bench_paths["K2"],
+           with_band0=True, with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),

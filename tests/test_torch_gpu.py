@@ -151,6 +151,17 @@ def test_backward_kernel_rejects_bad_inputs(cuda):
   check_backward(cuda, mapping_for(cuda, config4), config4)
 
 
+def test_backward_kernel_rejects_rows_past_int32(cuda):
+  """K2 numbers its gradient-buffer rows (homes x run_cap) in 32-bit ints:
+  a mapping whose buffer would pass 2^31 rows raises on the host."""
+  config = RasterConfig()
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  big = dataclasses.replace(m, run_cap=(1 << 31) // m.num_tiles + 1)
+  with pytest.raises(ValueError, match="32-bit"):
+    sk.stream_backward(big, img, img, config)
+
+
 # Past the headline's shapes: feature counts above the largest register
 # instantiation (56: the generic one), tiles that are not whole warps
 # (tile 4), tiles of more than 256 pixels (tile 32: the generic one), with

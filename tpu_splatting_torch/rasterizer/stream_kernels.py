@@ -649,9 +649,14 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   check_smem("stream_backward", plan, f"slab_cap {mapping.slab_cap}, w_max "
              f"{mapping.w_max}, {f} features, {slabw} gradient columns, "
              f"{pix} pixels")
+  homes = t + (2 * mapping.tiles_wide if halo else 0)
+  if homes * mapping.run_cap >= (1 << 31):
+    # the kernel's gradient-row numbers (r_rows, grow) are 32-bit ints
+    raise ValueError(f"stream_backward: {homes} homes x run_cap "
+                     f"{mapping.run_cap} = {homes * mapping.run_cap} "
+                     f"gradient rows pass the kernel's 32-bit row index")
   lib = _bwd_kernel()
-  bands = t + (2 * mapping.tiles_wide if halo else 0)
-  out = torch.zeros((bands * mapping.run_cap + 1, slabw),
+  out = torch.zeros((homes * mapping.run_cap + 1, slabw),
                     dtype=torch.float32, device=dev)
   with launch_stream(dev) as stream:
     err = lib.tpu_splat_stream_backward(
