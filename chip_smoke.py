@@ -217,15 +217,19 @@ Phases (any failure raises and exits non-zero):
    ``heavy_gw8_v7`` (and the uniform scene beside ``uniform_gw8_v7``; a
    difference is printed, not failed on), its mapping's overflow [0, 0, 0,
    0, 0], K1 and K2 once against their twins on that mapping (K1 max abs
-   <= TOL, K2 per column); (b) ``bench.run`` at its defaults, its JSON
-   line printed on a line of its own and no ``errors``, then the full
-   step's device busy share (``device_split``); (c) ``bench_4k`` at
+   <= TOL, K2 per column), the heavy map's device busy share
+   (``device_split``), and K1 and K2 against their twins on the uniform
+   scene's mapping too; (b) ``bench.run`` at its defaults, its JSON
+   line printed on a line of its own and no ``errors``, then one full
+   step with its K1 and K2 calls recorded and held against their twins,
+   and the step's device busy share; (c) ``bench_4k`` at
    4096x3072: depth_bits 12, 49,152 tiles, overflow 0, K1 and K2 against
    their twins at those shapes, the map and forward + backward times; (d)
    ``bench_components`` at its defaults (K4-K7 each launched, then held
    against their twins on that mapping) and ``bench_stream`` (K1 and K2
    against their twins on its mapping); (e) ``check_card``, every
-   quantity PASS.
+   quantity PASS, and its card's K1 and K2 calls held against their
+   twins.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -316,21 +320,22 @@ def device_ms(fn, reps=20, kernels=None):
   return sum(device_split(fn, reps, kernels).values())
 
 
-SPIN_CYCLES = 50_000   # device_split's session bounds: ~25 us each
-
-
 def device_split(fn, reps=20, kernels=None, attempts=5):
   """{CUDA kernel name: its device ms per fn() call}, under torch.profiler
-  over reps calls.  A profiling session on the card's machine now and then
-  loses kernel records (all of them, or some), which would read as too
-  short a time.  So a session counts only if each kernel name it recorded
-  ran a whole multiple of reps times (every call launches the same
-  kernels) and, where the caller gives ``kernels`` (the device operations
-  one call launches), reps * kernels times in all.  A session that fails
-  is run again, up to ``attempts`` times; then this raises.  Late in a
-  long run, every session lost one record of the 4-microsecond halo
-  merge; a spin kernel (``torch.cuda._sleep``) before and after the timed
-  calls, left out of the counts and times, ended those losses."""
+  over reps calls (``utils.benchmarked.profiled_kernels``).  A profiling
+  session on the card's machine now and then loses kernel records (all
+  of them, or some), which would read as too short a time.  So a session
+  counts only if each kernel name it recorded ran a whole multiple of
+  reps times (every call launches the same kernels) and, where the
+  caller gives ``kernels`` (the device operations one call launches),
+  reps * kernels times in all.  With reps 1 and no ``kernels`` (a step
+  that launches many kernels), every count is whole, so a session counts
+  once an earlier one recorded the same kernels the same number of
+  times: records are lost at random, not alike twice.  A session that
+  fails is run again, up to ``attempts`` times; then this raises.  Late
+  in a long run, every session lost one record of the 4-microsecond halo
+  merge; the spin kernels around the timed calls ended those losses."""
+  from tpu_splatting_torch.utils.benchmarked import profiled_kernels
   fn()
   torch.cuda.synchronize()
   seen = []
@@ -339,49 +344,13 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
     whole = bool(count) and all(k % reps == 0 for k in count.values())
     if kernels is not None:
       whole = whole and sum(count.values()) == reps * kernels
+    elif reps == 1:
+      whole = whole and count in seen
     if whole:
       return {k: t / reps / 1e3 for k, t in us.items()}
     seen.append(count)
   raise AssertionError(f"torch.profiler lost kernel records in {attempts} "
                        f"sessions of {reps} calls: {seen}")
-
-
-def profiled_kernels(fn, reps):
-  """One torch.profiler session of reps fn() calls between two spin
-  kernels: ({CUDA kernel name: device us}, {name: records}), the spin
-  kernels left out."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    torch.cuda._sleep(SPIN_CYCLES)
-    for _ in range(reps):
-      fn()
-    torch.cuda._sleep(SPIN_CYCLES)
-    torch.cuda.synchronize()
-  us, count = {}, {}
-  for e in prof.events():
-    if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-      us[e.name] = us.get(e.name, 0.0) + e.device_time_total
-      count[e.name] = count.get(e.name, 0) + 1
-  return us, count
-
-
-def step_split(fn, attempts=8):
-  """{CUDA kernel name: device ms} of one fn() call of a step that
-  launches many kernels, or None.  Sessions of one call cannot show a
-  lost record by their counts alone (device_split), so a session counts
-  once a second session recorded the same kernels the same number of
-  times: records are lost at random, not alike twice."""
-  fn()
-  torch.cuda.synchronize()
-  seen = []
-  for _ in range(attempts):
-    us, count = profiled_kernels(fn, 1)
-    if count in seen:
-      return {k: t / 1e3 for k, t in us.items()}
-    seen.append(count)
-  return None
 
 
 class Stages:
@@ -3084,8 +3053,9 @@ def stream_calls_vs_twins(calls, label):
   """Each recorded K1 output against stream_forward_reference on its
   inputs (max abs <= TOL), each K2 buffer against stream_backward_reference
   per column (<= 1e-4 * max |twin column| + 1e-6), as kernel_vs_twin and
-  backward_vs_twin hold them."""
+  backward_vs_twin hold them.  Returns the largest K1 and K2 errors."""
   from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  e1 = e2 = 0.0
   for mapping, config, out in calls["K1"]:
     err = float((out.detach() - sk.stream_forward_reference(mapping, config))
                 .abs().max())
@@ -3093,6 +3063,7 @@ def stream_calls_vs_twins(calls, label):
         f"{int(mapping.num_overflow)}: max_abs_err {err:.3e} against its twin"
         f" on the same inputs (tol {TOL:g})")
     assert err <= TOL, (label, err)
+    e1 = max(e1, err)
   for mapping, image, g_image, config, out in calls["K2"]:
     want = sk.stream_backward_reference(mapping, image, g_image, config)
     err_col = (out.detach() - want).abs().amax(0)
@@ -3101,6 +3072,8 @@ def stream_calls_vs_twins(calls, label):
         f"{float(err_col.max()):.3e}, worst column at "
         f"{float((err_col / tol_col).max()):.3f} of its tolerance")
     assert bool((err_col <= tol_col).all()), (label, err_col.tolist())
+    e2 = max(e2, float(err_col.max()))
+  return e1, e2
 
 
 def phase_ply(dev, g3d, cams, cfg, image0, card):
@@ -3372,6 +3345,19 @@ def twins_once(m, config, label):
   return e1, e2
 
 
+def log_busy(label, fn):
+  """fn()'s time by CUDA events over 3 calls beside the device's busy
+  time in one call (``device_split``) and its five longest kernels."""
+  call = cuda_ms(fn, 3)
+  split = device_split(fn, reps=1, attempts=8)
+  busy = sum(split.values())
+  top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
+  log(f"  {label}: {call:.3f} ms by events over 3; device busy "
+      f"{busy:.3f} ms ({busy / call:.1%}, idle {1 - busy / call:.1%}) in "
+      f"{len(split)} kernels; the longest: " + ", ".join(
+          f"{short_kernel_name(k)} {v:.4f}" for k, v in top))
+
+
 def mapping_summary(m):
   return (f"{m.num_tiles} tiles ({m.tiles_wide}x{m.tiles_high}), "
           f"depth_bits {m.depth_bits}, group width {m.group_width}, "
@@ -3397,10 +3383,9 @@ def phase_bench(dev, card):
   t_phase = time.perf_counter()
   stream_launches, errs = {}, {"K1": [], "K2": []}
 
-  def twins(m, cfg, label):
-    e1, e2 = twins_once(m, cfg, label)
-    errs["K1"].append(e1)
-    errs["K2"].append(e2)
+  def keep(e1_e2):                # (K1 error, K2 error) against twins
+    errs["K1"].append(e1_e2[0])
+    errs["K2"].append(e1_e2[1])
 
   def stream_counts(label, fn):
     sk.reset_launch_counts()
@@ -3424,21 +3409,20 @@ def phase_bench(dev, card):
       f"{mapping_summary(s.mapping)}")
   heavy_differ = cal_beside_reference("heavy", s.cal, "heavy_gw8_v7")
   assert s.mapping.overflow.tolist() == [0] * 5, s.mapping.overflow.tolist()
-  twins(s.mapping, s.config, "heavy 2M")
+  keep(twins_once(s.mapping, s.config, "heavy 2M"))
   log(f"  peak device memory of (a): "
       f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+  log_busy("heavy map", lambda: s.map_f(*s.map_args))
   del s
   s = bench.prepare_scene("uniform", *bench.to_device(
       dev, *bench.scene_arrays("uniform")), bench.IMAGE_SIZE, 8)
   uniform_differ = cal_beside_reference("uniform", s.cal, "uniform_gw8_v7")
+  keep(twins_once(s.mapping, s.config, "uniform 2M"))
   del s
-  arrays = bench.scene_arrays("uniform")
-  _, g3d, cam, _ = bench.prepare_full("uniform", *arrays, 8, device=dev)
-  full_cal = bench.calibrate_full("uniform", g3d, cam, bench.to_device(
-      dev, arrays[2])[0], bench.IMAGE_SIZE, 8)
+  _, _, full_cal = bench.lift_and_calibrate(
+      "uniform", *bench.scene_arrays("uniform"), 8, device=dev)
   full_differ = cal_beside_reference("uniform full", full_cal,
                                      "uniform_full_gw8_v7")
-  del g3d, cam
 
   # (b) bench.py's whole main, its JSON line, the full step's busy share
   log("phase 13 (b): tpu_splatting_torch.bench at its defaults")
@@ -3450,19 +3434,11 @@ def phase_bench(dev, card):
   assert "errors" not in out, out["errors"]
   step, g3d, _, _ = bench.prepare_full(
       "uniform", *bench.scene_arrays("uniform"), 8, device=dev)
-  call = cuda_ms(lambda: step(g3d), 3)
-  split = step_split(lambda: step(g3d))
-  if split is None:
-    log(f"  the full step: {call:.3f} ms by events over 3; its device busy "
-        f"share not measured (no two profiler sessions recorded the same "
-        f"kernels)")
-  else:
-    busy = sum(split.values())
-    top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
-    log(f"  the full step: {call:.3f} ms by events over 3; device busy "
-        f"{busy:.3f} ms ({busy / call:.1%}, idle {1 - busy / call:.1%}) in "
-        f"{len(split)} kernels; the longest: " + ", ".join(
-            f"{short_kernel_name(k)} {v:.4f}" for k, v in top))
+  with recorded_stream_calls() as calls:
+    step(g3d)
+  keep(stream_calls_vs_twins(calls, "uniform full step"))
+  del calls
+  log_busy("the full step", lambda: step(g3d))
   del step, g3d
 
   # (c) bench_4k: the depth12 key layout at 4096x3072
@@ -3475,7 +3451,7 @@ def phase_bench(dev, card):
   log(f"  calibration and mapping {time.perf_counter() - t0:.1f} s: "
       f"{mapping_summary(m)}")
   assert (m.depth_bits, m.num_tiles, int(m.num_overflow)) == (12, 49152, 0)
-  twins(m, s.config, "4096x3072 depth12")
+  keep(twins_once(m, s.config, "4096x3072 depth12"))
   r4 = stream_counts("bench_4k", lambda: bench_4k.run(s))
   log(f"  4k frame {r4['frame_ms']:.3f} ms: map {r4['map_ms']:.3f}, "
       f"fwd+bwd {r4['raster_ms']:.3f}; K1 and K2 launches "
@@ -3509,13 +3485,19 @@ def phase_bench(dev, card):
   ss = bench_stream.setup(device=dev)
   stream_counts("bench_stream", lambda: bench_stream.run(ss, iters=3))
   log(f"  bench_stream K1 and K2 launches {stream_launches['bench_stream']}")
-  twins(ss.mapping, ss.config, "bench_stream")
+  keep(twins_once(ss.mapping, ss.config, "bench_stream"))
   del ss
 
   # (e) check_card
   log("phase 13 (e): check_card")
-  ok = stream_counts("check_card", lambda: check_card.run(dev))
+  with recorded_stream_calls() as calls:
+    ok = stream_counts("check_card", lambda: check_card.run(dev))
   assert ok, "check_card: a quantity FAILed"
+  # its card calls, each against its twin (check_card itself holds the
+  # card against the CPU at the reference's looser tolerances)
+  keep(stream_calls_vs_twins({k: [c for c in v if c[0].table.is_cuda]
+                              for k, v in calls.items()}, "check_card"))
+  del calls
   log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s, on {card}; "
       f"calibration fields differing from .bench_cal.json: heavy "
       f"{heavy_differ}, uniform {uniform_differ}, uniform full "

@@ -92,6 +92,7 @@ def test_main_on_the_cpu(capsys):
             "heavy_raster_ms", "heavy_ms", "uniform_full_ms", "vs_baseline"):
     assert k in out, k
   assert "errors" not in out and "stream_passes" not in out
+  assert not [k for k in out if k.endswith("_cal")], out
   assert out["value"] == out["uniform_full_ms"] > 0
   assert out["uniform_ms"] == out["uniform_map_ms"] + out["uniform_raster_ms"]
   with open(tbench.CAL_PATH) as fh:

@@ -12,11 +12,12 @@
   tile 16 (16,384 tiles, past 16,383) with 300 splats of distinct 12-bit
   depth keys, mapped by both ``stream_map``s with the port's calibrated
   capacities: ``depth_bits`` 12 on both sides and every integer field
-  equal.  The reference's interpret-mode forward and backward take about
-  1 s a group of 8 tiles here (2,048 groups), so the compositing in this
-  layout is held at a small image with ``depth_bits=12``
-  (tests/test_torch_bench.py), and at 49,152 tiles on the card against
-  the twins (``chip_smoke.py`` phase 13).
+  equal.  The forward and backward on that scene against the reference
+  take about 650 s on the CPU (the reference's interpret mode walks 2,048
+  groups of 8 tiles), so they are the ``slow`` test of
+  tests/test_torch_bench.py; tier 1 holds them at a small image with
+  ``depth_bits=12``, and ``chip_smoke.py`` phase 13 at 49,152 tiles on
+  the card against the twins.
 """
 
 import dataclasses

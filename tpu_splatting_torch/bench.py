@@ -250,7 +250,7 @@ def bench_scene(name: str, packed, depth, feats, gw: int,
   ms_raster = benchmarked(f"{name} fwd+bwd", s.fwd_bwd, s.raster_args,
                           iters=iters)
   return {f"{name}_map_ms": ms_map, f"{name}_raster_ms": ms_raster,
-          f"{name}_ms": ms_map + ms_raster, f"{name}_cal": s.caps}
+          f"{name}_ms": ms_map + ms_raster}
 
 
 def calibrate_full(name: str, g3d, cam, feats, image_size, gw: int,
@@ -300,16 +300,26 @@ def make_full_step(cam, config: RasterConfig, tgt, mask):
   return step
 
 
-def prepare_full(name: str, packed, depth, feats, gw: int,
-                 image_size=IMAGE_SIZE, device="cuda"):
+def lift_and_calibrate(name: str, packed, depth, feats, gw: int,
+                       image_size=IMAGE_SIZE, device="cuda"):
   """The 2D scene (numpy) lifted to 3D on the device and calibrated on
-  its projected splats: (step, g3d, camera, config)."""
+  its projected splats (through the cache): (g3d, camera, calibration)."""
   dev = device_of(device)
   g3d, cam = lift_to_3d(packed, depth, feats, image_size, near=NEAR,
                         far=FAR, fov_deg=FOV_DEG, device=dev)
   cal = calibrate_full(name, g3d, cam, to_device(dev, feats)[0], image_size,
                        gw)
   print(f"# {name} full-renderer calibration: {cal}", file=sys.stderr)
+  return g3d, cam, cal
+
+
+def prepare_full(name: str, packed, depth, feats, gw: int,
+                 image_size=IMAGE_SIZE, device="cuda"):
+  """``lift_and_calibrate``, then the timed step: (step, g3d, camera,
+  config)."""
+  dev = device_of(device)
+  g3d, cam, cal = lift_and_calibrate(name, packed, depth, feats, gw,
+                                     image_size, dev)
   cfg = full_config(cal, gw)
   tgt, mask = loss_target(image_size, cfg.tile_size, dev)
   return make_full_step(cam, cfg, tgt, mask), g3d, cam, cfg
@@ -361,8 +371,6 @@ def run(device="cuda", gw: int = 8, n: int = N, image_size=IMAGE_SIZE,
   out["vs_baseline"] = BASELINE_MS / ms if ms is not None else 0.0
   if errors:
     out["errors"] = errors
-  for k in ("uniform_cal", "heavy_cal"):
-    out.pop(k, None)
   return out
 
 

@@ -3,7 +3,7 @@
 
     python -m tpu_splatting_torch.benchmarks.bench_components
         [--device cuda|cpu] [--which all|projection|sh|tilemapper|rasterizer]
-        [--n N] [--backward] [--max-overlaps M]
+        [--n N] [--backward]
 
 The reference's defaults (BASELINE.md's micro-bench): ``project_gaussians``
 at 2M points, ``evaluate_sh_at`` at 1M points of degree 3, the sorted
@@ -16,9 +16,8 @@ events on the card).
 Both mapper benchmarks check ``num_overflow`` and raise if a capacity
 dropped overlaps (the reference never looked).  The tile mapper keeps the
 reference's ``max_overlaps = 1 << 22``.  The rasterizer's scene (scale 4)
-has more overlaps than that (1 << 22 drops 37,877 of them, ROADMAP F16),
-so by default it takes the port's ``calibrate_mapper`` capacities;
-``--max-overlaps 4194304`` asks for the reference's, and raises.
+has more overlaps than that (1 << 22 drops 37,877 of them, ROADMAP F18),
+so it takes the port's ``calibrate_mapper`` capacities.
 """
 
 from __future__ import annotations
@@ -163,9 +162,8 @@ def rasterizer_step(s: RasterizerSetup, backward: bool):
 
 
 def bench_rasterizer(n=1_000_000, image_size=IMAGE_SIZE, iters=5,
-                     max_overlaps: Optional[int] = None, backward=False,
-                     chunk_size=128, device="cuda"):
-  s = rasterizer_setup(n, image_size, max_overlaps, chunk_size, device)
+                     backward=False, chunk_size=128, device="cuda"):
+  s = rasterizer_setup(n, image_size, chunk_size=chunk_size, device=device)
   label = f"rasterize {'fwd+bwd' if backward else 'fwd'} n={n}"
   return benchmarked(label, rasterizer_step(s, backward),
                      (s.packed, s.feats), iters=iters)
@@ -180,9 +178,6 @@ def main(argv=None) -> int:
                                "rasterizer"])
   parser.add_argument("--n", type=int, default=None)
   parser.add_argument("--backward", action="store_true")
-  parser.add_argument("--max-overlaps", type=int, default=None,
-                      help="the rasterizer's overlap capacity (default: "
-                      "calibrate_mapper's)")
   args = parser.parse_args(argv)
   dev = bench.device_of(args.device)
   print(bench.card_line(dev), flush=True)
@@ -193,8 +188,8 @@ def main(argv=None) -> int:
   if args.which in ("all", "tilemapper"):
     bench_tilemapper(args.n or 1_000_000, device=dev)
   if args.which in ("all", "rasterizer"):
-    bench_rasterizer(args.n or 1_000_000, max_overlaps=args.max_overlaps,
-                     backward=args.backward, device=dev)
+    bench_rasterizer(args.n or 1_000_000, backward=args.backward,
+                     device=dev)
   return 0
 
 

@@ -37,7 +37,7 @@ from ..rasterizer.stream import StreamMapping, calibrate_stream, stream_map
 from ..rasterizer.stream_function import (stream_rasterize_with_mapping,
                                           stream_reduce)
 from ..rasterizer.stream_kernels import stream_backward, stream_forward
-from ..utils.benchmarked import benchmarked
+from ..utils.benchmarked import benchmarked, profiled_kernels
 from .bench_components import synthetic_2d
 
 
@@ -122,8 +122,6 @@ def run(s: StreamSetup, iters=5, fwd_only=False) -> dict:
 def profile(s: StreamSetup, backward: bool, reps: int = 3) -> dict:
   """One ``torch.profiler`` session of ``reps`` forward (or backward)
   kernel calls: {CUDA kernel name: device ms per call}, also printed."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity
   m, cfg = s.mapping, s.config
   img = stream_forward(m, cfg)
   gimg = torch.ones_like(img)
@@ -131,15 +129,8 @@ def profile(s: StreamSetup, backward: bool, reps: int = 3) -> dict:
         else (lambda: stream_forward(m, cfg)))
   fn()
   torch.cuda.synchronize()
-  with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  ms = {}
-  for e in prof.events():
-    if e.device_type == DeviceType.CUDA:
-      ms[e.name] = ms.get(e.name, 0.0) + e.device_time_total / reps / 1e3
+  us, _ = profiled_kernels(fn, reps)
+  ms = {name: t / reps / 1e3 for name, t in us.items()}
   label = "bwd" if backward else "fwd"
   for name, t in sorted(ms.items(), key=lambda kv: -kv[1]):
     print(f"{label} device time {t:.4f} ms/call  {name}", flush=True)

@@ -17,7 +17,6 @@ import argparse
 import sys
 
 from .. import bench
-from ..scenes import lift_to_3d
 
 SCENE_NAMES = ("uniform", "heavy", "uniform_full")
 
@@ -45,12 +44,8 @@ def main(argv=None) -> int:
       cal = bench.calibrate_scene(name, *arrays, size, gw)
       print(f"# {name}: {cal}", flush=True)
   if "uniform_full" in which:
-    packed, depth, feats = bench.scene_arrays("uniform", args.n, size)
-    g3d, cam = lift_to_3d(packed, depth, feats, size, near=bench.NEAR,
-                          far=bench.FAR, fov_deg=bench.FOV_DEG, device=dev)
-    cal = bench.calibrate_full("uniform", g3d, cam,
-                               bench.to_device(dev, feats)[0], size, gw)
-    print(f"# uniform_full: {cal}", flush=True)
+    bench.lift_and_calibrate("uniform", *bench.scene_arrays(
+        "uniform", args.n, size), gw, size, dev)
   return 0
 
 

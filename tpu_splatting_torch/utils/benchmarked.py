@@ -4,7 +4,9 @@
 ``iters`` back-to-back calls after ``warmup`` calls, on the CPU with the
 host clock.  The reference runs its loop inside one jitted ``lax.scan``
 and perturbs the inputs so XLA cannot hoist the body; eager torch
-dispatches every call, so neither carries over.
+dispatches every call, so neither carries over.  ``profiled_kernels``
+reads the card's own time per CUDA kernel from one ``torch.profiler``
+session.
 """
 
 from __future__ import annotations
@@ -31,6 +33,33 @@ def _on_cuda(x) -> bool:
   if isinstance(x, (list, tuple)):
     return any(_on_cuda(v) for v in x)
   return False
+
+
+# the spin kernels around a profiler session: ~25 us each on an H100
+SPIN_CYCLES = 50_000
+
+
+def profiled_kernels(fn: Callable[[], object], reps: int):
+  """One ``torch.profiler`` session of ``reps`` ``fn()`` calls on the
+  card between two spin kernels (``torch.cuda._sleep``): ({CUDA kernel
+  name: device us}, {name: records}), the spin kernels left out.  A
+  session on a busy card now and then loses the records of its last
+  kernels; the spin kernels ended those losses."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(SPIN_CYCLES)
+    for _ in range(reps):
+      fn()
+    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize()
+  us, count = {}, {}
+  for e in prof.events():
+    if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+      us[e.name] = us.get(e.name, 0.0) + e.device_time_total
+      count[e.name] = count.get(e.name, 0) + 1
+  return us, count
 
 
 def benchmarked(name: str, f: Callable, args, iters: int = 50,
