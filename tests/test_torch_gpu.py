@@ -956,9 +956,48 @@ def test_mosaic_kernels_reject_bad_inputs(cuda):
     em.double_block_window(torch.zeros((256, 16), device=cuda), d.long(), 128)
   with pytest.raises(ValueError, match="it takes 16"):
     em.reshape_rows(torch.zeros((4, 12), device=cuda), 12)
-  with pytest.raises(ValueError, match="232448 B"):
-    em.dma_residue_sum(torch.zeros((512, 128), device=cuda), d, rows=500)
+  with pytest.raises(ValueError, match="0 < rows <= R"):
+    em.dma_residue_sum(torch.zeros((512, 128), device=cuda), d, rows=600)
   assert sum(em.probe_launch_counts.values()) == 0
+
+
+def mosaic_edges(dev):
+  """{case: (T2 table, T4 table, T4 starts)}: T2 tables of fewer rows than
+  one chunk, a short last chunk and fewer chunks than blocks; T4 starts at
+  0 and R - 64, repeated, all equal, one slab, and taller slabs."""
+  gen = torch.Generator(device=dev).manual_seed(3)
+  r = 4096
+
+  def starts(*xs):
+    return torch.tensor(xs, dtype=torch.int32, device=dev)
+  rep = torch.arange(0, r - 64, 97, dtype=torch.int32, device=dev)
+  return {
+      "ends": (8, starts(0, r - 64, 0, r - 64, 17, r - 65), 64),
+      "repeated": (100, rep.repeat_interleave(9), 64),
+      "all_equal": (300, torch.full((300,), 1234, dtype=torch.int32,
+                                    device=dev), 64),
+      "one_slab": (1, starts(r - 64), 64),
+      "tall": (257 * 8, starts(0, 5, 3000, 3001, r - 500), 500),
+  }, torch.rand((r, 128), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("case", ["ends", "repeated", "all_equal",
+                                  "one_slab", "tall"])
+def test_mosaic_edge_inputs(cuda, case):
+  """T2 and both T4 instantiations bit for bit their twins on edge
+  inputs."""
+  from tpu_splatting_torch.benchmarks import exp_mosaic as em
+  cases, x4 = mosaic_edges(cuda)
+  t2_rows, s, rows = cases[case]
+  x2 = x4[:t2_rows // 8 + 1]           # (R, 128): t2_rows // 8 * 8 + 8 rows
+  got = em.reshape_rows(x2, 16)
+  finish_within(30)
+  assert torch.equal(got, em.reshape_rows_reference(x2, 16))
+  want = em.dma_residue_sum_reference(x4, s, rows)
+  for bulk in (True, False):
+    got = em.dma_residue_sum(x4, s, rows, bulk=bulk)
+    finish_within(30)
+    assert torch.equal(got, want), bulk
 
 
 # --- the packed-table probes of benchmarks/exp_pack.py --------------------

@@ -32,9 +32,12 @@ import port_compare as pc  # noqa: E402
 from test_stream import TIGHT, make_scene  # noqa: E402
 from test_torch_stream_map import wide_scene  # noqa: E402
 from tpu_splatting import RasterConfig  # noqa: E402
+from tpu_splatting.parallel import stream_sharded as jss  # noqa: E402
 from tpu_splatting.rasterizer import stream as jstream  # noqa: E402
 from tpu_splatting.rasterizer import stream_function as jfun  # noqa: E402
 from tpu_splatting.rasterizer import stream_kernels as jkern  # noqa: E402
+from tpu_splatting_torch.benchmarks.thin_splats import thin_scene  # noqa: E402
+from tpu_splatting_torch.parallel import stream_sharded as tss  # noqa: E402
 from tpu_splatting_torch.rasterizer import stream as tstream  # noqa: E402
 from tpu_splatting_torch.rasterizer import (  # noqa: E402
     stream_function as tfun)
@@ -64,7 +67,7 @@ def jax_mapping(packed, depths, feats, size, caps, config):
   mj = jstream.stream_map(jnp.asarray(packed, jnp.float32),
                           jnp.asarray(depths, jnp.float32),
                           jnp.asarray(feats, jnp.float32), size, config,
-                          group_width=2, **TIGHT, **caps)
+                          group_width=2, **{**TIGHT, **caps})
   assert int(mj.num_overflow) == 0
   return mj
 
@@ -73,7 +76,7 @@ def port_mapping(packed, depths, feats, size, caps, config):
   mt = tstream.stream_map(pc.t(packed, torch.float32),
                           pc.t(depths, torch.float32),
                           pc.t(feats, torch.float32), size, pc.config(config),
-                          group_width=2, **TIGHT, **caps)
+                          group_width=2, **{**TIGHT, **caps})
   assert int(mt.num_overflow) == 0
   return mt
 
@@ -101,6 +104,66 @@ def test_twin_matches_merged_slabs(case, mode):
   assert not got[r_rows].any()                 # the sentinel row
   assert float(np.abs(want).max()) > 0.1
   np.testing.assert_allclose(got[:r_rows], want, atol=1e-5, rtol=1e-4)
+
+
+def assert_columns_within(got, want, label):
+  """Each column within 1e-4 * its largest |want| + 1e-6."""
+  err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+  tol = 1e-4 * np.abs(np.asarray(want, np.float64)).max(0) + 1e-6
+  assert (err <= tol).all(), (label, (err / tol).max(0).tolist())
+
+
+@pytest.mark.parametrize("mode,band0", [("quadratic", 0), ("heuristics", 2)])
+def test_thin_splats_match_reference_and_f64(mode, band0):
+  """F16: on splats 0.03-0.1 px thin, the f32 twin against the JAX
+  ``merge_grad_slabs(stream_backward(...))`` and against the port's own
+  f64 twin on the same image and cotangent, each column within 1e-4 of
+  its largest + 1e-6 (the per-pixel form erred by up to 5.1e-4 here).
+  ``band0`` 2 runs the lower half of the image as the second of two band
+  shards (halo mode, neither neighbour's band added: both sides lose the
+  same rows).  The scene is ``benchmarks.thin_splats.thin_scene`` (36 of
+  48 splats 0.03-0.1 px thin).  The image is the port's f32 forward: the
+  forward's own f32 error on thin splats (ROADMAP F20) is not the
+  backward's."""
+  packed, depths, feats, size = thin_scene()
+  config = RasterConfig(tile_size=8, chunk_size=8, big_tile_window=16,
+                        **MODES[mode])
+  mj = jax_mapping(packed, depths, feats, size, dict(run_cap=32), config)
+  mt = pc.mapping(mj)
+  cfg = pc.config(config)
+  slabw = jkern.slab_width(config, feats.shape[1])
+  rc = mj.run_cap
+  if band0:
+    th_local = mj.tiles_high - band0
+    gpb = mj.tiles_wide // mj.group_width * th_local
+    sl = slice(gpb, 2 * gpb)
+    mj = jss._local_mapping(mj, mj.desc[sl], mj.strip_blk[sl], mj.table,
+                            mj.run_starts, (mj.num_overflow, mj.overflow),
+                            th_local)
+    mt = tss._local_mapping(mt, 1, th_local, "cpu")
+  img = tkern.stream_forward(mt, cfg, band0)
+  gimg = torch.from_numpy(np.random.default_rng(2).standard_normal(
+      tuple(img.shape)).astype(np.float32))
+  gout = jkern.stream_backward(mj, jnp.asarray(img.numpy()),
+                               jnp.asarray(gimg.numpy()), config, rc,
+                               band0=band0)
+  if band0:
+    zero = jnp.zeros_like(gout[:mj.tiles_wide // mj.group_width])
+    gout = jnp.concatenate([zero, gout, zero], 0)
+  cols = jkern.merge_grad_slabs(gout, mj, rc, slabw, halo=bool(band0))
+  want = np.stack([np.asarray(c) for c in cols], -1)
+  own = slice(mt.tiles_wide * rc if band0 else 0, None)
+
+  def twin(m, image, g):
+    buf = tkern.stream_backward(m, image, g, cfg, band0, halo=bool(band0))
+    return buf[own][:want.shape[0]].numpy()
+
+  got = twin(mt, img, gimg)
+  g64 = twin(dataclasses.replace(mt, table=mt.table.double()), img.double(),
+             gimg.double())
+  assert float(np.abs(want[:, :7]).max()) > 0.1
+  assert_columns_within(got, want, "f32 twin vs the reference")
+  assert_columns_within(got, g64, "f32 twin vs the f64 twin")
 
 
 def test_window_grad_rows_match_run_starts():

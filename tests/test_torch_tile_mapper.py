@@ -131,6 +131,66 @@ def test_calibrate_mapper_counts_each_point_once():
   assert int(m.num_overflow) == 0
 
 
+def overflow_causes(module, g2d, packed, depth, image_size, config):
+  """{cause: dropped} of a ``map_to_tiles`` call, from the mapper module's
+  own bound helpers: big points past ``big_capacity`` and big points whose
+  span exceeds ``big_tile_window`` (clipped, counted once a point)."""
+  mean, axis, sigma, alpha = g2d.unpack_g2d(packed)
+  gscale = g2d.gaussian_scale(alpha, config.alpha_threshold)
+  valid = (alpha > config.alpha_threshold) & (depth > 0) & (gscale > 0)
+  lo, hi = module._tile_bounds(mean, axis, sigma, gscale,
+                               module.pad_to_tile(image_size,
+                                                  config.tile_size),
+                               config.tile_size)
+  span = np.asarray(hi - lo)
+  big = np.asarray(valid) & (span > config.tile_window).any(-1)
+  order = np.argsort(np.asarray(depth).view(np.int32), kind="stable")
+  kept = order[big[order]][:config.big_capacity]
+  return {"big_capacity": max(int(big.sum()) - config.big_capacity, 0),
+          "clipped": int((span[kept] > config.big_tile_window).any(-1).sum())}
+
+
+def test_wide_splats_past_big_tile_window_drop_alike():
+  """ROADMAP F19, on the reference's side: ``bench_components``'
+  rasterizer scene has almost every splat wider than the tile window and
+  most wider than ``big_tile_window`` (16 tiles), which neither
+  package's ``calibrate_mapper`` sizes.  At its suggestion both mappers
+  clip the same splats and count them in ``num_overflow`` (a point each,
+  not its lost overlaps); no other cause drops anything.  With
+  ``big_tile_window`` at the widest span both map exactly.  The scene is
+  ``synthetic_2d``'s at 300 splats and 512x384 (the same statistics as
+  2,000 at 1024x768: all wide, 276 past the big window)."""
+  from tpu_splatting.lib import gaussian2d as jg2d
+  from tpu_splatting_torch.benchmarks import bench_components as bc
+  from tpu_splatting_torch.lib import gaussian2d as tg2d
+  size = (512, 384)
+  packed, depth, _ = (x.numpy() for x in bc.synthetic_2d(300, size,
+                                                         device="cpu"))
+  config = RasterConfig(chunk_size=128)
+  cal = tmap.calibrate_mapper(pc.t(packed), pc.t(depth), size, config)
+  jcal = jmap.calibrate_mapper(jnp.asarray(packed), jnp.asarray(depth),
+                               size, config)
+  assert cal["num_wide"] == 300 and cal["tile_window"] == 8
+  for k in ("tile_window", "max_overlaps", "num_valid"):
+    assert cal[k] == jcal[k], k
+  config = dataclasses.replace(config, tile_window=cal["tile_window"],
+                               big_capacity=cal["big_capacity"])
+  mj, mt = both(packed, depth, None, size, config, cal["max_overlaps"])
+  want = overflow_causes(jmap, jg2d, jnp.asarray(packed), jnp.asarray(depth),
+                         size, config)
+  got = overflow_causes(tmap, tg2d, pc.t(packed), pc.t(depth), size, config)
+  assert got == want == {"big_capacity": 0, "clipped": 276}
+  assert int(mt.num_overflow) == int(mj.num_overflow) == 276
+  pc.assert_tile_mappings_equal(mj, mt)
+  with pytest.raises(RuntimeError, match="276 overlaps dropped"):
+    bc.rasterizer_setup(300, size, device="cpu")
+
+  config = dataclasses.replace(config, big_tile_window=32)   # widest span
+  cal = tmap.calibrate_mapper(pc.t(packed), pc.t(depth), size, config)
+  mj, mt = both(packed, depth, None, size, config, cal["max_overlaps"])
+  assert int(mt.num_overflow) == int(mj.num_overflow) == 0
+
+
 def test_65535_tiles_assert_as_in_the_reference():
   """Tile keys are 16 bits: 256 x 256 tiles of 16 px are refused."""
   packed, depth, _ = scene(0, n=10)

@@ -12,14 +12,18 @@ a redesign of a kernel on it (``PERF.md``).
   picks the kernel that stages all of ``x[b]`` in shared memory, else it
   copies the window straight from device memory.
 * ``reshape_rows`` (T2): ``(R, C) -> (R C / w, w)``, a new tensor; the
-  kernel re-lays rows by warp shuffles so each thread holds one row.
+  kernel hands each thread one output row by warp shuffles and takes the
+  rows back to coalesced stores the same way.
 * ``double_block_window`` (T3): ``out[k] = x[src_k : src_k + g]`` from the
   two aligned g-row blocks the window straddles, fetched by bulk
   asynchronous copies; ``0 <= src_k < P - g``.
 * ``dma_residue_sum`` (T4): ``out[b] = sum_{p=0..7} x[s_b : s_b + rows,
-  16 p : 16 p + 16]`` added in p order; ``bulk`` picks the bulk
-  asynchronous copy of the rows into shared memory, else per-thread loads;
-  ``0 <= s_b <= R - rows``.
+  16 p : 16 p + 16]`` added in p order; ``0 <= s_b <= R - rows``.  The
+  kernel's persistent blocks each take the slabs that start in a range of
+  rows, sort them, and stream their rows through a ring of shared memory,
+  each needed row once a block (``residue_runs``, ``residue_chunks``),
+  filled ahead by bulk asynchronous copies (``bulk``) or by per-thread
+  asynchronous copies.
 
 A CPU tensor goes to the ``*_reference`` twin, a CUDA tensor to the kernel
 (built at first use; each launch counted in ``probe_launch_counts``), or
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +56,14 @@ probe_launch_counts = {"dynamic_slice_rows": 0, "reshape_rows": 0,
 
 RESIDUES, RESIDUE_W = 8, 16       # T4: 8 rows of 16 floats packed a row
 RESHAPE_WIDTH = 16                # T2's kernel: rows of 16 floats
+# csrc/exp_mosaic.cu: T2's tiles of 32 rows, kT2Unroll a warp and 8 warps a
+# block; T4's ring (kT4Stages stages of kT4Chunk rows of 512 B and a
+# chunk's sums), kT4Cap slabs a batch, and the persistent blocks a plan
+# puts on each SM (their shared memory lets two fit)
+T2_UNROLL = 2
+T4_CHUNK_ROWS, T4_STAGES = 64, 3
+T4_CAP = 256
+BLOCKS_PER_SM = 2
 # tpu_splat_mosaic_occupancy's kernel numbers
 OCCUPANCY_KERNELS = {"T1 staged": 0, "T1 direct": 1, "T2": 2, "T3": 3,
                      "T4 bulk": 4, "T4 loads": 5}
@@ -59,6 +72,82 @@ OCCUPANCY_KERNELS = {"T1 staged": 0, "T1 direct": 1, "T2": 2, "T3": 3,
 def reset_launch_counts():
   for k in probe_launch_counts:
     probe_launch_counts[k] = 0
+
+
+def reshape_plan(rows: int) -> int:
+  """T2's blocks: one launch over the tiles of 32 rows, ``T2_UNROLL``
+  tiles a warp and 8 warps a block."""
+  return -(-rows // (32 * T2_UNROLL * 8))
+
+
+class ResiduePlan(NamedTuple):
+  """T4's launch: ``blocks`` blocks, block g taking the slabs that start
+  in [g width, (g + 1) width); at most ``max_chunks`` chunks a batch of
+  ``T4_CAP`` slabs; ``smem`` bytes a block."""
+  blocks: int
+  width: int
+  max_chunks: int
+  smem: int
+
+
+def residue_plan(rows: int, r_rows: int, num_sms: int) -> ResiduePlan:
+  """T4's plan for slabs of ``rows`` rows of an ``r_rows``-row table:
+  persistent blocks over equal ranges of the starts [0, r_rows - rows].
+  A batch's rows come in at most ``max_chunks`` chunks: a chunk ends at
+  ``T4_CHUNK_ROWS`` rows or at a gap, each slab ends at most one gap and
+  spans at most ceil(rows / T4_CHUNK_ROWS) full chunks.  Shared memory:
+  the ring, a chunk's sums, a batch's sort keys, starts and slabs, the
+  chunk list."""
+  span = r_rows - rows + 1
+  width = -(-span // min(span, BLOCKS_PER_SM * num_sms))
+  max_chunks = T4_CAP * (1 + -(-rows // T4_CHUNK_ROWS))
+  smem = (T4_STAGES * T4_CHUNK_ROWS * RESIDUES * RESIDUE_W * 4
+          + T4_CHUNK_ROWS * RESIDUE_W * 4 + 16 * T4_CAP + 8 * max_chunks)
+  return ResiduePlan(-(-span // width), width, max_chunks, smem)
+
+
+def residue_runs(s: torch.Tensor, rows: int, r_rows: int,
+                 num_sms: int) -> list:
+  """The batches of ascending starts T4's blocks stream, block by block:
+  block g's slabs (start in its range) in (start, slab) order, or, past
+  ``T4_CAP`` of them, in batches of ``T4_CAP`` in slab order, each
+  sorted."""
+  plan = residue_plan(rows, r_rows, num_sms)
+  s = s.cpu().long()
+  out = []
+  for g in range(plan.blocks):
+    ids = torch.nonzero((s >= g * plan.width)
+                        & (s < (g + 1) * plan.width)).flatten()
+    for k in range(0, ids.numel(), T4_CAP):
+      out.append(sorted(s[ids[k:k + T4_CAP]].tolist()))
+  return out
+
+
+def residue_chunks(starts, rows: int) -> list:
+  """[(first row, rows)] a block of T4 streams for a run of ascending
+  slab starts: the union of the slabs' rows, in order, each segment of
+  it (slabs with no gap between them) cut into chunks of
+  ``T4_CHUNK_ROWS`` rows from its first row (the kernel's own list, in
+  plain Python)."""
+  starts = [int(x) for x in starts]
+  out, k = [], 0
+  while k < len(starts):
+    first, j = starts[k], k + 1
+    while j < len(starts) and starts[j] <= starts[j - 1] + rows:
+      j += 1
+    end = starts[j - 1] + rows
+    out += [(at, min(T4_CHUNK_ROWS, end - at))
+            for at in range(first, end, T4_CHUNK_ROWS)]
+    k = j
+  return out
+
+
+def residue_rows_read(s: torch.Tensor, rows: int, r_rows: int,
+                      num_sms: int) -> int:
+  """Table rows T4's blocks read for the starts ``s`` (``residue_runs``):
+  each batch's union, so a row two batches share counts twice."""
+  return sum(n for run in residue_runs(s, rows, r_rows, num_sms)
+             for _, n in residue_chunks(run, rows))
 
 
 def slice_starts(d: torch.Tensor, r: int, n: int) -> torch.Tensor:
@@ -119,9 +208,9 @@ def _kernel():
   vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
   for name, args in (
       ("tpu_splat_dynamic_slice_rows", [vp] * 3 + [i] * 5 + [ll, vp]),
-      ("tpu_splat_reshape_rows", [vp, vp, ll, vp]),
+      ("tpu_splat_reshape_rows", [vp, vp, ll, i, vp]),
       ("tpu_splat_double_block_window", [vp] * 3 + [i] * 4 + [ll, vp]),
-      ("tpu_splat_dma_residue_sum", [vp] * 3 + [i] * 4 + [ll, vp]),
+      ("tpu_splat_dma_residue_sum", [vp] * 3 + [i] * 7 + [ll, vp]),
       ("tpu_splat_mosaic_occupancy", [i, ll, ctypes.POINTER(i)])):
     fn = getattr(lib, name)
     fn.restype = i
@@ -197,10 +286,16 @@ def dynamic_slice_rows(x: torch.Tensor, d: torch.Tensor, n: int,
   return out
 
 
+def _num_sms(dev) -> int:
+  return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def reshape_rows(x: torch.Tensor, w: int) -> torch.Tensor:
   """(R C / w, w): the bytes of the (R, C) f32 ``x`` as rows of w, a new
-  tensor (C % w == 0; w 16 on the card).  The kernel
-  hands each thread one output row by warp shuffles."""
+  tensor (C % w == 0; w 16 on the card).  Each row passes through one
+  thread's registers on its way: the kernel loads tiles of 32 rows
+  coalesced, shuffles each row into one lane and back, and stores them
+  coalesced (``reshape_plan``)."""
   if x.dim() != 2 or x.shape[1] % w:
     raise ValueError(f"reshape_rows: x {tuple(x.shape)}, w {w}: x is (R, C) "
                      "and w divides C")
@@ -220,7 +315,7 @@ def reshape_rows(x: torch.Tensor, w: int) -> torch.Tensor:
     return out
   with launch_stream(dev) as stream:
     err = _kernel().tpu_splat_reshape_rows(x.data_ptr(), out.data_ptr(), rows,
-                                           stream)
+                                           reshape_plan(rows), stream)
   _launched("reshape_rows", err)
   return out
 
@@ -259,27 +354,30 @@ def dma_residue_sum(x: torch.Tensor, s: torch.Tensor, rows: int = 64,
                     bulk: bool = True) -> torch.Tensor:
   """(B, rows, 16): the sum over the 8 residues p of ``x[s_b : s_b + rows,
   16 p : 16 p + 16]``, in p order, for x (R, 128) f32 and s (B,) int32 in
-  [0, R - rows].  ``bulk``: one bulk asynchronous copy of the rows into
-  shared memory (rows 512 bytes a block), else per-thread loads; a start
-  outside the range traps on the device."""
+  [0, R - rows].  The kernel reads each needed row once a block
+  (``residue_plan``, ``residue_chunks``), through a ring of shared memory
+  filled by bulk asynchronous copies (``bulk``) or by per-thread ones; a
+  start outside the range traps on the device."""
   width = RESIDUES * RESIDUE_W
-  if x.dim() != 2 or x.shape[1] != width or rows <= 0:
+  if x.dim() != 2 or x.shape[1] != width or not 0 < rows <= x.shape[0]:
     raise ValueError(f"dma_residue_sum: x {tuple(x.shape)}, rows {rows}: x "
-                     f"is (R, {width}) and rows > 0")
+                     f"is (R, {width}) and 0 < rows <= R")
   if x.device.type == "cpu":
     return dma_residue_sum_reference(x, s, rows)
   x, s = _cuda_inputs("dma_residue_sum", x, s, 2)
   _check_float4("dma_residue_sum", ("x's address", x.data_ptr()))
-  smem = rows * width * 4
-  check_smem("dma_residue_sum", KernelPlan(0, 256, smem), f"rows {rows}")
-  out = torch.empty((s.shape[0], rows, RESIDUE_W), dtype=x.dtype,
-                    device=x.device)
+  b = s.shape[0]
+  out = torch.empty((b, rows, RESIDUE_W), dtype=x.dtype, device=x.device)
   if out.numel() == 0:
     return out
+  plan = residue_plan(rows, x.shape[0], _num_sms(x.device))
+  check_smem("dma_residue_sum", KernelPlan(0, 256, plan.smem),
+             f"slabs of {rows} rows")
   with launch_stream(x.device) as stream:
     err = _kernel().tpu_splat_dma_residue_sum(
-        x.data_ptr(), s.data_ptr(), out.data_ptr(), s.shape[0], x.shape[0],
-        rows, int(bulk), smem, stream)
+        x.data_ptr(), s.data_ptr(), out.data_ptr(), b, x.shape[0], rows,
+        int(bulk), plan.blocks, plan.width, plan.max_chunks, plan.smem,
+        stream)
   _launched("dma_residue_sum", err)
   return out
 

@@ -21,15 +21,22 @@
 //   (R, C) -> (R * C / 16, 16) relayout, rows of W4 = 4 float4s (the
 //   16-float rows of exp_pack.py's packed table).  The bytes do not
 //   move, so the kernel performs the relayout that a packed table would
-//   cost a staging loop: a warp loads its 32 rows' W4 * 32 float4s
-//   coalesced (lane l holds float4 32 j + l in slot j), then W4 rounds of
-//   __shfl_sync leave each thread holding one whole row in registers (the
-//   layout K1's staging wants, one thread per row), and each thread writes
-//   its row.  In round r a thread t = (32 / W4) hi + lo reads float4
-//   (hi + r) % W4 of its row from lane W4 lo + (hi + r) % W4, which sends
-//   its slot (l % W4 - r) mod W4: one value a lane a round, and every slot
-//   index is a compile-time select, so nothing leaves the registers.
-//   Bound by bytes: the table read once and written once.
+//   cost a staging loop: every output row passes through one thread's
+//   registers (the layout K1's staging wants, one thread per row).  Bound
+//   by bytes: the table read once and written once.  A warp loads tiles
+//   of 32 rows coalesced (lane l holds float4 32 j + l in slot j), W4
+//   rounds of __shfl_sync leave each lane holding one whole row, in order
+//   (rows_of_tile), W4 more rounds take the rows back to the coalesced
+//   slots (tile_of_rows), and the warp stores them as it loaded them.  In
+//   each round a lane sends one float4, chosen by compile-time selects,
+//   so nothing leaves the registers.  A warp has kT2Unroll tiles' loads in
+//   flight; one launch covers the table, a warp kT2Unroll tiles.  The
+//   first design stored each thread's row as four float4s 64 B apart,
+//   touching twice the sectors of a coalesced store: 1.06 x slower than a
+//   clone on the H100.  A ring of bulk loads and bulk stores through
+//   shared memory, the row round trip in between, stayed 3% slower than
+//   a clone there (chip_smoke.py phase 8), whatever its depth; so did
+//   persistent grids of this kernel.
 //
 // T3 double_block_window_kernel replaces t3_double_blockspec_window (:53,
 //   call :75): out[k] = x[src[k] : src[k] + g], fetched as the TPU fetches
@@ -46,13 +53,28 @@
 //   :98): out[b] = sum over p = 0..7 of x[s[b] : s[b] + rows, 16 p : 16 p +
 //   16], x of 128-float rows (exp_pack.py's table of 16-float rows packed 8
 //   a row), added in p order from 0 so it equals the reference bit for bit
-//   (-fmad=false; no tree).  kBulk: one cp.async.bulk of the rows * 512 B
-//   slab into shared memory, completed on an mbarrier (the TPU's
-//   make_async_copy); !kBulk: per-thread coalesced float4 loads into the
-//   same buffer, the way K1 stages its rows today.  A start outside
-//   [0, R - rows] traps.  Bound by bytes: the rows needed read once, the
-//   output written.  The question: what a bulk copy saves over per-thread
-//   staging loads.
+//   (-fmad=false; no tree).  A start outside [0, R - rows] traps.  Bound by
+//   bytes: the rows needed read once, the output written.  Output row j of
+//   slab b depends on table row s[b] + j alone, so a row needed by several
+//   slabs (overlapping windows) is summed once and written to each.
+//   Design (the first design read each slab's 64 rows with one bulk copy
+//   a block, about 3.2 reads a needed row at phase 8's starts): block
+//   g takes the slabs that start in its range of `width` rows (it reads
+//   all the starts from L2 and keeps its own: no sort of the starts
+//   ahead, which took 0.042 ms as torch.sort and as a one-block counting
+//   pass alike), sorts them by start in shared memory (bitonic), cuts the
+//   union of their rows into chunks (segments without a gap, in kT4Chunk
+//   rows, by a block scan) and streams them in order through a ring of
+//   kT4Stages stages.  kBulk: one thread fills each stage with one bulk
+//   asynchronous copy on the stage's mbarrier; !kBulk: every thread
+//   fills it with 16-byte cp.async copies (one commit group a stage).
+//   Either way the next stages' copies are in flight while the block sums
+//   a stage's rows (a thread a row and float4 column) into shared memory
+//   and writes them to every slab that holds them.  A range with more
+//   than kT4Cap slabs goes in batches of kT4Cap, in slab order.  Rows
+//   read twice: those shared by two neighbouring ranges (the ring's
+//   boundary rows), at most rows - 1 a boundary, and those two batches of
+//   one range share.
 //
 // The bulk copies need 16-byte aligned source, destination and size (the
 // wrapper checks the source and size; the shared buffers are aligned
@@ -166,9 +188,26 @@ dynamic_slice_kernel(SliceParams p) {
   }
 }
 
+// ---- per-thread asynchronous copies ------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(shared_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ---- T2 ----------------------------------------------------------------
 
-constexpr int W4 = 4;   // float4s a row
+constexpr int W4 = 4;            // float4s a row
+constexpr int kT2Unroll = 2;     // tiles of 32 rows a warp has in flight
 
 struct ReshapeParams {
   const float4* x;     // rows * W4 float4
@@ -176,44 +215,85 @@ struct ReshapeParams {
   long long rows;      // output rows
 };
 
-__global__ void __launch_bounds__(kThreads)
-reshape_rows_kernel(ReshapeParams p) {
-  constexpr int kLo = 32 / W4;
-  const int lane = threadIdx.x & 31;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kThreads
-                         + (threadIdx.x & ~31);
-  const long long q0 = row0 * W4;
-  const long long nq = p.rows * W4;
-  float4 a[W4];
+// a[k] for a runtime k in [0, W4): selects, so a stays in registers
+__device__ __forceinline__ float4 pick(const float4 (&a)[W4], int k) {
+  float4 v = a[0];
 #pragma unroll
-  for (int j = 0; j < W4; ++j) {
-    const long long q = q0 + 32 * j + lane;
-    a[j] = q < nq ? __ldg(p.x + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const int hi = lane / kLo, lo = lane % kLo;
-  float4 row[W4];
+  for (int j = 1; j < W4; ++j)
+    if (k == j) v = a[j];
+  return v;
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int from) {
+  return make_float4(__shfl_sync(kFull, v.x, from),
+                     __shfl_sync(kFull, v.y, from),
+                     __shfl_sync(kFull, v.z, from),
+                     __shfl_sync(kFull, v.w, from));
+}
+
+// A warp's tile of 32 rows: a[j] of lane l is float4 32 j + l (loaded
+// coalesced); afterwards row[k] of lane t is float4 k of row t.  In round
+// r lane t takes float4 k = (t / 8 + r) % 4 of its row from lane 4 (t % 8)
+// + k, which sends its slot (l % 4 - r) mod 4: one value a lane a round.
+__device__ __forceinline__ void rows_of_tile(const float4 (&a)[W4],
+                                             float4 (&row)[W4], int lane) {
+  const int hi = lane >> 3, lo = lane & 7;
 #pragma unroll
   for (int r = 0; r < W4; ++r) {
-    const int send = ((lane % W4) - r + W4) % W4;
-    float4 v = a[0];
-#pragma unroll
-    for (int j = 1; j < W4; ++j)
-      if (send == j) v = a[j];
-    const int k = (hi + r) % W4;
-    const int from = W4 * lo + k;
-    float4 got;
-    got.x = __shfl_sync(kFull, v.x, from);
-    got.y = __shfl_sync(kFull, v.y, from);
-    got.z = __shfl_sync(kFull, v.z, from);
-    got.w = __shfl_sync(kFull, v.w, from);
+    const int k = (hi + r) & 3;
+    const float4 got = shfl4(pick(a, ((lane & 3) - r) & 3), 4 * lo + k);
 #pragma unroll
     for (int j = 0; j < W4; ++j)
       if (k == j) row[j] = got;
   }
-  const long long t = row0 + lane;
-  if (t < p.rows) {
+}
+
+// the inverse: from row[k] of lane t back to a[j] of lane l = float4
+// 32 j + l.  In round r lane l takes slot j = (l % 4 - r) mod 4 from lane
+// 8 j + l / 4, which sends float4 (t / 8 + r) % 4 of its row.
+__device__ __forceinline__ void tile_of_rows(const float4 (&row)[W4],
+                                             float4 (&a)[W4], int lane) {
+  const int hi = lane >> 3;
 #pragma unroll
-    for (int k = 0; k < W4; ++k) p.out[t * W4 + k] = row[k];
+  for (int r = 0; r < W4; ++r) {
+    const int j = ((lane & 3) - r) & 3;
+    const float4 got = shfl4(pick(row, (hi + r) & 3), 8 * j + (lane >> 2));
+#pragma unroll
+    for (int i = 0; i < W4; ++i)
+      if (j == i) a[i] = got;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+reshape_rows_kernel(ReshapeParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long nq = p.rows * W4;
+  const long long tiles = (p.rows + 31) / 32;
+  for (long long t0 = warp * kT2Unroll; t0 < tiles;
+       t0 += warps * kT2Unroll) {   // once, at the wrapper's grid
+    float4 a[kT2Unroll][W4];
+#pragma unroll
+    for (int u = 0; u < kT2Unroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < W4; ++j) {
+        const long long q = (t0 + u) * 32 * W4 + 32 * j + lane;
+        a[u][j] = q < nq ? __ldg(p.x + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kT2Unroll; ++u) {
+      float4 row[W4];                   // row 32 (t0 + u) + lane, in order
+      rows_of_tile(a[u], row, lane);
+      tile_of_rows(row, a[u], lane);
+#pragma unroll
+      for (int j = 0; j < W4; ++j) {
+        const long long q = (t0 + u) * 32 * W4 + 32 * j + lane;
+        if (q < nq) p.out[q] = a[u][j];
+      }
+    }
   }
 }
 
@@ -253,49 +333,228 @@ double_block_window_kernel(WindowParams p) {
 
 // ---- T4 ----------------------------------------------------------------
 
+constexpr int kT4Chunk = 64;     // rows a ring stage (32 KB): a row a thread
+                                 // and float4 column, 256 threads
+constexpr int kT4Stages = 3;
+constexpr int kT4Cap = kThreads; // slabs a block sorts and streams at once
+constexpr int kT4Batch = 16;     // starts a thread loads before it keeps any
+
+// exclusive prefix sum of one int a thread over the block (x = its value;
+// `warp_sums` 32 ints of shared memory); returns the sum of the earlier
+// threads' values and leaves the block's total in *total
+__device__ __forceinline__ int block_exclusive_scan(int x, int* warp_sums,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = (blockDim.x + 31) >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < warps) warp_sums[lane] = w;   // inclusive over warps
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? warp_sums[warp - 1] : 0) + inc - x;
+  *total = warp_sums[warps - 1];
+  __syncthreads();
+  return before;
+}
+
 struct ResidueParams {
   const float4* x;     // (r_rows, 32) float4: 128 floats a row
-  const int* s;        // (B,)
-  float4* out;         // (B, rows, 4) float4: 16 floats a row
-  int r_rows, rows;
+  const int* s;        // (b,)
+  float4* out;         // (b, rows, 4) float4: 16 floats a row
+  int b, r_rows, rows, width, max_chunks;   // width: starts a block
 };
 
 template <bool kBulk>
 __global__ void __launch_bounds__(kThreads)
 dma_residue_sum_kernel(ResidueParams p) {
-  extern __shared__ __align__(128) float4 slab[];     // rows x 32
-  __shared__ __align__(8) uint64_t bar;
-  const int b = blockIdx.x;
-  const int s = p.s[b];
-  if (s < 0 || s > p.r_rows - p.rows) __trap();
-  const float4* src = p.x + static_cast<long long>(s) * 32;
-  const int n4 = p.rows * 32;
-  if constexpr (kBulk) {
-    if (threadIdx.x == 0) mbar_init(&bar, 1);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(n4) * 16u;
-      mbar_arrive_expect_tx(&bar, bytes);
-      bulk_copy_to_shared(slab, src, bytes, &bar);
+  extern __shared__ __align__(128) float4 t4_smem[];
+  __shared__ __align__(8) uint64_t full[kT4Stages];
+  __shared__ int warp_sums[32];
+  __shared__ int n_in, n_chunks;
+  float4* ring = t4_smem;                            // kT4Stages x kT4Chunk rows
+  float4* fsum = ring + kT4Stages * kT4Chunk * 32;   // a chunk's residue sums
+  unsigned long long* key =                          // (start, slab), kT4Cap
+      reinterpret_cast<unsigned long long*>(fsum + kT4Chunk * 4);
+  int* s_start = reinterpret_cast<int*>(key + kT4Cap);
+  int* s_slab = s_start + kT4Cap;
+  int* s_chunk = s_slab + kT4Cap;   // [first row, rows] of each chunk
+  const int tid = threadIdx.x;
+  const int lo = blockIdx.x * p.width;
+  const int hi = min(lo + p.width, p.r_rows - p.rows + 1);
+  auto key_of = [](int v, int i) {
+    return (static_cast<unsigned long long>(v) << 32)
+           | static_cast<unsigned>(i);
+  };
+  if (tid == 0) {
+    n_in = 0;
+    if constexpr (kBulk) {
+      for (int st = 0; st < kT4Stages; ++st) mbar_init(&full[st], 1);
     }
-    mbar_wait(&bar, 0);
-  } else {
-#pragma unroll 8
-    for (int e = threadIdx.x; e < n4; e += kThreads) slab[e] = __ldg(src + e);
-    __syncthreads();
   }
-  // output float4 e = (row e / 4, columns 4 (e % 4) ..): residue q of it
-  // is float4 32 row + 4 q + e % 4 of the slab
-  float4* o = p.out + static_cast<long long>(b) * p.rows * 4;
-  for (int e = threadIdx.x; e < p.rows * 4; e += kThreads) {
-    const float4* in = slab + (e >> 2) * 32 + (e & 3);
-    float4 v[8];
+  __syncthreads();
+  // this block's slabs: those starting in [lo, hi), appended as they come
+  for (int i0 = 0; i0 < p.b; i0 += kThreads * kT4Batch) {
+    int v[kT4Batch];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = in[4 * q];
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < kT4Batch; ++j) {
+      const int i = i0 + j * kThreads + tid;
+      v[j] = i < p.b ? __ldg(p.s + i) : 0;
+    }
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc = add4(acc, v[q]);
-    o[e] = acc;
+    for (int j = 0; j < kT4Batch; ++j) {
+      const int i = i0 + j * kThreads + tid;
+      if (i < p.b) {
+        if (v[j] < 0 || v[j] > p.r_rows - p.rows) __trap();
+        if (v[j] >= lo && v[j] < hi) {
+          const int pos = atomicAdd(&n_in, 1);
+          if (pos < kT4Cap) key[pos] = key_of(v[j], i);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int total = n_in;
+  const int jr = tid >> 2, q = tid & 3;   // this thread's chunk row, column
+  const int odd = jr & 1;                 // odd rows load from residue 1 on
+  int ci = 0;                             // chunks streamed so far
+  // more than kT4Cap slabs (a crowded range): batches of kT4Cap in slab
+  // order, each sorted and streamed on its own
+  for (int bt = 0; bt * kT4Cap < total; ++bt) {
+    const int nb = min(kT4Cap, total - bt * kT4Cap);
+    if (total > kT4Cap) {
+      __syncthreads();                    // the last batch's keys are read
+      int base = 0;
+      for (int t0 = 0; t0 < p.b; t0 += kThreads) {
+        const int i = t0 + tid;
+        const int v = i < p.b ? __ldg(p.s + i) : -1;
+        const int in = v >= lo && v < hi;
+        int tile = 0;
+        const int r = base + block_exclusive_scan(in, warp_sums, &tile)
+                      - bt * kT4Cap;
+        if (in && r >= 0 && r < nb) key[r] = key_of(v, i);
+        base += tile;
+      }
+    }
+    int pow2 = 1;
+    while (pow2 < nb) pow2 <<= 1;
+    for (int k = nb + tid; k < pow2; k += kThreads) key[k] = ~0ull;
+    __syncthreads();
+    // the batch in (start, slab) order: a bitonic sort in shared memory
+    for (int k = 2; k <= pow2; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < pow2; i += kThreads) {
+          const int ixj = i ^ j;
+          if (ixj > i) {
+            const unsigned long long a = key[i], c = key[ixj];
+            if ((a > c) == ((i & k) == 0)) {
+              key[i] = c;
+              key[ixj] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // the union of the batch's rows as chunks: a segment (slabs with no
+    // gap between them) starts at a slab whose start lies past the
+    // previous slab's rows and is cut into chunks of kT4Chunk rows from
+    // its first row
+    auto start_of = [&](int k) { return static_cast<int>(key[k] >> 32); };
+    int st0 = 0, end = 0, nck = 0;
+    if (tid < nb) {
+      st0 = start_of(tid);
+      s_start[tid] = st0;
+      s_slab[tid] = static_cast<int>(key[tid] & 0xffffffffu);
+      if (tid == 0 || st0 > start_of(tid - 1) + p.rows) {
+        int k = tid + 1;
+        while (k < nb && start_of(k) <= start_of(k - 1) + p.rows) ++k;
+        end = start_of(k - 1) + p.rows;
+        nck = (end - st0 + kT4Chunk - 1) / kT4Chunk;
+      }
+    }
+    const int off = block_exclusive_scan(nck, warp_sums, &n_chunks);
+    if (nck > 0) {
+      if (off + nck > p.max_chunks) __trap();
+      for (int c = 0; c < nck; ++c) {
+        const int at = st0 + c * kT4Chunk;
+        s_chunk[2 * (off + c)] = at;
+        s_chunk[2 * (off + c) + 1] = min(kT4Chunk, end - at);
+      }
+    }
+    __syncthreads();
+    const int nc = n_chunks;
+
+    // the batch's chunk i into stage (ci + i) % kT4Stages: one bulk copy,
+    // or 16 bytes a thread in one commit group (an empty group past the
+    // last chunk keeps the group count)
+    auto issue = [&](int i) {
+      const int st = (ci + i) % kT4Stages;
+      if (i < nc) {
+        float4* dst = ring + st * kT4Chunk * 32;
+        const float4* src = p.x + static_cast<long long>(s_chunk[2 * i]) * 32;
+        const int n4 = s_chunk[2 * i + 1] * 32;
+        if constexpr (kBulk) {
+          if (tid == 0) {
+            mbar_arrive_expect_tx(&full[st], static_cast<uint32_t>(n4) * 16u);
+            bulk_copy_to_shared(dst, src, static_cast<uint32_t>(n4) * 16u,
+                                &full[st]);
+          }
+        } else {
+          for (int e = tid; e < n4; e += kThreads) cp_async16(dst + e, src + e);
+        }
+      }
+      if constexpr (!kBulk) cp_async_commit();
+    };
+    for (int i = 0; i < kT4Stages; ++i) issue(i);
+    int k0 = 0;
+    for (int i = 0; i < nc; ++i) {
+      const int st = (ci + i) % kT4Stages;
+      const int a = s_chunk[2 * i], n = s_chunk[2 * i + 1];
+      if constexpr (kBulk) {
+        mbar_wait(&full[st],
+                  static_cast<uint32_t>(((ci + i) / kT4Stages) & 1));
+      } else {
+        cp_async_wait<kT4Stages - 1>();
+      }
+      __syncthreads();
+      if (jr < n) {
+        const float4* in = ring + (st * kT4Chunk + jr) * 32 + q;
+        float4 v[8];                      // v[k]: residue (k + odd) % 8
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = in[4 * ((k + odd) & 7)];
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) acc = add4(acc, odd ? v[(r + 7) & 7] : v[r]);
+        fsum[jr * 4 + q] = acc;
+      }
+      __syncthreads();
+      issue(i + kT4Stages);               // stage st has been read
+      // every slab of the batch holding rows of [a, a + n)
+      while (k0 < nb && s_start[k0] + p.rows <= a) ++k0;
+      for (int k = k0; k < nb && s_start[k] < a + n; ++k) {
+        const int sk = s_start[k];
+        const int r0 = max(a, sk), r1 = min(a + n, sk + p.rows);
+        float4* o = p.out + (static_cast<long long>(s_slab[k]) * p.rows
+                             + (r0 - sk)) * 4;
+        const float4* f = fsum + (r0 - a) * 4;
+        for (int e = tid; e < (r1 - r0) * 4; e += kThreads) o[e] = f[e];
+      }
+    }
+    ci += nc;
+    if constexpr (!kBulk) cp_async_wait<0>();
   }
 }
 
@@ -322,14 +581,15 @@ extern "C" int tpu_splat_dynamic_slice_rows(const void* x, const int* d,
                        static_cast<cudaStream_t>(stream));
 }
 
-// x and out: rows of 16 floats
+// x and out: rows of 16 floats; `blocks` blocks of 8 warps, a warp
+// kT2Unroll tiles of 32 rows (the wrapper's reshape_plan)
 extern "C" int tpu_splat_reshape_rows(const void* x, void* out,
-                                      long long rows, void* stream) {
+                                      long long rows, int blocks,
+                                      void* stream) {
   ReshapeParams p{static_cast<const float4*>(x), static_cast<float4*>(out),
                   rows};
-  return launch_kernel((const void*)&reshape_rows_kernel, p,
-                       grid((rows + kThreads - 1) / kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(stream));
+  return launch_kernel((const void*)&reshape_rows_kernel, p, blocks,
+                       kThreads, 0, static_cast<cudaStream_t>(stream));
 }
 
 // x (p_rows, c4 float4), src (k,) int32, out (k, g, c4); smem = 2 g c4 16
@@ -343,17 +603,21 @@ extern "C" int tpu_splat_double_block_window(const void* x, const int* src,
                        kThreads, smem, static_cast<cudaStream_t>(stream));
 }
 
-// x (r_rows, 128) f32, s (b,) int32, out (b, rows, 16); bulk != 0: one
-// cp.async.bulk a block, else per-thread loads; smem = rows * 512
+// x (r_rows, 128) f32, s (b,) int32, out (b, rows, 16); bulk != 0: bulk
+// copies into the ring, else per-thread cp.async.  `blocks` blocks, block
+// g taking the slabs that start in [g width, (g + 1) width), at most
+// max_chunks chunks a batch, smem bytes (the wrapper's residue_plan).
 extern "C" int tpu_splat_dma_residue_sum(const void* x, const int* s,
                                          void* out, int b, int r_rows,
-                                         int rows, int bulk, long long smem,
-                                         void* stream) {
+                                         int rows, int bulk, int blocks,
+                                         int width, int max_chunks,
+                                         long long smem, void* stream) {
   ResidueParams p{static_cast<const float4*>(x), s,
-                  static_cast<float4*>(out), r_rows, rows};
+                  static_cast<float4*>(out), b, r_rows, rows, width,
+                  max_chunks};
   const void* fn = bulk ? (const void*)&dma_residue_sum_kernel<true>
                         : (const void*)&dma_residue_sum_kernel<false>;
-  return launch_kernel(fn, p, grid(b), kThreads, smem,
+  return launch_kernel(fn, p, blocks, kThreads, smem,
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -8,10 +8,20 @@
 // formula, log transmittance and freeze), then walks the rows front to
 // back once more carrying the backward's state — the remaining-feature
 // sum s_i = s_total - (prefix of w * g_f + carry) — and forms each
-// (row, pixel)'s gradient terms: the 7 packed-gaussian gradients (through
-// the rotated coordinates u, v, or the antialias closed forms), the F
+// (row, pixel)'s gradient terms: the 7 packed-gaussian terms, the F
 // feature gradients, and optionally visibility (sum of w), prune cost
 // (pa^2 * sum alpha_grad^2) and split score.
+//
+// Without antialias, as the reference's _bwd_kernel (:773-784, :869-914):
+// alpha is pa * exp(-(u^2 + v^2) / 2), u and v the sigma-scaled rotated
+// coordinates as linear forms of the tile-centred pixel coordinates, and
+// the 7 terms are the pixel moments z0 u px, z0 u py, z0 u, z0 v px,
+// z0 v py, z0 v and z0.  The flush turns a row's summed moments into its
+// six geometry gradients with this tile's mean offsets before it adds
+// them to the buffer.  The forward's quadratic form, and per-pixel terms,
+// cancel large f32 terms for splats thinner than ~0.1 px (ROADMAP F16);
+// the two alpha formulas agree to rounding (F1).  With antialias the
+// terms are the closed forms per pixel, as in the reference.
 //
 // The TPU writes each row's gradient into one of 9 per-class slab
 // buffers and sums them in a second kernel only because it has no
@@ -178,7 +188,6 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
   // g_image * image over all F+1 channels (the weight channel included)
   const float px = static_cast<float>(tid % ts) + 0.5f - half;
   const float py = static_cast<float>(tid / ts) + 0.5f - half;
-  const float px2 = px * px, pxy = px * py, py2 = py * py;
   const size_t ib = static_cast<size_t>(tile) * (p.f + 1) * pix + tid;
   float gi[kRegs ? MAXF : 1];
   float s_total = 0.0f, gi_w = 0.0f;
@@ -268,29 +277,21 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
           geo[3 * sc] = mlx * ay - mly * ax;
           geo[4 * sc] = fmaxf(sx, 1e-12f);
           geo[5 * sc] = fmaxf(sy, 1e-12f);
-          geo[6 * sc] = pa;
+          geo[10 * sc] = mlx;
+          geo[11 * sc] = mly;
         } else {
-          // stream_forward.cu's alpha coefficients, bit for bit
-          const float isx2 = 1.0f / fmaxf(sx * sx, 1e-24f);
-          const float isy2 = 1.0f / fmaxf(sy * sy, 1e-24f);
-          const float a2 = ax * ax, b2 = ay * ay;
-          const float cxx = -0.5f * (a2 * isx2 + b2 * isy2);
-          const float cyy = -0.5f * (b2 * isx2 + a2 * isy2);
-          const float cxy = -(ax * ay * (isx2 - isy2));
-          geo[0] = cxx;
-          geo[1 * sc] = cxy;
-          geo[2 * sc] = cyy;
-          geo[3 * sc] = -(2.0f * cxx * mlx + cxy * mly);
-          geo[4 * sc] = -(2.0f * cyy * mly + cxy * mlx);
-          geo[5 * sc] = cxx * mlx * mlx + cxy * mlx * mly
-                        + cyy * mly * mly + logf(fmaxf(pa, 1e-30f));
-          geo[6 * sc] = ax;
-          geo[7 * sc] = ay;
-          geo[8 * sc] = 1.0f / fmaxf(sx, 1e-12f);
-          geo[9 * sc] = 1.0f / fmaxf(sy, 1e-12f);
+          // the linear forms u = lu . [px, py, 1], v = lv . [px, py, 1]
+          // (stream_kernels._backward_alpha_raw)
+          const float isx = 1.0f / fmaxf(sx, 1e-12f);
+          const float isy = 1.0f / fmaxf(sy, 1e-12f);
+          geo[0] = ax * isx;
+          geo[1 * sc] = ay * isx;
+          geo[2 * sc] = -(mlx * ax + mly * ay) * isx;
+          geo[3 * sc] = -ay * isy;
+          geo[4 * sc] = ax * isy;
+          geo[5 * sc] = (mlx * ay - mly * ax) * isy;
         }
-        geo[10 * sc] = mlx;
-        geo[11 * sc] = mly;
+        geo[6 * sc] = pa;
         for (int c = 0; c < p.f; ++c)
           s_feat[c * sc + slot] = row[7 + c];
         s_key[slot] = (static_cast<int>(row[7 + p.f]) << 11) | slot;
@@ -324,11 +325,10 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
       if ((j & 31) == 0 && __syncthreads_and(done)) break;
       const int slot = s_key[j] & 2047;
       const float* geo = s_geo + slot;
-      const float mlx = geo[10 * sc], mly = geo[11 * sc];
 
       // slots 0-6 the packed-gaussian terms, then w, ag^2 and the split
       // term; the features' terms are w * gi
-      float a_raw;
+      float a_raw, u = 0.0f, v = 0.0f;
       if (p.antialias) {
         const float ax = geo[0], ay = geo[1 * sc];
         const float sx = geo[4 * sc], sy = geo[5 * sc];
@@ -338,8 +338,9 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
         a_raw = geo[6 * sc] * (kTau * ix * iy);
       } else {
-        a_raw = expf(geo[0] * px2 + geo[1 * sc] * pxy + geo[2 * sc] * py2
-                     + geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc]);
+        u = geo[0] * px + geo[1 * sc] * py + geo[2 * sc];
+        v = geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc];
+        a_raw = geo[6 * sc] * expf(-0.5f * (u * u + v * v));
       }
       const float a = a_raw > p.alpha_threshold
                           ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
@@ -367,8 +368,8 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         const float ag = t * gf - s_i / (1.0f - a);
         acc_l += log1pf(-a);
         const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
-        const float dx = px - mlx, dy = py - mly;
         if (p.antialias) {
+          const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
           const float ax = geo[0], ay = geo[1 * sc];
           const float sx = geo[4 * sc], sy = geo[5 * sc];
           const float pa = geo[6 * sc];
@@ -391,23 +392,22 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
           t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
           t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
           t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+          tsplit = fabsf(t7[0]) + fabsf(t7[1]);
         } else {
-          const float ax = geo[6 * sc], ay = geo[7 * sc];
-          const float isx = geo[8 * sc], isy = geo[9 * sc];
-          const float u = (ax * dx + ay * dy) * isx;
-          const float v = (-ay * dx + ax * dy) * isy;
+          // the pixel moments; the flush makes them gradients
           const float zu = z0 * u, zv = z0 * v;
-          t7[0] = ax * isx * zu - ay * isy * zv;
-          t7[1] = ay * isx * zu + ax * isy * zv;
-          t7[2] = -isx * zu * dx - isy * zv * dy;
-          t7[3] = -isx * zu * dy + isy * zv * dx;
-          t7[4] = isx * zu * u;
-          t7[5] = isy * zv * v;
+          t7[0] = zu * px;
+          t7[1] = zu * py;
+          t7[2] = zu;
+          t7[3] = zv * px;
+          t7[4] = zv * py;
+          t7[5] = zv;
+          tsplit = fabsf(zu * geo[0] + zv * geo[3 * sc])
+                   + fabsf(zu * geo[1 * sc] + zv * geo[4 * sc]);
         }
         t7[6] = z0;                            // / pa at the flush
         tw = w;
         tprune = ag * ag;                      // * pa^2 at the flush
-        tsplit = fabsf(t7[0]) + fabsf(t7[1]);
       }
       done = acc_l + lt_in <= p.lcut;
 
@@ -461,17 +461,49 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     s_prev += acc_wgf;
     __syncthreads();
 
-    // flush the slab's rows into the home-major buffer
+    // flush the slab's rows into the home-major buffer; without
+    // antialias, the moments -> gradients with this tile's mean offsets
+    // (stream_kernels._row_grads, the reference's :882-893)
     for (int w = 0; w < p.w_max; ++w) {
       const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
       const int row0 = s_win[4 * w + 2], grow0 = s_win[4 * w + 3];
       for (int r = tid; r < ln; r += nthr) {
         const int grow = grow0 + r;
         if (grow < 0 || grow >= r_rows) continue;
-        const float pa = p.table[static_cast<size_t>(row0 + r) * p.w_pad + 6];
+        const float* row = p.table + static_cast<size_t>(row0 + r) * p.w_pad;
+        const float pa = row[6];
         const float* acc = s_acc + slot0 + r;
         float* o = p.out + static_cast<size_t>(grow) * p.slabw;
-        for (int c = 0; c < p.slabw; ++c) {
+        float g6[6];
+        if (p.antialias) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c) g6[c] = acc[c * sa];
+        } else {
+          const float mlx = row[0] - ox, mly = row[1] - oy;
+          const float ax = row[2], ay = row[3];
+          const float isx = 1.0f / fmaxf(row[4], 1e-12f);
+          const float isy = 1.0f / fmaxf(row[5], 1e-12f);
+          const float su_px = acc[0], su_py = acc[1 * sa], su = acc[2 * sa];
+          const float sv_px = acc[3 * sa], sv_py = acc[4 * sa];
+          const float sv = acc[5 * sa];
+          const float su_dx = su_px - mlx * su, su_dy = su_py - mly * su;
+          const float sv_dx = sv_px - mlx * sv, sv_dy = sv_py - mly * sv;
+          const float* geo = s_geo + slot0 + r;
+          const float suu = geo[0] * su_px + geo[1 * sc] * su_py
+                            + geo[2 * sc] * su;
+          const float svv = geo[3 * sc] * sv_px + geo[4 * sc] * sv_py
+                            + geo[5 * sc] * sv;
+          g6[0] = ax * isx * su - ay * isy * sv;
+          g6[1] = ay * isx * su + ax * isy * sv;
+          g6[2] = -isx * su_dx - isy * sv_dy;
+          g6[3] = -isx * su_dy + isy * sv_dx;
+          g6[4] = isx * suu;
+          g6[5] = isy * svv;
+        }
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          if (g6[c] != 0.0f) atomicAdd(o + c, g6[c]);
+        for (int c = 6; c < p.slabw; ++c) {
           float x = acc[c * sa];
           if (c == 6) x = x / fmaxf(pa, 1e-20f);
           if (p.heur && c == c_vis + 1) x = x * (pa * pa);

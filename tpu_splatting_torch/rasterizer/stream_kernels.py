@@ -31,10 +31,13 @@ error and counts the launch in ``launch_counts``.  A mapping on the CPU
 goes to the ``*_reference`` twin, the same function in plain torch.
 There is no fallback between the two.
 
-Both passes compute alpha with the forward's formula (``_alpha_raw``:
-the quadratic form with log(point alpha) folded in), so the forward and
-the backward make the same threshold, clamp and freeze decisions (ROADMAP
-F1).  The reference's ``ablate`` and ``with_counts`` instruments and
+The forward computes alpha with the quadratic form, log(point alpha)
+folded in (``_alpha_raw``).  Without antialias the backward computes it
+from the rotated coordinates u, v, as the reference's backward does, and
+sums the gradients through pixel moments (``_backward_alpha_raw``,
+``_row_grads``; ROADMAP F16): the two formulas agree to rounding, so the
+passes' threshold and freeze decisions can differ only where a_raw lies
+within rounding of a cut (F1).  The reference's ``ablate`` and ``with_counts`` instruments and
 ``with_asm`` / ``stream_share_asm`` (TPU-only residuals) are not
 ported.
 """
@@ -281,34 +284,78 @@ def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
   return out
 
 
+def _backward_alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
+  """(C, L, PIX) raw alpha of the backward and its aux: in antialias mode
+  the forward's (``_alpha_raw``); else, as the reference ``_bwd_kernel``
+  (:773-784), pa * exp(-(u^2 + v^2) / 2) with aux (lu, lv, u, v): u, v
+  the sigma-scaled rotated coordinates, each a linear form l . [px, py,
+  1] of the tile-centred pixel coordinates (lu, lv (C, L) triples).
+
+  The forward's quadratic form cancels large terms in f32 for splats
+  thinner than ~0.1 px (its exponent's constant grows as 1 / sigma^2):
+  with it the backward's f32 gradient of such a splat erred by 2.7e-4 of
+  its column's largest against the f64 twin, with u, v by 5.2e-5, the
+  reference's figure (ROADMAP F16).  The two formulas agree to rounding,
+  so the backward's threshold and freeze decisions can differ from the
+  forward's only where a_raw is within rounding of a cut, as the
+  reference's do (F1)."""
+  if config.antialias:
+    return _alpha_raw(rows, ox, oy, pxl, pyl, config)
+  mlx = rows[..., 0] - ox
+  mly = rows[..., 1] - oy
+  ax, ay = rows[..., 2], rows[..., 3]
+  isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
+  isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
+  lu = (ax * isx, ay * isx, -(mlx * ax + mly * ay) * isx)
+  lv = (-ay * isy, ax * isy, (mlx * ay - mly * ax) * isy)
+  u = lu[0][..., None] * pxl + lu[1][..., None] * pyl + lu[2][..., None]
+  v = lv[0][..., None] * pxl + lv[1][..., None] * pyl + lv[2][..., None]
+  a_raw = rows[..., 6, None] * torch.exp(-0.5 * (u * u + v * v))
+  return a_raw, (lu, lv, u, v)
+
+
 def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
-  """(C, L, PIX) per-pixel terms of the 7 packed-gaussian gradients (the
-  pa column before its 1 / pa) and of the split score."""
-  mlx = (rows[..., 0] - ox)[..., None]
-  mly = (rows[..., 1] - oy)[..., None]
-  ax, ay = rows[..., 2, None], rows[..., 3, None]
-  sx, sy, pa = rows[..., 4, None], rows[..., 5, None], rows[..., 6, None]
-  dx, dy = pxl - mlx, pyl - mly
+  """(C, L) sums over the pixels of the 7 packed-gaussian gradients (the
+  pa column before its 1 / pa) and of the split score.
+
+  Without antialias, as the reference ``_bwd_kernel`` (:869-914): the
+  seven pixel moments of z0 * u and z0 * v (times px, py, 1) and z0 are
+  summed, then turned into the six geometry gradients per row.  The
+  antialias closed forms stay per pixel, as in the reference."""
+  mlx = rows[..., 0] - ox
+  mly = rows[..., 1] - oy
+  ax, ay = rows[..., 2], rows[..., 3]
   if config.antialias:
     tu, tv = aux
     clamp_live = (a_raw < config.clamp_max_alpha).to(ag.dtype)
-    aag = pa * ag * clamp_live
-    g6 = [aag * d for d in _antialias_grads(tu, tv, sx, sy, dx, dy, ax, ay)]
-  else:
-    # through the sigma-scaled rotated coordinates u, v (reference
-    # _bwd_kernel :871-893, per pixel instead of through pixel moments)
-    isx = 1.0 / torch.clamp(sx, min=1e-12)
-    isy = 1.0 / torch.clamp(sy, min=1e-12)
-    u = (ax * dx + ay * dy) * isx
-    v = (-ay * dx + ax * dy) * isy
-    zu, zv = z0 * u, z0 * v
-    g6 = [ax * isx * zu - ay * isy * zv,
-          ay * isx * zu + ax * isy * zv,
-          -isx * zu * dx - isy * zv * dy,
-          -isx * zu * dy + isy * zv * dx,
-          isx * zu * u,
-          isy * zv * v]
-  return g6 + [z0], torch.abs(g6[0]) + torch.abs(g6[1])
+    aag = rows[..., 6, None] * ag * clamp_live
+    g6 = [aag * d for d in _antialias_grads(
+        tu, tv, rows[..., 4, None], rows[..., 5, None],
+        pxl - mlx[..., None], pyl - mly[..., None], ax[..., None],
+        ay[..., None])]
+    split = torch.abs(g6[0]) + torch.abs(g6[1])
+    return [g.sum(-1) for g in g6 + [z0]], split.sum(-1)
+  lu, lv, u, v = aux
+  isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
+  isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
+  zu, zv = z0 * u, z0 * v
+  su_px, su_py, su = (zu * pxl).sum(-1), (zu * pyl).sum(-1), zu.sum(-1)
+  sv_px, sv_py, sv = (zv * pxl).sum(-1), (zv * pyl).sum(-1), zv.sum(-1)
+  su_dx, su_dy = su_px - mlx * su, su_py - mly * su
+  sv_dx, sv_dy = sv_px - mlx * sv, sv_py - mly * sv
+  suu = lu[0] * su_px + lu[1] * su_py + lu[2] * su
+  svv = lv[0] * sv_px + lv[1] * sv_py + lv[2] * sv
+  g7 = [ax * isx * su - ay * isy * sv,
+        ay * isx * su + ax * isy * sv,
+        -isx * su_dx - isy * sv_dy,
+        -isx * su_dy + isy * sv_dx,
+        isx * suu,
+        isy * svv,
+        z0.sum(-1)]
+  # the split score per pixel: |z0 d mean_x / d pdf| + |z0 d mean_y / ...|
+  split = (torch.abs(zu * lu[0][..., None] + zv * lv[0][..., None])
+           + torch.abs(zu * lu[1][..., None] + zv * lv[1][..., None]))
+  return g7, split.sum(-1)
 
 
 def stream_backward_reference(mapping: StreamMapping,
@@ -321,10 +368,10 @@ def stream_backward_reference(mapping: StreamMapping,
   with ``halo``).
 
   Per chunk of tiles and per slab it recomputes the forward (the same
-  gathers, rank order, alpha, log transmittance and freeze as
-  ``stream_forward_reference``), forms every (row, pixel)'s gradient
-  terms, sums them over the pixels and ``index_add_``s each row into its
-  home-major buffer row.  Two carries cross slabs, as in the reference
+  gathers, rank order, log transmittance and freeze as
+  ``stream_forward_reference``; alpha from ``_backward_alpha_raw``), sums
+  every row's gradient terms over the pixels (``_row_grads``) and
+  ``index_add_``s each row into its home-major buffer row.  Two carries cross slabs, as in the reference
   ``_bwd_kernel``: the frozen log transmittance and the running sum of
   w * (features . g_image)."""
   if not config.use_alpha_blending:
@@ -376,7 +423,7 @@ def stream_backward_reference(mapping: StreamMapping,
         continue
       valid, rows, grow = _slab_rows(table, s0, ln, row0[sl, s], width, f,
                                      grow0[sl, s])
-      a_raw, aux = _alpha_raw(rows, ox, oy, pxl, pyl, config)
+      a_raw, aux = _backward_alpha_raw(rows, ox, oy, pxl, pyl, config)
       a = torch.where(valid[..., None], _threshold(a_raw, config), 0.0)
       l = torch.log1p(-a)
       csum = torch.cumsum(l, 1)
@@ -391,18 +438,16 @@ def stream_backward_reference(mapping: StreamMapping,
       s_i = s_total[:, None] - (torch.cumsum(wgf, 1) + s_prev[:, None])
       ag = torch.where(live, t * gf - s_i / (1.0 - a), 0.0)
       z0 = torch.where(live & (a_raw < cmax), ag * a_raw, 0.0)
-      g7, split = _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0,
-                             config)
+      cols, split = _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0,
+                               config)
       pa = rows[..., 6]
-      cols = [g.sum(-1) for g in g7]
       cols[6] = cols[6] / torch.clamp(pa, min=1e-20)
       cols = [torch.stack(cols, -1),
               torch.einsum("clp,cfp->clf", w, gi[:, :f])]
       if with_vis:
         cols.append(w.sum(-1)[..., None])
       if heur:
-        cols.append(torch.stack([(ag * ag).sum(-1) * (pa * pa),
-                                 split.sum(-1)], -1))
+        cols.append(torch.stack([(ag * ag).sum(-1) * (pa * pa), split], -1))
       vals = torch.cat(cols, -1)                              # (C, L, slabw)
       keep = valid & active[:, None] & (grow >= 0) & (grow < r_rows)
       buf.index_add_(0, grow[keep], vals[keep])
