@@ -230,6 +230,24 @@ Phases (any failure raises and exits non-zero):
    against their twins on its mapping); (e) ``check_card``, every
    quantity PASS, and its card's K1 and K2 calls held against their
    twins.
+14. The diagnostic scripts (``tpu_splatting_torch.benchmarks``'
+   counterparts of ``benchmarks/profile_*.py`` and ``exp_{mapper,reduce,
+   rowgather,layout,precision}.py``), each through its ``main`` on the
+   card (``DIAGNOSTICS``: ``profile_map`` and ``profile_map2`` on the
+   heavy 2M scene at group width 8 with the bench's cached calibration,
+   the rest at their defaults; every script with ``--iters 1 --warmup
+   1``, which keeps the phase near 90 s), its lines
+   printed and its kernels' launches counted from zero around it; every
+   K1 and K2 launch of a script recorded (through ``stream_function`` and
+   ``stream_kernels`` alike) and held against its twin on its own inputs
+   at the twin gates, launches on equal inputs sharing one twin run;
+   K4-K7 held as in phase 13 on ``profile_stages``' rasterizer setup and
+   K7 on ``exp_reduce``'s inputs; then the heavy 2M map split by
+   ``stream_map`` stage (``profile_map2.stage_split``: marker kernels
+   where the call enters a stage; two sessions in a row must agree on
+   every stage's kernels), the stages summing to within 10% of the
+   call's device time from a whole session of its own, with its busy
+   share, and the phase's seconds by script.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -240,7 +258,9 @@ with their launches on phase 11's default-size run
 (``fit_image_launches``) and on phase 12's render of the loaded
 checkpoint (``ply_launches``) and its examples (``examples_launches``),
 and on phase 13's bench paths (``bench_launches``, by path, and
-``bench_max_abs_err``; K4-K7 ``bench_components_launches``),
+``bench_max_abs_err``; K4-K7 ``bench_components_launches``), and on
+phase 14's scripts (``diagnostics_launches``, by script, and
+``diagnostics_max_abs_err``; also K4-K7 and the row-gather probe),
 K5 with its run-to-run difference, and the two floor probes, the
 row-gather probe, the four exp_mosaic probes (each second
 instantiation's times as fields of their own), the ten exp_pack entries
@@ -338,7 +358,12 @@ def device_split(fn, reps=20, kernels=None, attempts=5):
   times: records are lost at random, not alike twice.  A session that
   fails is run again, up to ``attempts`` times; then this raises.  Late
   in a long run, every session lost one record of the 4-microsecond halo
-  merge; the spin kernels around the timed calls ended those losses."""
+  merge; the spin kernels around the timed calls ended those losses.
+  Later still (phase 14), sessions of calls that launch thousands
+  of kernels (the heavy map) lost some of their first records, alike in
+  consecutive sessions, so that the check above can pass such a session
+  a few records short (7 to 35 of 3,151 kernels, 0.1 to 0.5 ms of 36
+  ms)."""
   from tpu_splatting_torch.utils.benchmarked import profiled_kernels
   fn()
   torch.cuda.synchronize()
@@ -3116,55 +3141,94 @@ def phase_fit(dev, card):
 
 
 @contextlib.contextmanager
-def recorded_stream_calls():
+def recorded_stream_calls(direct=False):
   """Records every K1 and K2 call made through
-  ``rasterizer.stream_function`` while open, with its inputs and output:
-  {"K1": [(mapping, config, image)], "K2": [(mapping, image, g_image,
-  config, buffer)]}.  The recorder launches nothing itself."""
+  ``rasterizer.stream_function`` while open (with ``direct``, also those
+  made through ``rasterizer.stream_kernels``' own names), with its inputs
+  and output: {"K1": [(mapping, config, image)], "K2": [(mapping, image,
+  g_image, config, buffer)]}.  The recorder launches nothing itself."""
   from tpu_splatting_torch.rasterizer import stream_function as sf
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
   calls = {"K1": [], "K2": []}
-  fwd, bwd = sf.stream_forward, sf.stream_backward
+  modules = (sf, sk) if direct else (sf,)
+  saved = [(mod, mod.stream_forward, mod.stream_backward) for mod in modules]
 
-  def forward(mapping, config):
-    out = fwd(mapping, config)
-    calls["K1"].append((mapping, config, out))
-    return out
+  def recorders(fwd, bwd):
+    # kept detached: a kept output of the autograd graph would keep the
+    # graph's saved tensors alive
+    def forward(mapping, config):
+      out = fwd(mapping, config)
+      calls["K1"].append((mapping, config, out.detach()))
+      return out
 
-  def backward(mapping, image, g_image, config):
-    out = bwd(mapping, image, g_image, config)
-    calls["K2"].append((mapping, image, g_image, config, out))
-    return out
-  sf.stream_forward, sf.stream_backward = forward, backward
+    def backward(mapping, image, g_image, config):
+      out = bwd(mapping, image, g_image, config)
+      calls["K2"].append((mapping, image.detach(), g_image.detach(), config,
+                          out.detach()))
+      return out
+    return forward, backward
+  for mod, fwd, bwd in saved:
+    mod.stream_forward, mod.stream_backward = recorders(fwd, bwd)
   try:
     yield calls
   finally:
-    sf.stream_forward, sf.stream_backward = fwd, bwd
+    for mod, fwd, bwd in saved:
+      mod.stream_forward, mod.stream_backward = fwd, bwd
 
 
+def mapping_equal(a, b):
+  """Whether two stream mappings hold the same tensors and metadata."""
+  if a is b:
+    return True
+  for f in dataclasses.fields(a):
+    x, y = getattr(a, f.name), getattr(b, f.name)
+    if isinstance(x, torch.Tensor):
+      if x.shape != y.shape or not torch.equal(x, y):
+        return False
+    elif x != y:
+      return False
+  return True
+
+
+@torch.no_grad()
 def stream_calls_vs_twins(calls, label):
-  """Each recorded K1 output against stream_forward_reference on its
-  inputs (max abs <= TOL), each K2 buffer against stream_backward_reference
-  per column (<= 1e-4 * max |twin column| + 1e-6), as kernel_vs_twin and
-  backward_vs_twin hold them.  Returns the largest K1 and K2 errors."""
+  """Every recorded K1 and K2 launch against its twin on its own inputs:
+  K1 max abs <= TOL, K2 per column <= 1e-4 * max |twin column| + 1e-6,
+  as kernel_vs_twin and backward_vs_twin hold them.  Launches on equal
+  inputs (the same config, and equal mapping, image and cotangent
+  tensors) share one twin run.  Returns the largest K1 and K2 errors."""
   from tpu_splatting_torch.rasterizer import stream_kernels as sk
   e1 = e2 = 0.0
+  twins = []
   for mapping, config, out in calls["K1"]:
-    err = float((out.detach() - sk.stream_forward_reference(mapping, config))
-                .abs().max())
-    log(f"  {label} K1 at {tuple(out.shape)}, overflow "
-        f"{int(mapping.num_overflow)}: max_abs_err {err:.3e} against its twin"
-        f" on the same inputs (tol {TOL:g})")
-    assert err <= TOL, (label, err)
+    for tm, tc, want in twins:
+      if tc == config and mapping_equal(tm, mapping):
+        break
+    else:
+      want = sk.stream_forward_reference(mapping, config)
+      twins.append((mapping, config, want))
+    err = float((out - want).abs().max())
+    assert bool(torch.isfinite(out).all()) and err <= TOL, (label, err)
     e1 = max(e1, err)
+  n1, twins = len(twins), []
+  worst = 0.0
   for mapping, image, g_image, config, out in calls["K2"]:
-    want = sk.stream_backward_reference(mapping, image, g_image, config)
-    err_col = (out.detach() - want).abs().amax(0)
+    for tm, ti, tg, tc, want in twins:
+      if (tc == config and torch.equal(ti, image) and torch.equal(tg, g_image)
+          and mapping_equal(tm, mapping)):
+        break
+    else:
+      want = sk.stream_backward_reference(mapping, image, g_image, config)
+      twins.append((mapping, image, g_image, config, want))
+    err_col = (out - want).abs().amax(0)
     tol_col = 1e-4 * want.abs().amax(0) + 1e-6
-    log(f"  {label} K2 at {tuple(out.shape)}: max_abs_err "
-        f"{float(err_col.max()):.3e}, worst column at "
-        f"{float((err_col / tol_col).max()):.3f} of its tolerance")
     assert bool((err_col <= tol_col).all()), (label, err_col.tolist())
     e2 = max(e2, float(err_col.max()))
+    worst = max(worst, float((err_col / tol_col).max()))
+  log(f"  {label}: {len(calls['K1'])} K1 launches ({n1} distinct inputs) "
+      f"max_abs_err {e1:.3e} (tol {TOL:g}); {len(calls['K2'])} K2 launches "
+      f"({len(twins)} distinct inputs) max_abs_err {e2:.3e}, worst column "
+      f"at {worst:.3f} of its tolerance; each against its twin")
   return e1, e2
 
 
@@ -3631,6 +3695,131 @@ def phase_bench(dev, card):
                                     ("segment_sum_sorted", e7))}}
 
 
+# phase 14: the diagnostic scripts, each with its arguments on the card;
+# one timed call after one warm-up a label keeps the phase near 90 s
+ONE_ITER = ["--iters", "1", "--warmup", "1"]
+DIAGNOSTICS = (
+    ("profile_map", ["--scene", "heavy", "--gw", "8", *ONE_ITER]),
+    ("profile_map2", ["--scene", "heavy", "--gw", "8", *ONE_ITER]),
+    ("profile_reduce_map", ONE_ITER),
+    ("profile_full", ONE_ITER),
+    ("profile_full2", ONE_ITER),
+    ("profile_stream", ONE_ITER),
+    ("profile_stages", ONE_ITER),
+    ("profile_glue", ONE_ITER),
+    ("profile_glue2", ONE_ITER),
+    ("profile_proj", ONE_ITER),
+    ("exp_mapper", ONE_ITER),
+    ("exp_reduce", ONE_ITER),
+    ("exp_rowgather", ONE_ITER),
+    ("exp_layout", ONE_ITER),
+    ("exp_precision", ONE_ITER),
+)
+
+
+def heavy_map_split(dev):
+  """The heavy 2M map (the bench's scene and cached calibration, group
+  width 8) split by ``stream_map`` stage (``profile_map2.stage_split``):
+  a split counts once a session gives every stage the kernels an earlier
+  one gave (late in the script both may miss a few of the first records:
+  ``device_split``'s note); its stages must sum to within 10% of the
+  call's device time from a session of its own (``device_split``).
+  Returns ({stage: device ms}, the call's device ms)."""
+  import argparse
+  from tpu_splatting_torch import bench
+  from tpu_splatting_torch.benchmarks import diagnostics as dg
+  from tpu_splatting_torch.benchmarks import profile_map, profile_map2
+  args = argparse.Namespace(n=bench.N, size=bench.IMAGE_SIZE, gw=8)
+  s = dg.prepare("heavy", args, dev)
+  call = lambda: profile_map.map_call(s, bench.IMAGE_SIZE, s.caps)(
+      *s.map_args)
+  log_busy("heavy map", call)
+  whole = sum(device_split(call, reps=1, attempts=8).values())
+  seen = []
+  for _ in range(6):
+    split = profile_map2.stage_split(call, dev)
+    kernels = [(k, st.kernels) for k, st in split.items()]
+    if kernels in seen:
+      break
+    seen.append(kernels)
+  else:
+    raise AssertionError(f"stage splits never agreed twice: {seen}")
+  for line in profile_map2.split_lines(split, whole):
+    log(f"  heavy map {line}")
+  total = sum(st.ms for st in split.values())
+  assert abs(total - whole) <= 0.1 * whole, (total, whole)
+  assert list(split) == list(profile_map2.STAGES), list(split)
+  return {k: st.ms for k, st in split.items()}, whole
+
+
+def phase_diagnostics(dev, card):
+  """Phase 14: the diagnostic scripts of ``tpu_splatting_torch.benchmarks``
+  (``DIAGNOSTICS``), each through its ``main`` with each K1 and K2 call
+  recorded and, after the script, held against its twin
+  (``stream_calls_vs_twins``); K4-K7 held as phase 13 holds them, on the
+  rasterizer setup of ``profile_stages`` and on ``exp_reduce``'s inputs;
+  then the heavy map's split by stage.  Returns each kernel's launches by
+  script and largest error against its twin there."""
+  import importlib
+  from tpu_splatting_torch.benchmarks import bench_components, exp_reduce
+  from tpu_splatting_torch.rasterizer import function as fn
+  from tpu_splatting_torch.rasterizer import kernels as kk
+  from tpu_splatting_torch.rasterizer import layout
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  t_phase = time.perf_counter()
+  launches, errs, seconds = {}, {"K1": [0.0], "K2": [0.0]}, {}
+  for name, argv in DIAGNOSTICS:
+    mod = importlib.import_module(f"tpu_splatting_torch.benchmarks.{name}")
+    log(f"phase 14: {name} {' '.join(argv)}")
+    for counter in (sk, kk, layout):
+      counter.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_stream_calls(direct=True) as calls:
+      assert mod.main(argv) == 0, name
+      torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    launches[name] = {k: v for k, v in {
+        **sk.launch_counts, **kk.launch_counts, **layout.launch_counts,
+        **layout.probe_launch_counts}.items() if v}
+    if calls["K1"] or calls["K2"]:
+      e1, e2 = stream_calls_vs_twins(calls, name)
+      errs["K1"].append(e1)
+      errs["K2"].append(e2)
+    del calls
+    log(f"  {name}: {seconds[name]:.1f} s, launches {launches[name]}")
+  log("phase 14: K4-K7 of profile_stages and K7 of exp_reduce against "
+      "their twins")
+  rs = bench_components.rasterizer_setup(device=dev)
+  e4 = sorted_forward_vs_twin(rs.mapping, rs.config, "profile_stages", 1)[0]
+  e5, _, _, gout, _ = sorted_backward_vs_twin(rs.mapping, rs.config,
+                                              "profile_stages", 1)
+  e7 = layout_vs_twins(rs.mapping, gout, "profile_stages")
+  del rs, gout
+  g, _, pid = exp_reduce.inputs(4_400_000, 1_000_000, 12, dev)
+  e7 = max(e7, segment_sum_checks(g, fn.sort_point_ids(pid), 1_000_000,
+                                  "exp_reduce")[0])
+  del g, pid
+  log("phase 14: the heavy 2M map by stage")
+  split, whole = heavy_map_split(dev)
+  log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s on {card}; by "
+      "script: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+
+  def by_script(kernel):
+    return {k: v[kernel] for k, v in launches.items() if kernel in v}
+  return {"K1": {"diagnostics_launches": by_script("stream_forward"),
+                 "diagnostics_max_abs_err": max(errs["K1"])},
+          "K2": {"diagnostics_launches": by_script("stream_backward"),
+                 "diagnostics_max_abs_err": max(errs["K2"])},
+          "sorted": {k: {"diagnostics_launches": by_script(k),
+                         "diagnostics_max_abs_err": err}
+                     for k, err in (("sorted_forward", e4),
+                                    ("sorted_backward", e5),
+                                    ("window_copy", 0.0),
+                                    ("segment_sum_sorted", e7),
+                                    ("row_gather", 0.0))},
+          "heavy_map_split_ms": split, "heavy_map_device_ms": whole}
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -3662,10 +3851,15 @@ def main():
   fit = phase_fit(dev, card)
   ply_path = phase_ply(dev, g3d, cams, cfg, image0, card)
   bench_paths = phase_bench(dev, card)
+  diag = phase_diagnostics(dev, card)
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
+    on = diag["sorted"].get(e["name"], {})
+    if on:
+      e.update(on, also_on=list(on["diagnostics_launches"]))
     if e["name"] in bench_paths["sorted"]:
-      e.update(bench_paths["sorted"][e["name"]], also_on=["bench_components"])
+      e.update(bench_paths["sorted"][e["name"]],
+               also_on=["bench_components", *e["also_on"]])
   log(f"phase 2 max_abs_err K1 {err2:.3e} K2 {err2b:.3e}; phase 5 K4 "
       f"{e4:.3e} K5 {e5:.3e} K7 {e7:.3e}")
   log(card)                    # name, power limit as nvidia-smi prints them
@@ -3677,17 +3871,19 @@ def main():
            library_ms=None, **k1, **k1_sharded,
            also_on=["band_sharded_forward", "band_sharded_grad",
                     "fit_image_gaussians", "render_ply", "vis_split",
-                    "test_backward", *BENCH_PATHS],
+                    "test_backward", *BENCH_PATHS,
+                    *diag["K1"]["diagnostics_launches"]],
            fit_image_launches=fit["stream_forward"],
-           **ply_path["stream_forward"], **bench_paths["K1"],
+           **ply_path["stream_forward"], **bench_paths["K1"], **diag["K1"],
            with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
            library_ms=None, **k2, **k2_sharded,
            also_on=["band_sharded_grad", "fit_image_gaussians",
-                    "test_backward", *BENCH_PATHS],
+                    "test_backward", *BENCH_PATHS,
+                    *diag["K2"]["diagnostics_launches"]],
            fit_image_launches=fit["stream_backward"],
-           **ply_path["stream_backward"], **bench_paths["K2"],
+           **ply_path["stream_backward"], **bench_paths["K2"], **diag["K2"],
            with_band0=True, with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",

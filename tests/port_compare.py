@@ -7,13 +7,43 @@ goes through ``jax.device_get`` into plain dicts, which the port's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
 import numpy as np
 import torch
+from jax._src import dispatch
+from jax.experimental.pallas import tpu as pltpu
 
 from tpu_splatting_torch import convert
+
+
+@contextlib.contextmanager
+def tpu_reference_mode():
+  """A block of the benchmarks' Pallas TPU probes run by the reference
+  itself, in TPU interpret mode with x64 off (ROADMAP F11), isolated from
+  every other such block of the process (F21).
+
+  Two states of the process outlive a probe that raises.  TPU interpret
+  mode keeps its simulated memory in one object, left set by a kernel
+  that raises (``pltpu.reset_tpu_interpret_mode_state``).  And its
+  callbacks are ordered effects: JAX passes one token from each ordered
+  computation of a thread to the next (``dispatch.runtime_tokens``).  A
+  kernel that fails after its dispatch has returned (XLA runs it
+  asynchronously when its inputs are not ready yet, as on a loaded
+  machine) leaves a failed token there, and every later interpreted
+  kernel of the thread then fails with "Buffer Definition Event:
+  CpuCallback error".  So each block starts from a reset interpret state
+  and an empty token set, and leaves them so."""
+  pltpu.reset_tpu_interpret_mode_state()
+  dispatch.runtime_tokens.clear()
+  try:
+    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+      yield
+  finally:
+    dispatch.runtime_tokens.clear()
+    pltpu.reset_tpu_interpret_mode_state()
 
 
 def fields(obj) -> dict:

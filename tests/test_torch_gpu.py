@@ -1339,3 +1339,42 @@ def test_2d_examples_on_card(cuda, tmp_path):
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=0,
                                msg=name)
+
+
+def test_heavy_map_scripts_and_stage_split_on_card(cuda, tmp_path,
+                                                   monkeypatch, capsys):
+  """``profile_map`` and ``profile_map2`` on the bench's heavy scene at
+  200k splats, 2048x1536: each exits 0 with a line per variant and per
+  stage; then the stage split of one ``stream_map`` call sums to within
+  10% of the call's device time (``diagnostics.device_reading``), and
+  every stage launched kernels."""
+  import argparse
+  from tpu_splatting_torch import bench
+  from tpu_splatting_torch.benchmarks import diagnostics as dg
+  from tpu_splatting_torch.benchmarks import profile_map, profile_map2
+  monkeypatch.setattr(bench, "CAL_PATH", str(tmp_path / "cal.json"))
+  argv = ["--scene", "heavy", "--n", "200000", "--iters", "1"]
+  assert profile_map.main(argv) == 0
+  assert profile_map2.main(argv) == 0
+  out = capsys.readouterr().out
+  for label, _, _ in profile_map.VARIANTS:
+    assert f"\n{label}: " in out, label
+  for stage in profile_map2.STAGES:
+    assert f"\nstage {stage}: device " in out, stage
+  args = argparse.Namespace(n=200_000, size=bench.IMAGE_SIZE, gw=8)
+  s = dg.prepare("heavy", args, cuda)
+  call = lambda: profile_map.map_call(s, bench.IMAGE_SIZE, s.caps)(
+      *s.map_args)
+  call()
+  torch.cuda.synchronize()
+  reading = dg.device_reading(call)
+  assert reading is not None, "the profiler lost kernel records"
+  whole = reading[0]
+  for _ in range(3):          # a profiler session may lose kernel records
+    split = profile_map2.stage_split(call, cuda)
+    total = sum(st.ms for st in split.values())
+    if abs(total - whole) <= 0.1 * whole:
+      break
+  assert abs(total - whole) <= 0.1 * whole, (total, whole)
+  assert list(split) == list(profile_map2.STAGES)
+  assert all(st.kernels > 0 for st in split.values()), split

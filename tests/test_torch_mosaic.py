@@ -11,7 +11,6 @@ makes (ROADMAP F11).  The kernels themselves are held against these twins
 in test_torch_gpu.py and chip_smoke.py.
 """
 
-import contextlib
 
 import pytest
 
@@ -21,8 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+import port_compare as pc  # noqa: E402
 from benchmarks import exp_mosaic as ref  # noqa: E402
 from tpu_splatting_torch.benchmarks import exp_mosaic as em  # noqa: E402
 
@@ -30,10 +29,7 @@ PROBES = {"T1": ref.t1_dynamic_sublane_slice, "T2": ref.t2_reshape,
           "T3": ref.t3_double_blockspec_window, "T4": ref.t4_dma_packed_rows}
 
 
-@contextlib.contextmanager
-def reference_mode():
-  with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
-    yield
+reference_mode = pc.tpu_reference_mode
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,6 @@ recorded call's shape only.  The kernels themselves are held against
 these twins in test_torch_gpu.py and chip_smoke.py.
 """
 
-import contextlib
 import subprocess
 import sys
 
@@ -28,8 +27,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+import port_compare as pc  # noqa: E402
 from benchmarks import exp_pack as ref  # noqa: E402
 from tpu_splatting_torch.benchmarks import exp_pack as ep  # noqa: E402
 
@@ -39,10 +38,7 @@ UNPACK = {"U1": (ref.u1_unpack_rowmajor, 16, "row"),
 T1_STEPS, F1_N, S_CAP = 4, 8192, 1024
 
 
-@contextlib.contextmanager
-def reference_mode():
-  with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
-    yield
+reference_mode = pc.tpu_reference_mode
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +76,35 @@ def recorded():
   for key, n in (("U1", 1), ("U1b", 1), ("U2", 1), ("T1", 2), ("F1", 2)):
     assert len(out[key]) == n, (key, len(out[key]))
   return out
+
+
+def test_reference_mode_isolates_a_failed_kernel():
+  """F21: an interpreted kernel that fails after its dispatch returned
+  (exp_mosaic's T4 reading past its table, on an input that is not
+  ready yet, so that XLA runs it asynchronously) leaves a failed token of
+  ordered effects and the interpret mode's memory behind; the next
+  ``reference_mode`` block starts without them and its probe passes."""
+  from jax.experimental.pallas import tpu as pltpu
+
+  from benchmarks import exp_mosaic
+  calls = []
+  real = pl.pallas_call
+
+  def recorder(*args, **kwargs):
+    calls.append(real(*args, **kwargs))
+    return calls[-1]
+
+  with pytest.MonkeyPatch.context() as mp, reference_mode():
+    mp.setattr(pl, "pallas_call", recorder)
+    exp_mosaic.t4_dma_packed_rows()
+  x = jnp.asarray(table((256, 128), 6))
+  big = jnp.ones((2048, 2048), jnp.float32)
+  with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+    pending = jax.jit(lambda b, a: a + 0.0 * jnp.sum(b @ b))(big, x)
+    with pytest.raises(Exception, match="Out-of-bounds"):
+      jax.block_until_ready(calls[0](jnp.asarray([193], jnp.int32), pending))
+  with reference_mode():
+    assert ref.u1_unpack_rowmajor()
 
 
 def test_probes_print_ok(recorded, capsys):

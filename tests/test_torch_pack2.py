@@ -20,7 +20,6 @@ themselves are held against these twins in test_torch_gpu.py and
 chip_smoke.py.
 """
 
-import contextlib
 import subprocess
 import sys
 
@@ -32,8 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+import port_compare as pc  # noqa: E402
 from benchmarks import exp_pack2 as ref  # noqa: E402
 from tpu_splatting_torch.benchmarks import exp_pack as ep  # noqa: E402
 from tpu_splatting_torch.benchmarks import exp_pack2 as ep2  # noqa: E402
@@ -42,10 +41,7 @@ T2_STEPS = 4
 SEEDS = [1, 2, 3]
 
 
-@contextlib.contextmanager
-def reference_mode():
-  with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
-    yield
+reference_mode = pc.tpu_reference_mode
 
 
 @pytest.fixture(scope="module")

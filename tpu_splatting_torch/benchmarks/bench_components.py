@@ -123,15 +123,19 @@ class RasterizerSetup:
   mapping: TileMapping
   config: RasterConfig
   image_size: tuple
+  depth: torch.Tensor
+  max_overlaps: int
 
 
 def rasterizer_setup(n=1_000_000, image_size=IMAGE_SIZE,
                      max_overlaps: Optional[int] = None, chunk_size=128,
-                     device="cuda") -> RasterizerSetup:
-  """The rasterizer benchmark's scene mapped once (features as the
-  sorted payload).  ``max_overlaps`` None: ``calibrate_mapper``'s
-  window, big capacity and overlap capacity.  Raises on overflow."""
-  packed, depth, feats = synthetic_2d(n, image_size, device=device)
+                     device="cuda", scale=4.0) -> RasterizerSetup:
+  """The rasterizer benchmark's scene (``synthetic_2d`` at ``scale``)
+  mapped once (features as the sorted payload).  ``max_overlaps`` None:
+  ``calibrate_mapper``'s window, big capacity and overlap capacity.
+  Raises on overflow."""
+  packed, depth, feats = synthetic_2d(n, image_size, scale_factor=scale,
+                                      device=device)
   config = RasterConfig(chunk_size=chunk_size)
   if max_overlaps is None:
     cal = calibrate_mapper(packed, depth, image_size, config)
@@ -141,7 +145,8 @@ def rasterizer_setup(n=1_000_000, image_size=IMAGE_SIZE,
   m = map_to_tiles(packed, depth, image_size, config,
                    max_overlaps=max_overlaps, features=feats)
   _check_overflow(f"rasterize n={n}", m, config, max_overlaps)
-  return RasterizerSetup(packed, feats, m, config, image_size)
+  return RasterizerSetup(packed, feats, m, config, image_size, depth,
+                         max_overlaps)
 
 
 def rasterizer_step(s: RasterizerSetup, backward: bool):

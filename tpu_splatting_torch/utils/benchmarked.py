@@ -39,16 +39,18 @@ def _on_cuda(x) -> bool:
 SPIN_CYCLES = 50_000
 
 
-def profiled_kernels(fn: Callable[[], object], reps: int):
+def profiled_kernels(fn: Callable[[], object], reps: int, host: bool = True):
   """One ``torch.profiler`` session of ``reps`` ``fn()`` calls on the
   card between two spin kernels (``torch.cuda._sleep``): ({CUDA kernel
   name: device us}, {name: records}), the spin kernels left out.  A
   session on a busy card now and then loses the records of its last
-  kernels; the spin kernels ended those losses."""
+  kernels; the spin kernels ended those losses.  ``host=False`` records
+  CUDA activity only: a session of thousands of kernels then takes the
+  profiler a fraction of the time to read."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CPU] * host +
+               [ProfilerActivity.CUDA]) as prof:
     torch.cuda._sleep(SPIN_CYCLES)
     for _ in range(reps):
       fn()
