@@ -248,6 +248,25 @@ Phases (any failure raises and exits non-zero):
    every stage's kernels), the stages summing to within 10% of the
    call's device time from a whole session of its own, with its busy
    share, and the phase's seconds by script.
+15. The profiling modes of K1 and K2 (``stream_kernels``' ``ablate`` and
+   ``with_counts``, the reference's instruments), on no path: at phase
+   2's 200k uniform mapping every K1 mode (skeleton, the floor probe;
+   no_assemble, no_sort, no_alpha), each with and without the counts,
+   and the counts of the compositing kernel, against their twins, and
+   every K2 mode (skeleton, no_sort, no_grad, no_copyback; heuristics +
+   visibility, a random cotangent) against its twin, each at
+   ``stream_kernels.profile_gate``'s tolerance (K1's images at TOL,
+   no_alpha's faint one per channel at 1e-4 x its largest value, the
+   floor probe's bit for bit), the counts exactly; then both of
+   ``bench_stream``'s profiles at the reference's 2M scenes
+   (``--profile-fwd``, group width 4; ``--profile-bwd``, group width 8),
+   printing K1's counts of each mapping, every mode's time by
+   ``utils.benchmarked`` and its device span from a flushed L2 (and, for
+   K1, its counts), and each difference full - mode with what it
+   measures ("not isolated" where the mode changes the walk); the forward
+   profile's counts are held against the twin's and its walked share
+   against the plain footprint model's (``stream_walk_mask``).  The
+   phase's seconds are printed.
 
 The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
@@ -260,7 +279,10 @@ checkpoint (``ply_launches``) and its examples (``examples_launches``),
 and on phase 13's bench paths (``bench_launches``, by path, and
 ``bench_max_abs_err``; K4-K7 ``bench_components_launches``), and on
 phase 14's scripts (``diagnostics_launches``, by script, and
-``diagnostics_max_abs_err``; also K4-K7 and the row-gather probe),
+``diagnostics_max_abs_err``; also K4-K7 and the row-gather probe), and
+K1's and K2's ``ablations`` (phase 15: each mode's device span and call
+time at the profile scene, its error against its twin, its launches) and
+K1's ``with_counts_launches`` and counts,
 K5 with its run-to-run difference, and the two floor probes, the
 row-gather probe, the four exp_mosaic probes (each second
 instantiation's times as fields of their own), the ten exp_pack entries
@@ -269,9 +291,9 @@ and the six exp_pack2 entries (one per kernel and width or mode,
 ``main_path`` false, ``launches`` read from their counters after the
 main path's run), and
 ``{"ok": true, "device": ...}``.  The
-walked shares are the plain footprint model's estimate over the mapping,
-printed in the log and not in the kernels line: the kernels do not count
-the rows they walk.
+walked shares of phases 2, 3 and 6 are the plain footprint model's
+estimate over the mapping, printed in the log; phase 15's is K1's own
+count (``with_counts``), in the kernels line (``profile_counts``).
 """
 
 from __future__ import annotations
@@ -282,7 +304,6 @@ import dataclasses
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -2375,23 +2396,6 @@ def held(got, want, label):
   return float((got - want).abs().max())
 
 
-def span_ms(fn, flush, reps=20):
-  """Median over reps calls of the device span of one fn() from a flushed
-  L2, by CUDA events recorded after each flush() and after each fn().  The
-  span encloses the call's kernels whole, so it is no shorter than their
-  device time: an instrument apart from torch.profiler's records."""
-  fn()
-  events = [(torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-  for start, end in events:
-    flush()
-    start.record()
-    fn()
-    end.record()
-  torch.cuda.synchronize()
-  return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
 def above_bound(label, device, bound, fn, flush):
   """A probe's device time ``device`` (torch.profiler's records of fn()
   from a flushed L2) is no less than its bound, else some of its input
@@ -2399,6 +2403,7 @@ def above_bound(label, device, bound, fn, flush):
   instrument, ``span_ms``: below the bound there too, this raises; else
   the profiler's reading was short, and the span, logged, is returned in
   its place.  Returns the device time."""
+  from tpu_splatting_torch.utils.benchmarked import span_ms
   if device >= bound[0]:
     return device
   span = span_ms(fn, flush)
@@ -2616,13 +2621,10 @@ PACK_N, PACK_S_CAP = 2_000_000, 1024
 
 def l2_flush(dev):
   """(flush, its kernel names): flush() writes a buffer of four times the L2
-  (``bitwise_not_`` of int32, a kernel no probe and no library call of
-  phase 9 launches)."""
-  size = torch.cuda.get_device_properties(dev).L2_cache_size
-  buf = torch.zeros(size, dtype=torch.int32, device=dev)
-
-  def flush():
-    buf.bitwise_not_()
+  (``utils.benchmarked.l2_flusher``: ``bitwise_not_`` of int32, a kernel
+  no probe and no library call of phase 9 launches)."""
+  from tpu_splatting_torch.utils.benchmarked import l2_flusher
+  flush = l2_flusher(dev)
   return flush, set(device_split(flush, kernels=1))
 
 
@@ -3820,6 +3822,110 @@ def phase_diagnostics(dev, card):
           "heavy_map_split_ms": split, "heavy_map_device_ms": whole}
 
 
+def phase_profiles(dev, card):
+  """Phase 15: the profiling modes of K1 and K2 against their twins at
+  phase 2's 200k uniform mapping, then ``bench_stream``'s two profiles at
+  the reference's 2M scenes.  Returns the K1 and K2 kernels-line fields:
+  {kernel: {"ablations": {mode: its error, device span, call time, full
+  - mode and what that measures, launches}, "profile_counts",
+  "profile_device_ms"}}, K1's also with ``with_counts_launches`` and its
+  error."""
+  from tpu_splatting_torch import RasterConfig
+  from tpu_splatting_torch.benchmarks import bench_stream
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.scenes import uniform_scene
+  t_phase = time.perf_counter()
+  log(f"phase 15: the profiling modes vs twins, uniform {N_SMALL} splats "
+      f"{SIZE_SMALL}")
+  sk.reset_launch_counts()
+  scene = uniform_scene(np.random.default_rng(0), N_SMALL, SIZE_SMALL)
+  cfg, build, feats, _ = mapped_scene(*scene, SIZE_SMALL, RasterConfig(),
+                                      dev)
+  m = build(feats)
+  fwd, bwd = {}, {}
+  for ab in ("", "skeleton", "no_assemble", "no_sort", "no_alpha"):
+    want, want_counts = sk.stream_forward_reference(m, cfg, ablate=ab,
+                                                    with_counts=True)
+    errs, used = [], []
+    for with_counts in (False, True) if ab else (True,):
+      got = sk.stream_forward(m, cfg, ablate=ab, with_counts=with_counts)
+      if with_counts:
+        got, counts = got
+        assert torch.equal(counts, want_counts), (
+            ab, (counts - want_counts).abs().max())
+      torch.cuda.synchronize()
+      err, share = sk.profile_gate(got, want, "stream_forward", ab)
+      errs.append(err)
+      used.append(share)
+      assert share <= 1.0, (ab, errs, used)
+    fwd[ab or "counts"] = {"max_abs_err": max(errs)}
+    log(f"  K1 ablate={ab or 'none'}: max_abs_err {max(errs):.3e} with and "
+        f"without counts, at {max(used):.3f} of its tolerance "
+        f"(sk.profile_gate); counts equal the twin's: iterations "
+        f"{int(want_counts[0::8, 0].sum())}, rows "
+        f"{int(want_counts[1::8, 0].sum())}, pairs "
+        f"{int(want_counts[2::8, 0].sum())}")
+  hcfg = dataclasses.replace(cfg, **HEUR)
+  img = sk.stream_forward(m, hcfg)
+  gimg = torch.randn(img.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+  for ab in ("skeleton", "no_sort", "no_grad", "no_copyback"):
+    want = sk.stream_backward_reference(m, img, gimg, hcfg, ablate=ab)
+    got = sk.stream_backward(m, img, gimg, hcfg, ablate=ab)
+    torch.cuda.synchronize()
+    err, used = sk.profile_gate(got, want, "stream_backward", ab)
+    assert used <= 1.0, (ab, err, used)
+    bwd[ab] = {"max_abs_err": err}
+    log(f"  K2 ablate={ab}: max_abs_err {err:.3e}, at {used:.3f} of its "
+        "tolerance")
+  del m, img, gimg, want, got
+  assert sk.launch_counts["stream_forward"] == 1, sk.launch_counts
+  assert sk.launch_counts["stream_backward"] == 0, sk.launch_counts
+  t_check = time.perf_counter() - t_phase
+
+  profiles = {}
+  for backward in (False, True):
+    label = "--profile-bwd" if backward else "--profile-fwd"
+    log(f"phase 15: bench_stream {label}")
+    before = dict(sk.probe_launch_counts)
+    s, profiles[label] = bench_stream.run_profile(backward, dev)
+    torch.cuda.synchronize()
+    log("  launches " + ", ".join(
+        f"{k} {v - before[k]}" for k, v in sk.probe_launch_counts.items()
+        if v != before[k]))
+    if not backward:
+      # the card's counts against the twin's, its walked share against the
+      # plain footprint model's, on the same mapping
+      _, counts = sk.stream_forward(s.mapping, s.config, with_counts=True)
+      _, want = sk.stream_forward_reference(s.mapping, s.config,
+                                            with_counts=True)
+      assert torch.equal(counts, want), float((counts - want).abs().max())
+      model = float(stream_walk_mask(s.mapping, s.config).double().mean())
+      log(f"  counts equal the twin's; walked share "
+          f"{profiles[label]['counts']['walked_share']:.4f} (the card's "
+          f"count), {model:.4f} (the plain footprint model)")
+      profiles[label]["counts"]["model_walked_share"] = model
+    del s
+  log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s on {card} (the "
+      f"checks at 200k {t_check:.1f} s)")
+  out = {}
+  for key, table, kernel in (("--profile-fwd", fwd, "stream_forward"),
+                             ("--profile-bwd", bwd, "stream_backward")):
+    prof = profiles[key]
+    for ab, t in prof["modes"].items():
+      mode = sk.ABLATION_ALIASES.get(ab, ab)
+      if mode:
+        table[mode].update(t, launches=sk.probe_launch_counts[
+            f"{kernel}_{mode}"])
+    out[kernel] = {"ablations": table, "profile_counts": prof["counts"],
+                   "profile_device_ms": prof["modes"][""]["device_ms"]}
+  counts_err = out["stream_forward"]["ablations"].pop("counts")["max_abs_err"]
+  out["stream_forward"].update(
+      with_counts_launches=sk.probe_launch_counts["stream_forward_counts"],
+      with_counts_max_abs_err=counts_err)
+  return out
+
+
 def main():
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -3852,6 +3958,7 @@ def main():
   ply_path = phase_ply(dev, g3d, cams, cfg, image0, card)
   bench_paths = phase_bench(dev, card)
   diag = phase_diagnostics(dev, card)
+  prof = phase_profiles(dev, card)
   for e, err in zip(sorted_entries, (e4, e5, 0.0, e7, 0.0, 0.0)):
     e["max_abs_err"] = max(e["max_abs_err"], err)
     on = diag["sorted"].get(e["name"], {})
@@ -3875,7 +3982,7 @@ def main():
                     *diag["K1"]["diagnostics_launches"]],
            fit_image_launches=fit["stream_forward"],
            **ply_path["stream_forward"], **bench_paths["K1"], **diag["K1"],
-           with_band0=True),
+           **prof["stream_forward"], with_band0=True),
       dict(name="stream_backward", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "697",
            library_ms=None, **k2, **k2_sharded,
@@ -3884,7 +3991,7 @@ def main():
                     *diag["K2"]["diagnostics_launches"]],
            fit_image_launches=fit["stream_backward"],
            **ply_path["stream_backward"], **bench_paths["K2"], **diag["K2"],
-           with_band0=True, with_halo=True),
+           **prof["stream_backward"], with_band0=True, with_halo=True),
       dict(name="merge_grad_slabs", route="cuda",
            source=src + "stream_backward.cu", replaces=ref + "996",
            fused_into="stream_backward", **k3),

@@ -188,3 +188,25 @@ def test_port_imports_no_reference():
         continue
       for name in names:
         assert name.split(".")[0] not in banned, (path, name)
+
+
+@pytest.mark.parametrize("flag", ["--profile-fwd", "--profile-bwd"])
+def test_bench_stream_profiles_refuse_the_cpu(flag):
+  """The profiles read device time: ``--device cpu`` refuses them."""
+  with pytest.raises(SystemExit, match="need the card"):
+    bench_stream.main([flag, "--device", "cpu", "--n", "300"])
+
+
+def test_bench_stream_counts_on_the_cpu(capsys):
+  """The profiles' first lines, K1's counts of the mapping, from the
+  twin on a small CPU scene."""
+  s = bench_stream.setup(n=500, image_size=(64, 48), scale=1.0,
+                         device="cpu")
+  counts = bench_stream.active_counts(s)
+  out = capsys.readouterr().out
+  assert f"# ACTIVE SLAB ITERS: {counts['iterations']} (tiles " in out
+  assert "walked (row, warp) pairs" in out
+  assert s.mapping.num_tiles <= counts["iterations"] <= (
+      s.mapping.num_tiles * s.mapping.num_slabs)
+  assert 0.0 < counts["walked_share"] <= 1.0
+  assert counts["pairs"] <= counts["rows"] * 8

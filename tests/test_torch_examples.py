@@ -242,3 +242,48 @@ def test_new_modules_need_no_jax_and_build_nothing():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def ref_autoencoder(monkeypatch):
+  monkeypatch.syspath_prepend(REPO)
+  from examples import autoencoder
+  return autoencoder
+
+
+def test_autoencoder_matches_reference(ref_autoencoder):
+  """``examples/autoencoder.py`` with the reference's own weights and
+  positions (its ``train``'s draws from seed 0, carried across by
+  ``from_reference``): the latent and the reconstruction to 1e-5, and the
+  loss after 5 of its Adam steps to 1e-4 relative.  Both run in the
+  reference's float64 (x64 is on in these tests)."""
+  from tpu_splatting_torch.examples import autoencoder as tae
+  ref = ref_autoencoder
+  n, steps, lr = 256, 5, 3e-3
+  k_data, k_model = jax.random.split(jax.random.PRNGKey(0))
+  positions = np.array(jax.random.uniform(k_data, (n, 2)) * 2.0 - 1.0)
+  params = jax.device_get(ref.make_autoencoder(k_model))
+  z_ref, recon_ref = ref.forward(params, jnp.asarray(positions))
+
+  model = tae.from_reference(params)
+  x = torch.from_numpy(positions)
+  with torch.no_grad():
+    z, recon = model(x)
+  assert z.dtype == torch.float64 and z.shape == (n, 8)
+  np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=1e-5,
+                             rtol=0)
+  np.testing.assert_allclose(recon.numpy(), np.asarray(recon_ref),
+                             atol=1e-5, rtol=0)
+
+  _, loss_ref = ref.train(n=n, steps=steps, lr=lr, seed=0, verbose=False)
+  loss = tae.fit(model, x, steps, lr)
+  assert loss > 0
+  assert abs(loss - loss_ref) <= 1e-4 * abs(loss_ref), (loss, loss_ref)
+
+
+def test_autoencoder_trains_on_the_cpu():
+  from tpu_splatting_torch.examples import autoencoder as tae
+  model, first = tae.train(n=512, steps=1, lr=3e-3, verbose=False)
+  _, last = tae.train(n=512, steps=60, lr=3e-3, verbose=False)
+  assert np.isfinite(last) and last < first
+  assert tae.main(["--device", "cpu", "--n", "64", "--steps", "2"]) > 0

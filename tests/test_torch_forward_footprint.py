@@ -343,4 +343,4 @@ def test_floor_probes_on_the_cpu_take_their_plain_versions():
   rows = sk._window_slots(sm)[1].sum((1, 2))
   assert torch.equal(out[:, 0, 0], rows.to(out.dtype))
   assert not bool(out[:, 1:].any())
-  assert sk.probe_launch_counts == {"stream_forward_floor": 0}
+  assert not any(sk.probe_launch_counts.values())

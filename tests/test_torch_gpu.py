@@ -518,7 +518,8 @@ def test_floor_probes_match_plain(cuda):
   sk.reset_launch_counts()
   assert torch.equal(sk.stream_forward_floor(m, config),
                      sk.stream_forward_floor_reference(m, config))
-  assert sk.probe_launch_counts == {"stream_forward_floor": 1}
+  assert sk.probe_launch_counts["stream_forward_floor"] == 1
+  assert sum(sk.probe_launch_counts.values()) == 1
   assert sk.launch_counts["stream_forward"] == 0
   tm, config = sorted_mapping_for(cuda, config)
   args = (tm.sorted_payload, tm.chunk_src, tm.chunk_cnt, tm.chunk_to_tile,
@@ -529,6 +530,106 @@ def test_floor_probes_match_plain(cuda):
   with pytest.raises(ValueError, match="floor probe"):
     kk.forward_floor(*args[:4], dataclasses.replace(config, tile_size=4),
                      *args[5:])
+
+
+
+# --- the profiling modes of K1 and K2 (stream_kernels' ablate, counts) ------
+
+@pytest.mark.parametrize("ablate, with_counts", [
+    ("", True), ("skeleton", False), ("skeleton", True),
+    ("no_assemble", False), ("no_assemble", True), ("no_sort", False),
+    ("no_mask", True), ("no_alpha", False), ("no_alpha", True)])
+def test_forward_profiling_modes_match_twins(cuda, ablate, with_counts):
+  """Each K1 profiling mode against its twin at
+  ``stream_kernels.profile_gate`` (the floor probe's bit for bit,
+  no_alpha's faint image per channel relative to its largest value, the
+  others at K1's gate), the counts exactly, counted apart from the path's
+  launches."""
+  config = RasterConfig()
+  m = mapping_for(cuda, config)
+  sk.reset_launch_counts()
+  got = sk.stream_forward(m, config, ablate=ablate, with_counts=with_counts)
+  torch.cuda.synchronize()
+  want = sk.stream_forward_reference(m, config, ablate=ablate,
+                                     with_counts=with_counts)
+  mode = sk.ABLATION_ALIASES.get(ablate, ablate)
+  assert sk.launch_counts["stream_forward"] == 0
+  assert sk.probe_launch_counts[f"stream_forward_{mode or 'counts'}"] == 1
+  assert sk.probe_launch_counts["stream_forward_counts"] == int(with_counts)
+  if with_counts:
+    (got, counts), (want, want_counts) = got, want
+    assert torch.equal(counts, want_counts)
+    assert float(counts[1::8, 0].sum()) > 0
+  # no_alpha's alphas are 1e-6 x a pixel coordinate: a faint image
+  assert float(want.abs().max()) > (1e-3 if mode == "no_alpha" else 0.1)
+  err, used = sk.profile_gate(got, want, "stream_forward", ablate)
+  assert used <= 1.0, (err, used)
+
+
+@pytest.mark.parametrize("ablate", ["skeleton", "no_sort", "no_mask",
+                                    "no_grad", "no_copyback"])
+def test_backward_profiling_modes_match_twins(cuda, ablate):
+  config = RasterConfig(compute_point_heuristic=True, compute_visibility=True)
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  gimg = torch.randn(img.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(0))
+  sk.reset_launch_counts()
+  got = sk.stream_backward(m, img, gimg, config, ablate=ablate)
+  torch.cuda.synchronize()
+  mode = sk.ABLATION_ALIASES.get(ablate, ablate)
+  assert sk.launch_counts["stream_backward"] == 0
+  assert sk.probe_launch_counts[f"stream_backward_{mode}"] == 1
+  want = sk.stream_backward_reference(m, img, gimg, config, ablate=ablate)
+  err, used = sk.profile_gate(got, want, "stream_backward", ablate)
+  assert used <= 1.0, (err, used)
+
+
+def test_profiling_modes_reject_other_instantiations(cuda):
+  """The modes are built for K1 <4> and K2 <6, 16> only, unsharded."""
+  config = RasterConfig()
+  wide = mapping_for(cuda, config, num_features=8)
+  with pytest.raises(ValueError, match="profiling modes"):
+    sk.stream_forward(wide, config, with_counts=True)
+  with pytest.raises(ValueError, match="profiling modes"):
+    sk.stream_forward(wide, config, ablate="no_alpha")
+  m = mapping_for(cuda, config)
+  img = sk.stream_forward(m, config)
+  with pytest.raises(ValueError, match="profiling modes"):
+    sk.stream_forward(m, config, band0=1, ablate="no_sort")
+  with pytest.raises(ValueError, match="profiling modes"):
+    sk.stream_backward(m, img, img, config, band0=0, halo=True,
+                       ablate="no_grad")
+  wide = mapping_for(cuda, config, num_features=7)
+  img = sk.stream_forward(wide, config)
+  with pytest.raises(ValueError, match="profiling modes"):
+    sk.stream_backward(wide, img, img, config, ablate="skeleton")
+  with pytest.raises(ValueError, match="unknown ablate"):
+    sk.stream_forward(m, config, ablate="no_grad")
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_bench_stream_profiles_on_card(cuda, backward, capsys):
+  """bench_stream's profile at a small scene with the profile's config
+  and group width: the counts line, then every mode with its device time
+  and each difference full - mode with what it measures."""
+  from tpu_splatting_torch.benchmarks import bench_stream
+  s = bench_stream.setup(20_000, (256, 192), 1.2, 8 if backward else 4,
+                         config=bench_stream.profile_config(backward),
+                         device=cuda)
+  prof = bench_stream.profile(s, backward, iters=1, reps=3)
+  out = capsys.readouterr().out
+  assert "# ACTIVE SLAB ITERS:" in out and "walked (row, warp) pairs" in out
+  modes, phases = ((bench_stream.BWD_PROFILE, bench_stream.BWD_PHASES)
+                   if backward else
+                   (bench_stream.FWD_PROFILE, bench_stream.FWD_PHASES))
+  assert set(prof["modes"]) == set(modes)
+  for ab in modes:
+    assert f"ablate={ab or 'none'}" in out, ab
+    assert prof["modes"][ab]["device_ms"] > 0.0, ab
+  for ab, what in phases.items():
+    assert f"# full - {ab} = " in out and what in out, ab
+    assert prof["modes"][ab]["measures"] == what
 
 
 # --- K7 through the sort's order, and the row-gather probe -----------------

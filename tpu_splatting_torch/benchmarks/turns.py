@@ -11,10 +11,14 @@ counterpart.  ``--measure`` times, in the checkout it runs in (its
 * K2 (``stream_backward``) at the headline training step: 2M splats at
   2048x1536, SH 3, heuristics and visibility, the identity pose's own
   calibration (``chip_smoke.py`` phase 4 takes the largest over five
-  poses); events over 5 calls and device time;
+  poses); events over 5 calls and device time; K1 (``stream_forward``)
+  on the same mapping alike;
 * T2 (``reshape_rows``) against the copy of the reshaped view and T4
   (``dma_residue_sum``, bulk and per-thread copies) at phase 8's inputs,
-  in turns, device time from a flushed L2.
+  in turns, device time from a flushed L2;
+* the ``nvcc`` seconds of K1's and K2's sources, built alone (nothing
+  else builds meanwhile): their libraries are deleted from the
+  checkout's build directory before each turn.
 
 Each process prints the card's name and power limit and one JSON line;
 the first process then prints the readings beside each other.  Needs a
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -32,7 +37,8 @@ import sys
 
 import torch
 
-KEYS = ("K2", "T2", "clone", "T4 bulk", "T4 loads")
+KEYS = ("K1", "K2", "T2", "clone", "T4 bulk", "T4 loads")
+SOURCES = ("stream_forward.cu", "stream_backward.cu")   # K1, K2
 
 
 def measure() -> dict:
@@ -48,6 +54,7 @@ def measure() -> dict:
       entile, stream_map_with_config, stream_rasterize_with_mapping,
       tile_mask)
   from tpu_splatting_torch.spherical_harmonics import evaluate_sh_at
+  from tpu_splatting_torch.utils.cuda_build import build_info
 
   dev = torch.device("cuda", 0)
   out = {}
@@ -80,11 +87,16 @@ def measure() -> dict:
   it = it.detach()
   del g3d, cams, g2d, depths, nd, feats, tgt, mask, loss
 
+  def k1():
+    return sk.stream_forward(m, cfg)
+
   def k2():
     return sk.stream_backward(m, it, g_it, cfg)
-  k2()
-  out["K2"] = (c.cuda_ms(k2, 5), c.device_ms(k2, reps=5))
+  for key, fn in (("K1", k1), ("K2", k2)):
+    fn()
+    out[key] = (c.cuda_ms(fn, 5), c.device_ms(fn, reps=5))
   del m, it, g_it
+  out["nvcc_s"] = {src: build_info[src]["seconds"] for src in SOURCES}
 
   big = c.mosaic_at_scale(dev)
   flush = c.l2_flush(dev)
@@ -109,7 +121,13 @@ def card() -> str:
 
 
 def run_in(root: str) -> dict:
-  """``--measure`` in the checkout ``root``, in a process of its own."""
+  """``--measure`` in the checkout ``root``, in a process of its own, K1's
+  and K2's libraries deleted first so that it builds them."""
+  build = os.path.join(root, "tpu_splatting_torch", "_build")
+  for src in SOURCES:
+    for path in glob.glob(os.path.join(build,
+                                       f"{os.path.splitext(src)[0]}-*")):
+      os.remove(path)
   env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
   proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                          "--measure"], cwd=root, env=env, capture_output=True,
@@ -151,6 +169,11 @@ def main(argv=None):
       cells.append(f"{name} a call {' / '.join(f'{v:.4f}' for v in call)} "
                    f"ms, device {' / '.join(f'{v:.4f}' for v in dev)} ms")
     print(f"{key}: " + "; ".join(cells))
+  for src in SOURCES:
+    print(f"nvcc {src}: " + "; ".join(
+        f"{name} " + " / ".join(f"{r['nvcc_s'][src]:.2f}"
+                                for r in got[name]) + " s"
+        for name in ("other", "this")))
   print(json.dumps(got))
 
 

@@ -78,6 +78,21 @@
 // and any tile up to 1024 pixels.  The wrapper
 // (rasterizer/stream_kernels.py, stream_backward_plan) picks one and the C
 // entry launches it.
+//
+// Profiling modes (stream_kernels.stream_backward(..., ablate=)), the
+// counterparts of the reference _bwd_kernel's `ablate` (:697), compiled
+// only for <6, 16> (stream_backward_profile_kernel<kMode>): each takes one
+// phase out, so that the time saved measures it.
+// * kSkeleton: staging, sort and flush only, no walk; each staged row's
+//   accumulator entries hold 1e-20 x the sum of its table values;
+// * kNoSort: no rank sort; the walk goes in fetch-slot order (the
+//   reference's no_mask: its compositing order);
+// * kNoGrad: the walk runs up to alpha_grad, with no per-row terms and no
+//   reduce-scatter; every accumulator entry of the slab holds 1e-20 x the
+//   tile's sum of alpha_grad, and is flushed;
+// * kNoCopyback: everything but the flush; each block adds 1e-20 x the sum
+//   of its accumulators into the buffer's row 0, column 0.
+// The default mode is the code above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +106,10 @@ constexpr int kKeyInvalid = 0x7fffffff;  // invalid slots sort last
 constexpr int kGeo = 12;                 // per-row coefficients in smem
 constexpr int kLead = 10;                // slots before the features
 constexpr float kTau = 6.283185307179586f;
+
+// profiling modes (stream_kernels.BWD_ABLATIONS)
+constexpr int kComposite = 0, kSkeleton = 1, kNoSort = 2, kNoGrad = 3,
+              kNoCopyback = 4;
 
 struct Params {
   const float* table;      // (n_pad, w_pad) row-major
@@ -134,7 +153,22 @@ __device__ __forceinline__ int slot_column(int k, int f, int with_vis,
   return k - kLead < f ? 7 + k - kLead : -1;
 }
 
-template <int MAXF, int V>
+// the block's sum of x (every thread's), in `tid` 0; `scratch` holds a
+// float a warp, and the block is synchronised before and after
+__device__ __forceinline__ float block_sum(float x, float* scratch, int tid,
+                                           int nthr) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  __syncthreads();
+  if ((tid & 31) == 0) scratch[tid >> 5] = x;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < nthr / 32; ++w) total += scratch[w];
+  __syncthreads();
+  return total;
+}
+
+template <int MAXF, int V, int kMode = kComposite>
 __device__ __forceinline__ void stream_backward_body(const Params& p) {
   constexpr bool kRegs = MAXF > 0;       // image cotangent in registers
   constexpr int NB = (kLead + MAXF + V - 1) / V;   // reduction batches
@@ -217,6 +251,7 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
   // log transmittance, carried across slabs
   float lt = inside ? 0.0f : frozen_lt();
   float s_prev = 0.0f;   // sum of w * g_f over earlier slabs
+  float acc_sum = 0.0f;  // kNoCopyback: this thread's share of the sums
 
   for (int s = 0; s < p.num_slabs; ++s) {
     const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
@@ -295,12 +330,17 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         for (int c = 0; c < p.f; ++c)
           s_feat[c * sc + slot] = row[7 + c];
         s_key[slot] = (static_cast<int>(row[7 + p.f]) << 11) | slot;
+        if constexpr (kMode == kSkeleton) {
+          float sum = 0.0f;
+          for (int c = 0; c < 8 + p.f; ++c) sum += row[c];
+          for (int c = 0; c < p.slabw; ++c) s_acc[c * sa + slot] = 1e-20f * sum;
+        }
       }
     }
     __syncthreads();
 
     // bitonic sort of the rank keys (ascending; invalid slots last)
-    for (int k = 2; k <= n_sort; k <<= 1) {
+    for (int k = 2; kMode != kNoSort && k <= n_sort; k <<= 1) {
       for (int j = k >> 1; j > 0; j >>= 1) {
         for (int i = tid; i < n_sort; i += nthr) {
           const int ixj = i ^ j;
@@ -319,11 +359,19 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     // front-to-back walk in rank order, the forward's association of the
     // log transmittance (carry + sequential slab sum)
     const float lt_in = lt;
-    float acc_l = 0.0f, acc_wgf = 0.0f;
+    float acc_l = 0.0f, acc_wgf = 0.0f, ag_sum = 0.0f;
     bool done = lt <= p.lcut;
-    for (int j = 0; j < n_valid; ++j) {
+    const int n_walk = kMode == kSkeleton ? 0
+                       : kMode == kNoSort ? n_slots : n_valid;
+    for (int j = 0; j < n_walk; ++j) {
       if ((j & 31) == 0 && __syncthreads_and(done)) break;
-      const int slot = s_key[j] & 2047;
+      int slot;
+      if constexpr (kMode == kNoSort) {
+        if (s_key[j] == kKeyInvalid) continue;   // a slot between windows
+        slot = j;
+      } else {
+        slot = s_key[j] & 2047;
+      }
       const float* geo = s_geo + slot;
 
       // slots 0-6 the packed-gaussian terms, then w, ag^2 and the split
@@ -367,51 +415,55 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         const float s_i = s_total - (acc_wgf + s_prev);
         const float ag = t * gf - s_i / (1.0f - a);
         acc_l += log1pf(-a);
-        const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
-        if (p.antialias) {
-          const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
-          const float ax = geo[0], ay = geo[1 * sc];
-          const float sx = geo[4 * sc], sy = geo[5 * sc];
-          const float pa = geo[6 * sc];
-          const float tu = ax * px + ay * py + geo[2 * sc];
-          const float tv = -ay * px + ax * py + geo[3 * sc];
-          float sx1, dx1, dx1s, sx2, dx2, dx2s;
-          float sy1, dy1, dy1s, sy2, dy2, dy2s;
-          s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
-          s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
-          s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
-          s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
-          const float ix = sx * (sx1 - sx2);
-          const float iy = sy * (sy1 - sy2);
-          const float dsx_t = iy * sx * (dx1 - dx2);
-          const float dsy_t = ix * sy * (dy1 - dy2);
-          const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
-          t7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
-          t7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
-          t7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
-          t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
-          t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
-          t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
-          tsplit = fabsf(t7[0]) + fabsf(t7[1]);
+        if constexpr (kMode == kNoGrad) {
+          ag_sum += ag;
         } else {
-          // the pixel moments; the flush makes them gradients
-          const float zu = z0 * u, zv = z0 * v;
-          t7[0] = zu * px;
-          t7[1] = zu * py;
-          t7[2] = zu;
-          t7[3] = zv * px;
-          t7[4] = zv * py;
-          t7[5] = zv;
-          tsplit = fabsf(zu * geo[0] + zv * geo[3 * sc])
-                   + fabsf(zu * geo[1 * sc] + zv * geo[4 * sc]);
+          const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
+          if (p.antialias) {
+            const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
+            const float ax = geo[0], ay = geo[1 * sc];
+            const float sx = geo[4 * sc], sy = geo[5 * sc];
+            const float pa = geo[6 * sc];
+            const float tu = ax * px + ay * py + geo[2 * sc];
+            const float tv = -ay * px + ax * py + geo[3 * sc];
+            float sx1, dx1, dx1s, sx2, dx2, dx2s;
+            float sy1, dy1, dy1s, sy2, dy2, dy2s;
+            s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
+            s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
+            s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
+            s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
+            const float ix = sx * (sx1 - sx2);
+            const float iy = sy * (sy1 - sy2);
+            const float dsx_t = iy * sx * (dx1 - dx2);
+            const float dsy_t = ix * sy * (dy1 - dy2);
+            const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
+            t7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
+            t7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
+            t7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
+            t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
+            t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
+            t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+            tsplit = fabsf(t7[0]) + fabsf(t7[1]);
+          } else {
+            // the pixel moments; the flush makes them gradients
+            const float zu = z0 * u, zv = z0 * v;
+            t7[0] = zu * px;
+            t7[1] = zu * py;
+            t7[2] = zu;
+            t7[3] = zv * px;
+            t7[4] = zv * py;
+            t7[5] = zv;
+            tsplit = fabsf(zu * geo[0] + zv * geo[3 * sc])
+                     + fabsf(zu * geo[1 * sc] + zv * geo[4 * sc]);
+          }
+          t7[6] = z0;                            // / pa at the flush
+          tw = w;
+          tprune = ag * ag;                      // * pa^2 at the flush
         }
-        t7[6] = z0;                            // / pa at the flush
-        tw = w;
-        tprune = ag * ag;                      // * pa^2 at the flush
       }
       done = acc_l + lt_in <= p.lcut;
 
-      if (__any_sync(kFull, live)) {
+      if (kMode != kNoGrad && __any_sync(kFull, live)) {
         float* acc = s_acc + slot;
         if constexpr (kRegs) {
 #pragma unroll
@@ -460,10 +512,22 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     lt = acc_l + lt_in;
     s_prev += acc_wgf;
     __syncthreads();
+    if constexpr (kMode == kNoGrad) {
+      const float x = 1e-20f * block_sum(ag_sum, s_acc, tid, nthr);
+      for (int i = tid; i < p.slabw * n_slots; i += nthr)
+        s_acc[(i / n_slots) * sa + i % n_slots] = x;
+      __syncthreads();
+    }
+    if constexpr (kMode == kNoCopyback) {
+      for (int i = tid; i < p.slabw * n_slots; i += nthr)
+        acc_sum += s_acc[(i / n_slots) * sa + i % n_slots];
+      __syncthreads();
+      continue;
+    }
 
     // flush the slab's rows into the home-major buffer; without
     // antialias, the moments -> gradients with this tile's mean offsets
-    // (stream_kernels._row_grads, the reference's :882-893)
+    // (stream_kernels._flush_rows, the reference's :882-893)
     for (int w = 0; w < p.w_max; ++w) {
       const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
       const int row0 = s_win[4 * w + 2], grow0 = s_win[4 * w + 3];
@@ -513,6 +577,10 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     }
     __syncthreads();   // shared buffers are rewritten by the next slab
   }
+  if constexpr (kMode == kNoCopyback) {
+    const float total = block_sum(acc_sum, s_acc, tid, nthr);
+    if (tid == 0) atomicAdd(p.out, 1e-20f * total);
+  }
 }
 
 // register instantiations: no launch bounds, so the compiler keeps its
@@ -520,6 +588,12 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
 template <int MAXF, int V>
 __global__ void stream_backward_kernel(Params p) {
   stream_backward_body<MAXF, V>(p);
+}
+
+// the profiling modes of <6, 16>
+template <int kMode>
+__global__ void stream_backward_profile_kernel(Params p) {
+  stream_backward_body<6, 16, kMode>(p);
 }
 
 // the generic instantiation, for blocks of up to 1024 threads
@@ -530,8 +604,23 @@ stream_backward_generic_kernel(Params p) {
 }
 
 // the instantiation that keeps `max_features` features in registers, or
-// the generic one for 0; null for any other value
-const void* kernel_for(int max_features) {
+// the generic one for 0; a profiling `mode`: <6, 16> only; null for any
+// other value
+const void* kernel_for(int max_features, int mode = kComposite) {
+  if (mode != kComposite) {
+    if (max_features != 6) return nullptr;
+    switch (mode) {
+      case kSkeleton: return (const void*)&stream_backward_profile_kernel<
+          kSkeleton>;
+      case kNoSort: return (const void*)&stream_backward_profile_kernel<
+          kNoSort>;
+      case kNoGrad: return (const void*)&stream_backward_profile_kernel<
+          kNoGrad>;
+      case kNoCopyback: return (const void*)&stream_backward_profile_kernel<
+          kNoCopyback>;
+      default: return nullptr;
+    }
+  }
   switch (max_features) {
     case 6: return (const void*)&stream_backward_kernel<6, 16>;
     case 22: return (const void*)&stream_backward_kernel<22, 32>;
@@ -602,7 +691,9 @@ extern "C" int tpu_splat_stream_backward_occupancy(int max_features,
 // generic) with `threads` threads a block: the 10 + F gradient terms of a
 // thread in batches of V slots.  `band0` is the absolute tile band of the
 // mapping's first band; with `halo` 1 `out` holds (tiles_high + 2) bands of
-// homes, a halo band above and below the mapping's own.  Returns
+// homes, a halo band above and below the mapping's own.  `mode`
+// (kSkeleton, kNoSort, kNoGrad, kNoCopyback) selects a profiling mode of
+// <6, 16>.  Returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
 // instantiation matches.
 // `out` must be zero-initialised: the kernel only adds to it.
@@ -612,7 +703,7 @@ extern "C" int tpu_splat_stream_backward(
     int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
     int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
     int antialias, int run_cap, int slabw, int with_vis, int heur,
-    int max_features, int threads, int band0, int halo,
+    int max_features, int threads, int band0, int halo, int mode,
     float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
   Params p;
   p.table = table;
@@ -648,8 +739,8 @@ extern "C" int tpu_splat_stream_backward(
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
       slab_cap, w_max, feature_size, slabw, max_features, threads));
-  return launch_kernel(kernel_for(max_features), p, num_tiles, threads, smem,
-                       static_cast<cudaStream_t>(stream));
+  return launch_kernel(kernel_for(max_features, mode), p, num_tiles, threads,
+                       smem, static_cast<cudaStream_t>(stream));
 }
 
 // {resident blocks per SM, registers, local bytes} of the halo merge.

@@ -50,6 +50,23 @@
 // loop, window assembly, row fetch, staging, rank sort and output write
 // with the walk taken out; it writes the number of rows each tile staged
 // to channel 0.
+//
+// Profiling modes (stream_kernels.stream_forward(..., ablate=,
+// with_counts=)), the counterparts of the reference _fwd_kernel's
+// `ablate` (:412) and `with_counts` (:593): each takes one phase out, so
+// that the time saved measures it, and is compiled only for the headline's
+// <4> (stream_forward_profile_kernel<kWalk, kMode, kCounts>):
+// * kNoAssemble: staging reads one contiguous range from window 0's first
+//   row, as long as the windows together (at most a slab), in place of the
+//   per-window slots (the window assembly);
+// * kNoSort: no rank sort; the walk goes in fetch-slot order (the
+//   reference's no_mask: its compositing order);
+// * kNoAlpha: alpha is 1e-6 x the row's first table column, with no exp,
+//   quadratic form or threshold (footprints and walk unchanged);
+// * the reference's skeleton is the floor probe (kWalk false).
+// kCounts adds, per tile group, the computed (tile, slab) iterations, the
+// rows staged and the (row, warp) pairs in the warps' footprint lists
+// into `counts` (integer atomics).  The default mode is the code above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +81,10 @@ constexpr int kStripSlack = 512;        // rasterizer/stream.py STRIP_SLACK
 constexpr int kKeyInvalid = 0x7fffffff;  // invalid slots sort last
 constexpr int kGeo = 7;                  // per-row alpha coefficients
 
+// profiling modes (stream_kernels.FWD_ABLATIONS; the floor probe is the
+// skeleton)
+constexpr int kComposite = 0, kNoAssemble = 1, kNoSort = 2, kNoAlpha = 3;
+
 struct Params {
   const float* table;      // (n_pad, w_pad) row-major
   const int* desc;         // (T, S, w_max, 4) [lo_flat, len, dst, class]
@@ -74,6 +95,10 @@ struct Params {
   int band0;           // absolute tile band of the first tile (sharding)
   float alpha_threshold, clamp_max_alpha, lcut, quantile_thr;
   double log_thr;      // log(alpha_threshold), for the footprints
+  // profiling modes only: (G, 3) int counters [iterations, rows staged,
+  // listed (row, warp) pairs], and the table's rows
+  int* counts;
+  int n_rows;
 };
 
 __device__ __forceinline__ float s_sig(float x, float s) {
@@ -81,7 +106,7 @@ __device__ __forceinline__ float s_sig(float x, float s) {
   return 1.0f / (1.0f + expf(-1.6f * z - 0.07f * z * z * z));
 }
 
-template <int MAXF, bool kWalk>
+template <int MAXF, bool kWalk, int kMode = kComposite, bool kCounts = false>
 __device__ __forceinline__ void stream_forward_body(const Params& p) {
   constexpr bool kRegs = MAXF > 0;       // accumulators in registers
   extern __shared__ __align__(16) unsigned char smem[];
@@ -131,6 +156,7 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
   // log transmittance, carried across slabs
   float lt = inside ? 0.0f : frozen_lt();
   float floor_v = 0.0f;   // the floor probe's output: rows staged
+  int c_iters = 0, c_rows = 0, c_pairs = 0;   // kCounts
 
   for (int s = 0; s < p.num_slabs; ++s) {
     const int* d = p.desc + (static_cast<size_t>(tile) * p.num_slabs + s)
@@ -143,7 +169,22 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     }
     for (int i = tid; i < 4 * p.w_max; i += nthr) s_desc[i] = d[i];
     __syncthreads();
-    if (tid == 0) {
+    if constexpr (kMode == kNoAssemble) {
+      if (tid == 0) {
+        // one contiguous range from window 0's first row
+        int len = 0;
+        for (int w = 0; w < p.w_max; ++w) len += max(s_desc[4 * w + 1], 0);
+        const int b = s_desc[3] / 3;
+        const int ln = min(len, p.slab_cap);
+        s_win[0] = 0;
+        s_win[1] = ln;
+        s_win[2] = p.strip_blk[g * 3 + b] * p.strip_cap
+                   + (s_desc[0] - b * band_stride);
+        for (int w = 1; w < p.w_max; ++w) s_win[3 * w + 1] = 0;
+        s_cnt[0] = ln;
+        s_cnt[1] = ln;
+      }
+    } else if (tid == 0) {
       // window slots with the slab-capacity clamp against the
       // rpb-quantized cursor (reference _assemble)
       int cur = 0, valid = 0;
@@ -165,9 +206,19 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     __syncthreads();
     const int n_slots = s_cnt[0];
     const int n_valid = s_cnt[1];
+    if constexpr (kCounts) {
+      ++c_iters;
+      c_rows += n_valid;
+    }
     int n_sort = 1;
     while (n_sort < n_slots) n_sort <<= 1;
     for (int i = tid; i < n_sort; i += nthr) s_key[i] = kKeyInvalid;
+    if constexpr (kMode == kNoSort) {
+      // the slots between windows meet no warp in the unsorted walk
+      const float inf = __int_as_float(0x7f800000);
+      for (int i = tid; i < n_slots; i += nthr)
+        s_rect[i] = make_float4(inf, -inf, inf, -inf);
+    }
     __syncthreads();
 
     // rows -> per-slot alpha coefficients, footprints, features and rank
@@ -177,7 +228,9 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
       const int row0 = s_win[3 * w + 2];
       for (int r = tid; r < ln; r += nthr) {
         const int slot = slot0 + r;
-        const float* row = p.table + static_cast<size_t>(row0 + r) * p.w_pad;
+        int ri = row0 + r;
+        if constexpr (kMode == kNoAssemble) ri = min(ri, p.n_rows - 1);
+        const float* row = p.table + static_cast<size_t>(ri) * p.w_pad;
         const float mlx = row[0] - ox, mly = row[1] - oy;
         const float ax = row[2], ay = row[3];
         const float sx = row[4], sy = row[5], pa = row[6];
@@ -211,6 +264,7 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
           s_rect[slot] = quad_footprint(cxx, cxy, cyy, cx, cy, c1,
                                         p.log_thr, half - 0.5f);
         }
+        if constexpr (kMode == kNoAlpha) geo[6 * p.slab_cap] = 1e-6f * row[0];
         for (int c = 0; c < p.f; ++c)
           s_feat[c * p.slab_cap + slot] = row[7 + c];
         s_key[slot] = (static_cast<int>(row[7 + p.f]) << 11) | slot;
@@ -219,7 +273,7 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     __syncthreads();
 
     // bitonic sort of the rank keys (ascending; invalid slots last)
-    for (int k = 2; k <= n_sort; k <<= 1) {
+    for (int k = 2; kMode != kNoSort && k <= n_sort; k <<= 1) {
       for (int j = k >> 1; j > 0; j >>= 1) {
         for (int i = tid; i < n_sort; i += nthr) {
           const int ixj = i ^ j;
@@ -246,9 +300,15 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     // of the twin's exclusive cumsum + carry, so threshold and freeze
     // decisions agree bit for bit.
     // (the warp's rectangle is formed here, not held across the walk)
-    const int n = warp_row_list(
-        s_rect, n_valid, [s_key](int j) { return s_key[j] & 2047; },
-        warp_rect(px, py, inside), s_list, lane);
+    int n;
+    if constexpr (kMode == kNoSort)
+      n = warp_row_list(s_rect, n_slots, [](int j) { return j; },
+                        warp_rect(px, py, inside), s_list, lane);
+    else
+      n = warp_row_list(
+          s_rect, n_valid, [s_key](int j) { return s_key[j] & 2047; },
+          warp_rect(px, py, inside), s_list, lane);
+    if constexpr (kCounts) c_pairs += n;
     const float lt_in = lt;
     float acc_l = 0.0f;
     bool done = lt <= p.lcut && (p.blending || lt < 0.0f);
@@ -256,22 +316,30 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
       if ((i & 31) == 0 && __all_sync(kFull, done)) break;
       const int slot = s_list[i];
       const float* geo = s_geo + slot;
-      float a_raw;
-      if (p.antialias) {
-        const float ax = geo[0], ay = geo[1 * p.slab_cap];
-        const float sx = geo[4 * p.slab_cap], sy = geo[5 * p.slab_cap];
-        const float tu = ax * px + ay * py + geo[2 * p.slab_cap];
-        const float tv = -ay * px + ax * py + geo[3 * p.slab_cap];
-        const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
-        const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
-        a_raw = geo[6 * p.slab_cap] * (6.283185307179586f * ix * iy);
+      float a;
+      if constexpr (kMode == kNoAlpha) {
+        a = geo[6 * p.slab_cap];
       } else {
-        a_raw = expf(geo[0] * px2 + geo[1 * p.slab_cap] * pxy
-                     + geo[2 * p.slab_cap] * py2 + geo[3 * p.slab_cap] * px
-                     + geo[4 * p.slab_cap] * py + geo[5 * p.slab_cap]);
+        float a_raw;
+        if (p.antialias) {
+          const float ax = geo[0], ay = geo[1 * p.slab_cap];
+          const float sx = geo[4 * p.slab_cap], sy = geo[5 * p.slab_cap];
+          const float tu = ax * px + ay * py + geo[2 * p.slab_cap];
+          const float tv = -ay * px + ax * py + geo[3 * p.slab_cap];
+          const float ix =
+              sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
+          const float iy =
+              sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
+          a_raw = geo[6 * p.slab_cap] * (6.283185307179586f * ix * iy);
+        } else {
+          a_raw = expf(geo[0] * px2 + geo[1 * p.slab_cap] * pxy
+                       + geo[2 * p.slab_cap] * py2
+                       + geo[3 * p.slab_cap] * px
+                       + geo[4 * p.slab_cap] * py + geo[5 * p.slab_cap]);
+        }
+        a = a_raw > p.alpha_threshold ? fminf(a_raw, p.clamp_max_alpha)
+                                      : 0.0f;
       }
-      const float a = a_raw > p.alpha_threshold
-                          ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
       const float lt_j = acc_l + lt_in;
       if (p.blending) {
         if (lt_j > p.lcut) {
@@ -312,6 +380,14 @@ __device__ __forceinline__ void stream_forward_body(const Params& p) {
     __syncthreads();   // shared buffers are rewritten by the next slab
   }
 
+  if constexpr (kCounts) {
+    int* cnt = p.counts + 3 * g;
+    if (tid == 0) {
+      atomicAdd(cnt, c_iters);
+      atomicAdd(cnt + 1, c_rows);
+    }
+    if (kWalk && lane == 0) atomicAdd(cnt + 2, c_pairs);
+  }
   if (!inside) return;
   if constexpr (!kWalk) acc[0] = floor_v;
   float* o = p.out + static_cast<size_t>(tile) * (p.f + 1) * pix + pixel;
@@ -340,6 +416,13 @@ stream_forward_headline_kernel(Params p) {
   stream_forward_body<MAXF, kWalk>(p);
 }
 
+// the profiling modes of the headline's instantiation, under its bounds
+template <bool kWalk, int kMode, bool kCounts>
+__global__ void __launch_bounds__(256, 5)
+stream_forward_profile_kernel(Params p) {
+  stream_forward_body<4, kWalk, kMode, kCounts>(p);
+}
+
 // the generic instantiation, for blocks of up to 1024 threads
 template <int MAXF>
 __global__ void __launch_bounds__(1024)
@@ -347,10 +430,43 @@ stream_forward_generic_kernel(Params p) {
   stream_forward_body<MAXF, true>(p);
 }
 
+// an ablation of the walking <4> (`counts`: its counting variant)
+template <int kMode>
+const void* ablation_kernel(int counts) {
+  return counts ? (const void*)&stream_forward_profile_kernel<true, kMode,
+                                                              true>
+                : (const void*)&stream_forward_profile_kernel<true, kMode,
+                                                              false>;
+}
+
+// a profiling mode of <4> (`mode`, with `counts` the counting variant;
+// with `walk` 0 the floor probe's), or null
+const void* profile_kernel_for(int walk, int mode, int counts) {
+  if (mode == kComposite) {
+    if (!counts) return nullptr;
+    return walk ? (const void*)&stream_forward_profile_kernel<true,
+                                                              kComposite, true>
+                : (const void*)&stream_forward_profile_kernel<false,
+                                                              kComposite,
+                                                              true>;
+  }
+  if (!walk) return nullptr;
+  switch (mode) {
+    case kNoAssemble: return ablation_kernel<kNoAssemble>(counts);
+    case kNoSort: return ablation_kernel<kNoSort>(counts);
+    case kNoAlpha: return ablation_kernel<kNoAlpha>(counts);
+    default: return nullptr;
+  }
+}
+
 // the instantiation that keeps `max_features` accumulators in registers,
 // or the generic one for 0; with `walk` 0, the floor probe (<4> only);
-// null for any other value
-const void* kernel_for(int max_features, int walk = 1) {
+// a profiling `mode` or `counts`: <4> only; null for any other value
+const void* kernel_for(int max_features, int walk = 1, int mode = 0,
+                       int counts = 0) {
+  if (mode != kComposite || counts)
+    return max_features == 4 ? profile_kernel_for(walk, mode, counts)
+                             : nullptr;
   if (!walk)
     return max_features == 4
                ? (const void*)&stream_forward_headline_kernel<4, false>
@@ -397,21 +513,26 @@ extern "C" int tpu_splat_stream_forward_occupancy(int max_features,
 // with `walk` 0 the floor probe) with `threads` threads a block (the
 // tile's pixels in whole warps) on `stream`.  `band0` is the absolute
 // tile band of the mapping's first band: 0 unless the mapping is one
-// shard of a band-sharded image.  Returns
+// shard of a band-sharded image.  `mode` (kNoAssemble, kNoSort, kNoAlpha)
+// and a non-null `counts` (zeroed (G, 3) ints) select a profiling mode of
+// <4>; `n_rows` is the table's rows.  Returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
 // instantiation matches.
 extern "C" int tpu_splat_stream_forward(
     const float* table, const int* desc, const int* strip_blk, float* out,
-    int num_tiles, int tiles_wide, int group_width, int num_slabs, int w_max,
-    int strip_cap, int slab_cap, int rpb, int w_pad, int feature_size,
-    int tile_size, int antialias, int blending, int max_features,
-    int threads, int walk, int band0, float alpha_threshold,
-    float clamp_max_alpha, float lcut, float quantile_thr, void* stream) {
+    int* counts, int num_tiles, int tiles_wide, int group_width,
+    int num_slabs, int w_max, int strip_cap, int slab_cap, int rpb,
+    int w_pad, int feature_size, int tile_size, int antialias, int blending,
+    int max_features, int threads, int walk, int band0, int mode,
+    int n_rows, float alpha_threshold, float clamp_max_alpha, float lcut,
+    float quantile_thr, void* stream) {
   Params p;
   p.table = table;
   p.desc = desc;
   p.strip_blk = strip_blk;
   p.out = out;
+  p.counts = counts;
+  p.n_rows = n_rows;
   p.tiles_wide = tiles_wide;
   p.group_width = group_width;
   p.num_slabs = num_slabs;
@@ -436,6 +557,7 @@ extern "C" int tpu_splat_stream_forward(
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(tpu_splat_stream_forward_smem(
       slab_cap, w_max, feature_size, max_features, threads));
-  return launch_kernel(kernel_for(max_features, walk), p, num_tiles, threads,
-                       smem, static_cast<cudaStream_t>(stream));
+  return launch_kernel(kernel_for(max_features, walk, mode, counts != nullptr),
+                       p, num_tiles, threads, smem,
+                       static_cast<cudaStream_t>(stream));
 }

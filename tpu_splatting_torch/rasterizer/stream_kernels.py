@@ -35,11 +35,20 @@ The forward computes alpha with the quadratic form, log(point alpha)
 folded in (``_alpha_raw``).  Without antialias the backward computes it
 from the rotated coordinates u, v, as the reference's backward does, and
 sums the gradients through pixel moments (``_backward_alpha_raw``,
-``_row_grads``; ROADMAP F16): the two formulas agree to rounding, so the
-passes' threshold and freeze decisions can differ only where a_raw lies
-within rounding of a cut (F1).  The reference's ``ablate`` and ``with_counts`` instruments and
-``with_asm`` / ``stream_share_asm`` (TPU-only residuals) are not
-ported.
+``_row_sums``, ``_flush_rows``; ROADMAP F16): the two formulas agree to
+rounding, so the passes' threshold and freeze decisions can differ only
+where a_raw lies within rounding of a cut (F1).
+
+Profiling instruments, the reference's: ``stream_forward(...,
+ablate=, with_counts=)`` and ``stream_backward(..., ablate=)`` take one
+phase out of the kernel, so that the time saved measures that phase
+(``benchmarks/bench_stream.py --profile-fwd / --profile-bwd``), and K1
+counts its work per tile group.  Each mode is a kernel of its own, built
+for the headline's instantiation only (K1 ``<4>``, K2 ``<6, 16>``), with
+a twin of its own formula; they lie on no path of the system and count
+their launches in ``probe_launch_counts``.  ``with_asm`` /
+``stream_share_asm`` (the TPU's shared assembly, a workaround for its
+missing atomics) are not ported.
 """
 
 from __future__ import annotations
@@ -55,13 +64,29 @@ from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
                                  check_smem, declare_plan_entries,
                                  instantiation, launch_stream,
                                  load_kernel_library)
-from .kernels import _NEG_BIG, _antialias_grads, _s_sig, quad_coeffs
+from .kernels import (_NEG_BIG, _antialias_grads, _s_sig, footprint_reference,
+                      quad_coeffs, thread_pixels, walk_mask, warp_rects)
 from .stream import STRIP_SLACK, StreamMapping
+
+# The profiling modes (the reference's ``ablate``), numbered as the kernels'
+# ``mode``; the forward's skeleton is the floor probe.  ``no_sort`` (no rank
+# sort: the walk in fetch-slot order) is the reference's ``no_mask``.
+FWD_ABLATIONS = {"": 0, "skeleton": 0, "no_assemble": 1, "no_sort": 2,
+                 "no_alpha": 3}
+BWD_ABLATIONS = {"": 0, "skeleton": 1, "no_sort": 2, "no_grad": 3,
+                 "no_copyback": 4}
+ABLATION_ALIASES = {"no_mask": "no_sort"}
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
 launch_counts = {"stream_forward": 0, "stream_backward": 0, "halo_merge": 0}
-# launches of the floor probe, which lies on no path of the system
-probe_launch_counts = {"stream_forward_floor": 0}
+# launches of the floor probe and the profiling modes, which lie on no path
+# of the system: ``stream_forward_<mode>``, ``stream_forward_counts`` (a
+# launch with ``with_counts``, in any mode), ``stream_backward_<mode>``
+probe_launch_counts = {
+    "stream_forward_floor": 0,
+    **{f"stream_forward_{m}": 0 for m in FWD_ABLATIONS if m},
+    "stream_forward_counts": 0,
+    **{f"stream_backward_{m}": 0 for m in BWD_ABLATIONS if m}}
 
 
 def reset_launch_counts():
@@ -136,14 +161,89 @@ def window_grad_rows(mapping: StreamMapping,
   return (home - tiles % mapping.group_width - k) * rc + dst
 
 
+def _used_slabs(mapping: StreamMapping) -> torch.Tensor:
+  """(T, S) whether each plan slot holds a slab: its window 0 is not
+  empty (the mapper puts nonempty windows first)."""
+  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
+  return mapping.desc.view(t, s, w, 4)[:, :, 0, 1] > 0
+
+
 def _staged_lengths(mapping: StreamMapping) -> torch.Tensor:
   """(T, S, W) rows of each window that K1 stages: ``_window_slots``'s
   lengths in slab 0 and in every slab whose window 0 is not empty (K1
   skips an empty plan slot)."""
-  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
-  staged = mapping.desc.view(t, s, w, 4)[:, :, 0, 1] > 0
+  staged = _used_slabs(mapping)
   staged[:, 0] = True
   return _window_slots(mapping)[1] * staged[..., None]
+
+
+def _contiguous_slots(mapping: StreamMapping):
+  """``_window_slots`` of the profiling mode no_assemble: window 0 holds
+  one contiguous range from its first table row, as long as the windows
+  together (at most a slab); the other windows are empty."""
+  t, s, w = mapping.num_tiles, mapping.num_slabs, mapping.w_max
+  desc = mapping.desc.view(t, s, w, 4).to(torch.int64)
+  row0 = _window_slots(mapping)[2]
+  lnc = torch.zeros_like(row0)
+  lnc[..., 0] = torch.clamp(desc[..., 1], min=0).sum(-1).clamp(
+      max=mapping.slab_cap)
+  return torch.zeros_like(row0), lnc, row0
+
+
+def _round_out(rects):
+  """Footprint rectangles (..., 4) float64 rounded outward to float32, as
+  ``quad_footprint`` ends them."""
+  inf = math.inf
+  f = rects.float()
+  down = torch.where(f.double() > rects, torch.nextafter(f, f.new_tensor(-inf)),
+                     f)
+  up = torch.where(f.double() < rects, torch.nextafter(f, f.new_tensor(inf)),
+                   f)
+  return torch.stack([down[..., 0], up[..., 1], down[..., 2], up[..., 3]],
+                     -1).double()
+
+
+def _warp_walks(rows, ox, oy, config: RasterConfig, wr):
+  """(C, L, W) whether each warp of a K1 block lists each row: its
+  footprint (as K1 stages it) meets the warp's pixels; antialias mode
+  lists every row."""
+  if config.antialias:
+    return rows.new_ones(rows.shape[:-1] + (wr.shape[0],), dtype=torch.bool)
+  coeffs = quad_coeffs(rows[..., 0] - ox, rows[..., 1] - oy, rows[..., 2],
+                       rows[..., 3], rows[..., 4], rows[..., 5], rows[..., 6])
+  return walk_mask(_round_out(footprint_reference(
+      coeffs, config.alpha_threshold, config.tile_size * 0.5 - 0.5)), wr)
+
+
+def _ablation(ablate: str, modes: dict, name: str) -> str:
+  """The profiling mode ``ablate`` names (``ABLATION_ALIASES`` resolved);
+  ValueError for an unknown one."""
+  mode = ABLATION_ALIASES.get(ablate, ablate)
+  if mode not in modes:
+    raise ValueError(f"{name}: unknown ablate {ablate!r}; one of "
+                     f"{sorted(modes)} or {sorted(ABLATION_ALIASES)}")
+  return mode
+
+
+def _group_counts(mapping: StreamMapping, per_tile: torch.Tensor):
+  """``counts_block`` of (T, 3) counts per tile, summed per tile group."""
+  return counts_block(per_tile.view(mapping.num_groups, -1, 3).sum(1))
+
+
+def counts_block(per_group: torch.Tensor) -> torch.Tensor:
+  """The reference's ``with_counts`` block, (G * 8, 128) float32, from
+  (G, 3) integer counts per tile group [iterations, rows staged, listed
+  (row, warp) pairs]: row g * 8 holds the group's computed (tile, slab)
+  iterations in every lane, rows g * 8 + 1 and + 2 the others in lane 0,
+  every other entry 0."""
+  g = per_group.shape[0]
+  out = torch.zeros((g * 8, 128), dtype=torch.float32,
+                    device=per_group.device)
+  x = per_group.to(torch.float32)
+  out[0::8] = x[:, 0, None]
+  out[1::8, 0] = x[:, 1]
+  out[2::8, 0] = x[:, 2]
+  return out
 
 
 def _alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
@@ -175,12 +275,15 @@ def _threshold(a_raw, config: RasterConfig):
                      torch.clamp(a_raw, max=config.clamp_max_alpha), 0.0)
 
 
-def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None):
+def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None,
+               by_slot: bool = False):
   """One slab's window rows of a chunk of tiles, in rank-key order.
 
-  s0, ln, r0 (C, W): window slots, lengths and first table rows.  Returns
+  s0, ln, r0 (C, W): window slots, lengths and first table rows (clamped
+  to the table).  Returns
   (valid (C, L), rows (C, L, W_PAD), grad_rows (C, L) or None): the rows
-  sorted by ``depth << 11 | slot`` (invalid slots last) and, when g0
+  sorted by ``depth << 11 | slot`` (``by_slot``: by slot, the profiling
+  mode no_sort; invalid slots last) and, when g0
   (C, W) gives each window's first gradient-buffer row, each row's."""
   dev = table.device
   n_c = s0.shape[0]
@@ -194,10 +297,9 @@ def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None):
     if g0 is not None:
       grad_idx = torch.where(inside, g0[:, k, None] + rel, grad_idx)
   valid = row_idx >= 0
-  rows = table[torch.clamp(row_idx, min=0)]                   # (C, L, Wp)
-  rank = torch.where(
-      valid, (rows[..., 7 + f].to(torch.int64) << 11) | slots,
-      torch.iinfo(torch.int64).max)
+  rows = table[torch.clamp(row_idx, 0, table.shape[0] - 1)]   # (C, L, Wp)
+  key = slots if by_slot else (rows[..., 7 + f].to(torch.int64) << 11) | slots
+  rank = torch.where(valid, key, torch.iinfo(torch.int64).max)
   order = torch.argsort(rank, -1)
   n_keep = max(1, int(valid.sum(-1).max()))
   order = order[:, :n_keep]
@@ -209,11 +311,28 @@ def _slab_rows(table, s0, ln, r0, width: int, f: int, g0=None):
 
 
 def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
-                             band0: int = 0) -> torch.Tensor:
+                             band0: int = 0, ablate: str = "",
+                             with_counts: bool = False):
   """Plain-torch twin of the stream forward kernel, vectorised over
   chunks of tiles: gather each (tile, slab)'s window rows, order them by
   the rank key ``depth << 11 | slot``, alpha at every pixel, exclusive
-  ``cumsum`` of ``log1p(-alpha)`` plus the carry, then the freeze."""
+  ``cumsum`` of ``log1p(-alpha)`` plus the carry, then the freeze.
+
+  ``ablate`` and ``with_counts`` as in ``stream_forward``: no_assemble
+  takes ``_contiguous_slots``, no_sort orders by slot, no_alpha takes
+  alpha = 1e-6 * the row's first column where the pixel's warp lists the
+  row (``_warp_walks``) and 0 elsewhere, skeleton is the floor probe's
+  twin; the counts come from the same slabs, rows and walk lists."""
+  mode = _ablation(ablate, FWD_ABLATIONS, "stream_forward")
+  if mode == "skeleton":
+    out = stream_forward_floor_reference(mapping, config)
+    if not with_counts:
+      return out
+    computed = _used_slabs(mapping)       # the floor probe never saturates
+    computed[:, 0] = True
+    rows = _staged_lengths(mapping).sum((1, 2))
+    return out, _group_counts(mapping, torch.stack(
+        [computed.sum(1), rows, torch.zeros_like(rows)], -1))
   dev = mapping.table.device
   f = mapping.feature_size
   rpb = mapping.rows_per_block
@@ -227,8 +346,9 @@ def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
   thr = config.saturate_threshold
   blending = config.use_alpha_blending
 
-  slot0, lnc, row0 = _window_slots(mapping)
-  used = mapping.desc.view(t_all, s_all, mapping.w_max, 4)[:, :, 0, 1] > 0
+  slot0, lnc, row0 = (_contiguous_slots(mapping) if mode == "no_assemble"
+                      else _window_slots(mapping))
+  used = _used_slabs(mapping)
   p = torch.arange(pix, device=dev)
   pxl = ((p % ts).to(dtype) + 0.5 - ts * 0.5)
   pyl = ((p // ts).to(dtype) + 0.5 - ts * 0.5)
@@ -236,6 +356,15 @@ def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
   ox_all = ((tiles % tw) * ts).to(dtype) + ts * 0.5
   oy_all = ((band0 + tiles // tw) * ts).to(dtype) + ts * 0.5
   out = torch.zeros((t_all, f + 1, pix), dtype=dtype, device=dev)
+  walks = with_counts or mode == "no_alpha"
+  if walks:
+    threads = block_threads(pix)
+    wr = warp_rects(ts, threads, centred=True)
+    tp = thread_pixels(ts, threads)
+    warp_of = torch.empty(pix, dtype=torch.int64)
+    warp_of[tp[tp >= 0]] = torch.arange(threads)[tp >= 0] // 32
+    warp_of = warp_of.to(dev)
+    per_tile = torch.zeros((t_all, 3), dtype=torch.int64, device=dev)
 
   chunk = max(1, (1 << 23) // (mapping.slab_cap * pix))
   for t0 in range(0, t_all, chunk):
@@ -251,13 +380,26 @@ def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
         active = torch.ones(n_c, dtype=torch.bool, device=dev)
       else:
         active = used[sl, s] & ~(carry.max(-1).values <= lcut)
+      if with_counts:
+        per_tile[sl, 0] += active
       if width == 0 or not bool(active.any()):
         if not blending:   # an empty slab leaves lt_end = the carry
           img[:, f] = torch.where(active[:, None],
                                   (carry < 0.0).to(dtype), img[:, f])
         continue
-      valid, rows, _ = _slab_rows(table, s0, ln, r0, width, f)
-      a = _threshold(_alpha_raw(rows, ox, oy, pxl, pyl, config)[0], config)
+      valid, rows, _ = _slab_rows(table, s0, ln, r0, width, f,
+                                  by_slot=mode == "no_sort")
+      if walks:
+        walk = _warp_walks(rows, ox, oy, config, wr) & valid[..., None]
+      if with_counts:
+        per_tile[sl, 1] += torch.where(active, valid.sum(1), 0)
+        per_tile[sl, 2] += torch.where(active, walk.sum((1, 2)), 0)
+      if mode == "no_alpha":
+        a = torch.where(walk[..., warp_of], (rows[..., 0] * 1e-6)[..., None],
+                        0.0)
+      else:
+        a = _threshold(_alpha_raw(rows, ox, oy, pxl, pyl, config)[0],
+                       config)
       a = torch.where(valid[..., None], a, 0.0)               # (C, L, PIX)
       l = torch.log1p(-a)
       csum = torch.cumsum(l, 1)
@@ -281,7 +423,22 @@ def stream_forward_reference(mapping: StreamMapping, config: RasterConfig,
                                 img[:, f])
         new_carry = lt_end
       carry = torch.where(active[:, None], new_carry, carry)
+  if with_counts:
+    return out, _group_counts(mapping, per_tile)
   return out
+
+
+def _uv_forms(rows, ox, oy):
+  """The linear forms (lu, lv) of the sigma-scaled rotated coordinates
+  over [px, py, 1] (``_backward_alpha_raw``), (C, L) triples: the
+  coefficients K2 stages per row."""
+  mlx = rows[..., 0] - ox
+  mly = rows[..., 1] - oy
+  ax, ay = rows[..., 2], rows[..., 3]
+  isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
+  isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
+  return ((ax * isx, ay * isx, -(mlx * ax + mly * ay) * isx),
+          (-ay * isy, ax * isy, (mlx * ay - mly * ax) * isy))
 
 
 def _backward_alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
@@ -301,31 +458,26 @@ def _backward_alpha_raw(rows, ox, oy, pxl, pyl, config: RasterConfig):
   reference's do (F1)."""
   if config.antialias:
     return _alpha_raw(rows, ox, oy, pxl, pyl, config)
-  mlx = rows[..., 0] - ox
-  mly = rows[..., 1] - oy
-  ax, ay = rows[..., 2], rows[..., 3]
-  isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
-  isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
-  lu = (ax * isx, ay * isx, -(mlx * ax + mly * ay) * isx)
-  lv = (-ay * isy, ax * isy, (mlx * ay - mly * ax) * isy)
+  lu, lv = _uv_forms(rows, ox, oy)
   u = lu[0][..., None] * pxl + lu[1][..., None] * pyl + lu[2][..., None]
   v = lv[0][..., None] * pxl + lv[1][..., None] * pyl + lv[2][..., None]
   a_raw = rows[..., 6, None] * torch.exp(-0.5 * (u * u + v * v))
   return a_raw, (lu, lv, u, v)
 
 
-def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
-  """(C, L) sums over the pixels of the 7 packed-gaussian gradients (the
-  pa column before its 1 / pa) and of the split score.
+def _row_sums(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
+  """(C, L) sums over the pixels of the 7 packed-gaussian terms and of the
+  split score: K2's shared accumulator before its flush (``_flush_rows``).
 
   Without antialias, as the reference ``_bwd_kernel`` (:869-914): the
-  seven pixel moments of z0 * u and z0 * v (times px, py, 1) and z0 are
-  summed, then turned into the six geometry gradients per row.  The
-  antialias closed forms stay per pixel, as in the reference."""
-  mlx = rows[..., 0] - ox
-  mly = rows[..., 1] - oy
-  ax, ay = rows[..., 2], rows[..., 3]
+  six pixel moments of z0 * u and z0 * v (times px, py, 1), then z0; the
+  flush turns the moments into the six geometry gradients per row.  With
+  antialias the six gradients' closed forms per pixel, as in the
+  reference."""
   if config.antialias:
+    mlx = rows[..., 0] - ox
+    mly = rows[..., 1] - oy
+    ax, ay = rows[..., 2], rows[..., 3]
     tu, tv = aux
     clamp_live = (a_raw < config.clamp_max_alpha).to(ag.dtype)
     aag = rows[..., 6, None] * ag * clamp_live
@@ -336,33 +488,55 @@ def _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0, config):
     split = torch.abs(g6[0]) + torch.abs(g6[1])
     return [g.sum(-1) for g in g6 + [z0]], split.sum(-1)
   lu, lv, u, v = aux
-  isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
-  isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
   zu, zv = z0 * u, z0 * v
-  su_px, su_py, su = (zu * pxl).sum(-1), (zu * pyl).sum(-1), zu.sum(-1)
-  sv_px, sv_py, sv = (zv * pxl).sum(-1), (zv * pyl).sum(-1), zv.sum(-1)
-  su_dx, su_dy = su_px - mlx * su, su_py - mly * su
-  sv_dx, sv_dy = sv_px - mlx * sv, sv_py - mly * sv
-  suu = lu[0] * su_px + lu[1] * su_py + lu[2] * su
-  svv = lv[0] * sv_px + lv[1] * sv_py + lv[2] * sv
-  g7 = [ax * isx * su - ay * isy * sv,
-        ay * isx * su + ax * isy * sv,
-        -isx * su_dx - isy * sv_dy,
-        -isx * su_dy + isy * sv_dx,
-        isx * suu,
-        isy * svv,
-        z0.sum(-1)]
+  sums = [(zu * pxl).sum(-1), (zu * pyl).sum(-1), zu.sum(-1),
+          (zv * pxl).sum(-1), (zv * pyl).sum(-1), zv.sum(-1), z0.sum(-1)]
   # the split score per pixel: |z0 d mean_x / d pdf| + |z0 d mean_y / ...|
   split = (torch.abs(zu * lu[0][..., None] + zv * lv[0][..., None])
            + torch.abs(zu * lu[1][..., None] + zv * lv[1][..., None]))
-  return g7, split.sum(-1)
+  return sums, split.sum(-1)
+
+
+def _flush_rows(raw, rows, ox, oy, config: RasterConfig):
+  """K2's flush of (C, L, slabw) accumulated rows into gradient rows:
+  without antialias the moments become the six geometry gradients with
+  the tile's mean offsets (the reference's :882-893), the z0 column is
+  divided by pa and the prune column multiplied by pa^2."""
+  pa = rows[..., 6]
+  if config.antialias:
+    g6 = [raw[..., c] for c in range(6)]
+  else:
+    mlx = rows[..., 0] - ox
+    mly = rows[..., 1] - oy
+    ax, ay = rows[..., 2], rows[..., 3]
+    isx = 1.0 / torch.clamp(rows[..., 4], min=1e-12)
+    isy = 1.0 / torch.clamp(rows[..., 5], min=1e-12)
+    lu, lv = _uv_forms(rows, ox, oy)
+    su_px, su_py, su, sv_px, sv_py, sv = (raw[..., c] for c in range(6))
+    su_dx, su_dy = su_px - mlx * su, su_py - mly * su
+    sv_dx, sv_dy = sv_px - mlx * sv, sv_py - mly * sv
+    suu = lu[0] * su_px + lu[1] * su_py + lu[2] * su
+    svv = lv[0] * sv_px + lv[1] * sv_py + lv[2] * sv
+    g6 = [ax * isx * su - ay * isy * sv,
+          ay * isx * su + ax * isy * sv,
+          -isx * su_dx - isy * sv_dy,
+          -isx * su_dy + isy * sv_dx,
+          isx * suu,
+          isy * svv]
+  cols = [torch.stack(g6 + [raw[..., 6] / torch.clamp(pa, min=1e-20)], -1),
+          raw[..., 7:]]
+  if config.compute_point_heuristic:
+    cols = [cols[0], raw[..., 7:-2], (raw[..., -2] * (pa * pa))[..., None],
+            raw[..., -1:]]
+  return torch.cat(cols, -1)
 
 
 def stream_backward_reference(mapping: StreamMapping,
                               image_tiled: torch.Tensor,
                               g_image_tiled: torch.Tensor,
                               config: RasterConfig, band0: int = 0,
-                              halo: bool = False) -> torch.Tensor:
+                              halo: bool = False,
+                              ablate: str = "") -> torch.Tensor:
   """Plain-torch twin of the stream backward kernel: (T*run_cap + 1,
   slabw) home-major gradient buffer ((T + 2*tiles_wide)*run_cap + 1 rows
   with ``halo``).
@@ -370,10 +544,18 @@ def stream_backward_reference(mapping: StreamMapping,
   Per chunk of tiles and per slab it recomputes the forward (the same
   gathers, rank order, log transmittance and freeze as
   ``stream_forward_reference``; alpha from ``_backward_alpha_raw``), sums
-  every row's gradient terms over the pixels (``_row_grads``) and
-  ``index_add_``s each row into its home-major buffer row.  Two carries cross slabs, as in the reference
-  ``_bwd_kernel``: the frozen log transmittance and the running sum of
-  w * (features . g_image)."""
+  every row's gradient terms over the pixels (``_row_sums``: K2's shared
+  accumulator), flushes them (``_flush_rows``) and ``index_add_``s each
+  row into its home-major buffer row.  Two carries cross slabs, as in the
+  reference ``_bwd_kernel``: the frozen log transmittance and the running
+  sum of w * (features . g_image).
+
+  ``ablate`` as in ``stream_backward``: skeleton fills each staged row's
+  accumulator with 1e-20 * the sequential sum of its 8 + F table values
+  and walks nothing; no_sort orders by slot; no_grad fills every row's
+  with 1e-20 * the tile's sum of alpha_grad; no_copyback flushes nothing
+  and returns 1e-20 * the sum of every accumulator in row 0, column 0."""
+  mode = _ablation(ablate, BWD_ABLATIONS, "stream_backward")
   if not config.use_alpha_blending:
     raise ValueError("stream backward: quantile mode has no backward")
   dev = mapping.table.device
@@ -392,7 +574,7 @@ def stream_backward_reference(mapping: StreamMapping,
 
   slot0, lnc, row0 = _window_slots(mapping)
   grow0 = window_grad_rows(mapping, halo)
-  used = mapping.desc.view(t_all, s_all, mapping.w_max, 4)[:, :, 0, 1] > 0
+  used = _used_slabs(mapping)
   p = torch.arange(pix, device=dev)
   pxl = ((p % ts).to(dtype) + 0.5 - ts * 0.5)
   pyl = ((p // ts).to(dtype) + 0.5 - ts * 0.5)
@@ -403,6 +585,7 @@ def stream_backward_reference(mapping: StreamMapping,
   gimg = g_image_tiled.to(dtype)
   s_total_all = (gimg * img).sum(1)                           # (T, PIX)
   buf = torch.zeros((r_rows + 1, slabw), dtype=dtype, device=dev)
+  acc_total = buf.new_zeros(())          # no_copyback
 
   chunk = max(1, (1 << 22) // (mapping.slab_cap * pix))
   for t0 in range(0, t_all, chunk):
@@ -422,7 +605,16 @@ def stream_backward_reference(mapping: StreamMapping,
       if width == 0 or not bool(active.any()):
         continue
       valid, rows, grow = _slab_rows(table, s0, ln, row0[sl, s], width, f,
-                                     grow0[sl, s])
+                                     grow0[sl, s], by_slot=mode == "no_sort")
+      keep = valid & active[:, None] & (grow >= 0) & (grow < r_rows)
+      if mode == "skeleton":               # no walk: the carries stay
+        sums = rows[..., 0]
+        for c in range(1, 8 + f):
+          sums = sums + rows[..., c]
+        raw = (sums * 1e-20)[..., None].expand(-1, -1, slabw)
+        buf.index_add_(0, grow[keep], _flush_rows(raw, rows, ox, oy,
+                                                  config)[keep])
+        continue
       a_raw, aux = _backward_alpha_raw(rows, ox, oy, pxl, pyl, config)
       a = torch.where(valid[..., None], _threshold(a_raw, config), 0.0)
       l = torch.log1p(-a)
@@ -438,26 +630,75 @@ def stream_backward_reference(mapping: StreamMapping,
       s_i = s_total[:, None] - (torch.cumsum(wgf, 1) + s_prev[:, None])
       ag = torch.where(live, t * gf - s_i / (1.0 - a), 0.0)
       z0 = torch.where(live & (a_raw < cmax), ag * a_raw, 0.0)
-      cols, split = _row_grads(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0,
-                               config)
-      pa = rows[..., 6]
-      cols[6] = cols[6] / torch.clamp(pa, min=1e-20)
-      cols = [torch.stack(cols, -1),
-              torch.einsum("clp,cfp->clf", w, gi[:, :f])]
-      if with_vis:
-        cols.append(w.sum(-1)[..., None])
-      if heur:
-        cols.append(torch.stack([(ag * ag).sum(-1) * (pa * pa), split], -1))
-      vals = torch.cat(cols, -1)                              # (C, L, slabw)
-      keep = valid & active[:, None] & (grow >= 0) & (grow < r_rows)
-      buf.index_add_(0, grow[keep], vals[keep])
+      if mode == "no_grad":
+        raw = (ag.sum((1, 2)) * 1e-20)[:, None, None].expand(
+            -1, rows.shape[1], slabw)
+      else:
+        sums, split = _row_sums(rows, ox, oy, pxl, pyl, a_raw, aux, ag, z0,
+                                config)
+        raw = [torch.stack(sums, -1),
+               torch.einsum("clp,cfp->clf", w, gi[:, :f])]
+        if with_vis:
+          raw.append(w.sum(-1)[..., None])
+        if heur:
+          raw.append(torch.stack([(ag * ag).sum(-1), split], -1))
+        raw = torch.cat(raw, -1)                              # (C, L, slabw)
+      if mode == "no_copyback":
+        acc_total += torch.where(valid & active[:, None], raw.sum(-1),
+                                 0.0).sum()
+      else:
+        buf.index_add_(0, grow[keep], _flush_rows(raw, rows, ox, oy,
+                                                  config)[keep])
 
       lt_end = carry + csum[:, -1]
       new_carry = torch.maximum(
           lt_end, torch.where(lt <= lcut, lt, _NEG_BIG).max(1).values)
       carry = torch.where(active[:, None], new_carry, carry)
       s_prev = torch.where(active[:, None], s_prev + wgf.sum(1), s_prev)
+  if mode == "no_copyback":
+    buf[0, 0] = acc_total * 1e-20
   return buf
+
+
+def profile_gate(got: torch.Tensor, want: torch.Tensor, kernel: str,
+                 ablate: str) -> tuple:
+  """A profiling mode's kernel output ``got`` against its twin's ``want``:
+  (max abs error, the largest share of its tolerance used; above 1 is a
+  mismatch).  Channels (K1) and columns (K2) are axis 1.
+
+  K1 (``kernel`` "stream_forward"): skeleton (the floor probe) bit for
+  bit; no_alpha, whose image is faint (alphas 1e-6 x a table column), per
+  channel to 1e-4 x max |twin channel|; every other mode to K1's gate,
+  1e-4.  K2: the default and no_sort to K2's gate per column, 1e-4 x
+  max |twin column| + 1e-6; skeleton and no_grad per column to 1e-4
+  (skeleton) or 1e-3 (no_grad: tile sums of alpha_grad, order-dependent
+  sums with cancellation) x max |twin column|, with no absolute floor
+  since every value is scaled by 1e-20; no_copyback its one value
+  (1e-20 x the sum of every accumulator, summed over blocks in a varying
+  order) to 1e-3 relative, every other entry zero.  A twin of zeros, a value that is
+  not finite or a shape that differs is a mismatch."""
+  mode = _ablation(ablate, FWD_ABLATIONS if kernel == "stream_forward"
+                   else BWD_ABLATIONS, kernel)
+  if (got.shape != want.shape or not bool(torch.isfinite(got).all())
+      or not bool(want.any())):
+    return math.inf, math.inf
+  err = (got - want).abs()
+  if kernel == "stream_forward" and mode == "skeleton":
+    return float(err.max()), 0.0 if torch.equal(got, want) else math.inf
+  if mode == "no_copyback":
+    if bool(got.flatten()[1:].any()):
+      return float(err.max()), math.inf
+    e0 = float(err[0, 0])
+    return e0, e0 / (1e-3 * abs(float(want[0, 0])))
+  scale = want.abs().transpose(0, 1).flatten(1).amax(1)
+  if kernel == "stream_forward":
+    tol = 1e-4 * scale if mode == "no_alpha" else torch.full_like(scale, 1e-4)
+  else:
+    tol = (1e-4 * scale + 1e-6 if mode in ("", "no_sort")
+           else (1e-4 if mode == "skeleton" else 1e-3) * scale)
+  err_col = err.transpose(0, 1).flatten(1).amax(1)
+  used = torch.where(err_col > 0, err_col / tol, 0.0)
+  return float(err_col.max()), float(used.max())
 
 
 def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
@@ -499,8 +740,10 @@ def _check_kernel_inputs(mapping: StreamMapping, config: RasterConfig,
 # csrc/stream_backward.cu; more features take the generic one
 K1_WIDTHS = (4, 8, 24, 56)
 K2_WIDTHS = (6, 22, 56)
-# the register instantiation that has a floor probe (the headline's)
+# the register instantiation that has a floor probe and the profiling
+# modes (the headline's), and K2's that has the profiling modes
 FLOOR_WIDTH = 4
+K2_PROFILE_WIDTH = 6
 
 
 def _sort_cap(slab_cap: int) -> int:
@@ -542,25 +785,71 @@ def _kernel():
   lib = load_kernel_library("stream_forward.cu")
   lib.tpu_splat_stream_forward.restype = ctypes.c_int
   lib.tpu_splat_stream_forward.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float] * 4
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_float] * 4
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_stream_forward", 5)
   return lib
 
 
 def stream_forward(mapping: StreamMapping, config: RasterConfig,
-                   band0: int = 0) -> torch.Tensor:
+                   band0: int = 0, ablate: str = "",
+                   with_counts: bool = False):
   """Forward rasterization over a stream mapping: (T, F+1, PIX).
   ``band0``: the absolute tile band of the mapping's first band (a shard
   of a band-sharded image; 0 otherwise).
 
+  The reference's profiling instruments (on no path of the system):
+  ``ablate`` takes one phase out of the kernel ("skeleton": the floor
+  probe, ``stream_forward_floor``; "no_assemble": one contiguous range of
+  rows a slab in place of the window assembly; "no_sort", or the
+  reference's "no_mask": no rank sort, the walk in fetch-slot order;
+  "no_alpha": alpha = 1e-6 * the row's first table column, no exp or
+  threshold); ``with_counts`` also returns the reference's (G * 8, 128)
+  count block (``counts_block``: per tile group the computed (tile, slab)
+  iterations, and the rows staged and the (row, warp) pairs the warps
+  list).  Both need the ``<FLOOR_WIDTH>`` instantiation and an unsharded
+  mapping (ValueError).
+
   CPU mapping -> ``stream_forward_reference``; CUDA mapping -> the
   ``csrc/stream_forward.cu`` kernel, or an exception."""
+  mode = _ablation(ablate, FWD_ABLATIONS, "stream_forward")
+  if mode or with_counts:
+    _check_profile("stream_forward", band0, False, stream_forward_plan(
+        mapping.feature_size, mapping.slab_cap, mapping.w_max,
+        config.tile_area).max_features, FLOOR_WIDTH)
   if mapping.table.device.type == "cpu":
-    return stream_forward_reference(mapping, config, band0)
-  out = _launch_forward(mapping, config, True, "stream_forward", band0)
-  launch_counts["stream_forward"] += 1
+    return stream_forward_reference(mapping, config, band0, mode,
+                                    with_counts)
+  if not mode and not with_counts:
+    out = _launch_forward(mapping, config, True, "stream_forward", band0)
+    launch_counts["stream_forward"] += 1
+    return out
+  if mode == "skeleton" and not config.use_alpha_blending:
+    raise ValueError("stream_forward floor: blending mode only")
+  counts = (torch.zeros((mapping.num_groups, 3), dtype=torch.int32,
+                        device=mapping.table.device) if with_counts else None)
+  out = _launch_forward(mapping, config, mode != "skeleton",
+                        f"stream_forward ablate={mode!r}", band0,
+                        FWD_ABLATIONS[mode], counts)
+  if mode:
+    probe_launch_counts[f"stream_forward_{mode}"] += 1
+  if with_counts:
+    probe_launch_counts["stream_forward_counts"] += 1
+    return out, counts_block(counts)
   return out
+
+
+def _check_profile(name: str, band0: int, halo: bool, width: int,
+                   profile_width: int):
+  """ValueError unless a profiling mode can run: an unsharded mapping and
+  the instantiation the modes are built for."""
+  if band0 != 0 or halo:
+    raise ValueError(f"{name}: the profiling modes take an unsharded "
+                     f"mapping (band0 {band0}, halo {halo})")
+  if width != profile_width:
+    raise ValueError(f"{name}: the profiling modes are built for the "
+                     f"<{profile_width}> instantiation only, these shapes "
+                     f"take <{width}>")
 
 
 def stream_forward_floor_reference(mapping: StreamMapping,
@@ -593,9 +882,11 @@ def stream_forward_floor(mapping: StreamMapping,
 
 
 def _launch_forward(mapping: StreamMapping, config: RasterConfig,
-                    walk: bool, name: str, band0: int = 0) -> torch.Tensor:
+                    walk: bool, name: str, band0: int = 0, mode: int = 0,
+                    counts=None) -> torch.Tensor:
   """Check, plan and launch ``csrc/stream_forward.cu``: the compositing
-  kernel, or (``walk`` False) its floor probe."""
+  kernel, or (``walk`` False) its floor probe; ``mode`` (``FWD_ABLATIONS``)
+  and ``counts`` (zeroed (G, 3) int32, filled) its profiling modes."""
   dev = mapping.table.device
   if dev.type != "cuda":
     raise ValueError(f"{name}: unsupported device {dev}")
@@ -616,12 +907,14 @@ def _launch_forward(mapping: StreamMapping, config: RasterConfig,
     err = lib.tpu_splat_stream_forward(
         mapping.table.data_ptr(), mapping.desc.data_ptr(),
         mapping.strip_blk.data_ptr(), out.data_ptr(),
+        None if counts is None else counts.data_ptr(),
         mapping.num_tiles, mapping.tiles_wide, mapping.group_width,
         mapping.num_slabs, mapping.w_max, mapping.strip_cap,
         mapping.slab_cap, mapping.rows_per_block, w_pad, f,
         config.tile_size, int(config.antialias),
         int(config.use_alpha_blending), plan.max_features, plan.threads,
-        int(walk), band0, config.alpha_threshold,
+        int(walk), band0, mode, mapping.table.numel() // w_pad,
+        config.alpha_threshold,
         config.clamp_max_alpha, _log_cut(config), config.saturate_threshold,
         stream)
   if err != 0:
@@ -634,7 +927,7 @@ def _bwd_kernel():
   lib = load_kernel_library("stream_backward.cu")
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20 + [ctypes.c_float] * 3
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21 + [ctypes.c_float] * 3
       + [ctypes.c_void_p])
   declare_plan_entries(lib, "tpu_splat_stream_backward", 6)
   lib.tpu_splat_halo_merge.restype = ctypes.c_int
@@ -649,7 +942,8 @@ def _bwd_kernel():
 
 def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
                     g_image_tiled: torch.Tensor, config: RasterConfig,
-                    band0: int = 0, halo: bool = False) -> torch.Tensor:
+                    band0: int = 0, halo: bool = False,
+                    ablate: str = "") -> torch.Tensor:
   """Backward rasterization: the (T*run_cap + 1, slabw) home-major
   gradient buffer of ``stream_forward``'s image cotangent.  ``band0`` as
   in ``stream_forward``; with ``halo`` the buffer holds tiles_high + 2
@@ -658,21 +952,38 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   (``band0`` > 0) needs the halo: rows homed outside its own bands belong
   to its neighbours.
 
+  ``ablate``, the reference's profiling instrument (on no path of the
+  system), takes one phase out of the kernel: "skeleton" (staging, sort
+  and flush only: each staged row's accumulator holds 1e-20 * the sum of
+  its table values), "no_sort" or the reference's "no_mask" (the walk in
+  fetch-slot order), "no_grad" (the walk up to alpha_grad; every row's
+  accumulator holds 1e-20 * the tile's sum of it), "no_copyback" (no
+  flush: 1e-20 * the sum of the accumulators lands in row 0, column 0).
+  It needs the ``<K2_PROFILE_WIDTH, 16>`` instantiation and an unsharded
+  mapping (ValueError).
+
   CPU mapping -> ``stream_backward_reference``; CUDA mapping -> the
   ``csrc/stream_backward.cu`` kernel, or an exception."""
   if band0 != 0 and not halo:
     raise ValueError("stream_backward: band0 > 0 without halo would drop "
                      "the rows homed in the neighbouring shards")
+  mode = _ablation(ablate, BWD_ABLATIONS, "stream_backward")
+  f = mapping.feature_size
+  slabw = slab_width(config, f)
+  plan = stream_backward_plan(f, mapping.slab_cap, mapping.w_max, slabw,
+                              config.tile_area)
+  if mode:
+    _check_profile("stream_backward", band0, halo, plan.max_features,
+                   K2_PROFILE_WIDTH)
   dev = mapping.table.device
   if dev.type == "cpu":
     return stream_backward_reference(mapping, image_tiled, g_image_tiled,
-                                     config, band0, halo)
+                                     config, band0, halo, mode)
   if dev.type != "cuda":
     raise ValueError(f"stream_backward: unsupported device {dev}")
   if not config.use_alpha_blending:
     raise ValueError("stream backward: quantile mode has no backward")
   w_pad = _check_kernel_inputs(mapping, config, "stream_backward")
-  f = mapping.feature_size
   t, pix = mapping.num_tiles, config.tile_area
   for name, x in (("image_tiled", image_tiled),
                   ("g_image_tiled", g_image_tiled)):
@@ -687,10 +998,8 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
                        f"expected {(t, f + 1, pix)}")
   image_tiled = image_tiled.contiguous()
   g_image_tiled = g_image_tiled.contiguous()
-  slabw = slab_width(config, f)
   heur = config.compute_point_heuristic
   with_vis = heur or config.compute_visibility
-  plan = stream_backward_plan(f, mapping.slab_cap, mapping.w_max, slabw, pix)
   check_smem("stream_backward", plan, f"slab_cap {mapping.slab_cap}, w_max "
              f"{mapping.w_max}, {f} features, {slabw} gradient columns, "
              f"{pix} pixels")
@@ -713,12 +1022,15 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
         int(heur), plan.max_features, plan.threads, band0, int(halo),
-        config.alpha_threshold, config.clamp_max_alpha, _log_cut(config),
-        stream)
+        BWD_ABLATIONS[mode], config.alpha_threshold, config.clamp_max_alpha,
+        _log_cut(config), stream)
   if err != 0:
     raise RuntimeError(f"stream_backward kernel launch failed: CUDA error "
                        f"{err}")
-  launch_counts["stream_backward"] += 1
+  if mode:
+    probe_launch_counts[f"stream_backward_{mode}"] += 1
+  else:
+    launch_counts["stream_backward"] += 1
   return out
 
 

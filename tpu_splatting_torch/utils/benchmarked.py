@@ -6,13 +6,15 @@ host clock.  The reference runs its loop inside one jitted ``lax.scan``
 and perturbs the inputs so XLA cannot hoist the body; eager torch
 dispatches every call, so neither carries over.  ``profiled_kernels``
 reads the card's own time per CUDA kernel from one ``torch.profiler``
-session.
+session; ``span_ms`` times one call's device span by CUDA events from a
+flushed L2 (``l2_flusher``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -62,6 +64,34 @@ def profiled_kernels(fn: Callable[[], object], reps: int, host: bool = True):
       us[e.name] = us.get(e.name, 0.0) + e.device_time_total
       count[e.name] = count.get(e.name, 0) + 1
   return us, count
+
+
+def l2_flusher(dev) -> Callable[[], None]:
+  """A call that writes a buffer of four times the card's L2 cache
+  (``bitwise_not_`` of int32), so that the next kernel finds its inputs
+  in device memory."""
+  size = torch.cuda.get_device_properties(dev).L2_cache_size
+  buf = torch.zeros(size, dtype=torch.int32, device=dev)
+  return buf.bitwise_not_
+
+
+def span_ms(fn: Callable[[], object], flush: Callable[[], object],
+            reps: int = 20) -> float:
+  """Median over ``reps`` calls of the device span of one ``fn()`` from a
+  flushed L2, by CUDA events recorded after each ``flush()`` and after
+  each ``fn()``.  The span encloses the call's kernels whole, so it is no
+  shorter than their device time: an instrument apart from
+  torch.profiler's records."""
+  fn()
+  events = [(torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+  for start, end in events:
+    flush()
+    start.record()
+    fn()
+    end.record()
+  torch.cuda.synchronize()
+  return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def benchmarked(name: str, f: Callable, args, iters: int = 50,
