@@ -243,8 +243,8 @@ Phases (any failure raises and exits non-zero):
    at the twin gates, launches on equal inputs sharing one twin run;
    K4-K7 held as in phase 13 on ``profile_stages``' rasterizer setup and
    K7 on ``exp_reduce``'s inputs; then the heavy 2M map split by
-   ``stream_map`` stage (``profile_map2.stage_split``: marker kernels
-   where the call enters a stage; two sessions in a row must agree on
+   ``stream_map`` stage (``profile_map2.stage_split``: the program's
+   stage spans, with tracing on; two sessions in a row must agree on
    every stage's kernels), the stages summing to within 10% of the
    call's device time from a whole session of its own, with its busy
    share, and the phase's seconds by script.

@@ -1,0 +1,3 @@
+"""Device records (kernels, copies, fills) per training step in the
+traced session with the program's spans on."""
+from splatbench.spans import launches as read  # noqa: F401

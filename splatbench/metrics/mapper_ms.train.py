@@ -1,0 +1,7 @@
+"""``stream_map``'s ms per training step: the program's ``map`` span, by
+its CUDA events, in the spans window."""
+from splatbench.spans import span_ms
+
+
+def read(ctx):
+  return span_ms(ctx, "map")

@@ -14,8 +14,8 @@ overflow count exactly), ``profile_glue2``'s v2 gradient against the JAX
 composition (within 1e-4 of each column's largest value; the reference
 runs its Pallas kernels in interpret mode, as tests/conftest.py sets it)
 and ``exp_reduce``'s reduce against the JAX ``segment_sum_sorted`` (exact,
-on dyadic rows).  ``profile_map2``'s stage split is held to the line
-numbers of ``stream_map`` and to the whole call.
+on dyadic rows).  ``profile_map2``'s stage split is held to ``stream_map``'s
+stage spans and to the whole call.
 """
 
 import dataclasses
@@ -177,20 +177,21 @@ def test_profile_map_variant_matches_reference(heavy, variant):
 
 
 def test_profile_map2_stages_split_the_call(heavy):
-  """The stage marks name seven increasing lines of ``stream_map``; one
-  traced call enters every stage once, in order, and its host-clock
-  stages sum to within the call's time."""
+  """One call with tracing on enters each of ``stream_map``'s seven
+  stage spans once, in order; the split names every stage, in order,
+  each timed by the host clock, and the stages sum to within the call's
+  ``map`` span."""
   _, s, size = heavy
-  starts = profile_map2.stage_starts()
-  assert len(starts) == len(profile_map2.STAGES) and starts == sorted(starts)
-  entered = []
   call = lambda: profile_map.map_call(s, size, s.caps)(*s.map_args)
-  with profile_map2.traced(entered.append):
-    call()
-  assert entered == list(range(len(profile_map2.STAGES)))
+  spans = profile_map2.traced_call(call)
+  stage_spans = [span for _, span in profile_map2.STAGE_SPANS]
+  assert [k for k in spans if k in stage_spans] == stage_spans
+  assert all(spans[k]["calls"] == 1 for k in stage_spans)
   split = profile_map2.stage_split(call, torch.device("cpu"))
   assert list(split) == list(profile_map2.STAGES)
   assert all(st.ms > 0 and st.kernels is None for st in split.values())
+  whole = spans["map"]["host_ms"]
+  assert sum(spans[k]["host_ms"] for k in stage_spans) <= whole
 
 
 @pytest.fixture(scope="module")

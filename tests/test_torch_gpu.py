@@ -1446,9 +1446,11 @@ def test_heavy_map_scripts_and_stage_split_on_card(cuda, tmp_path,
                                                    monkeypatch, capsys):
   """``profile_map`` and ``profile_map2`` on the bench's heavy scene at
   200k splats, 2048x1536: each exits 0 with a line per variant and per
-  stage; then the stage split of one ``stream_map`` call sums to within
-  10% of the call's device time (``diagnostics.device_reading``), and
-  every stage launched kernels."""
+  stage; then one ``stream_map`` call with tracing on enters each stage
+  span once, in order, and makes host syncs; its stage split (kernels by
+  the stage span that launched them) sums to within 10% of the call's
+  device time (``diagnostics.device_reading``), every stage launched
+  kernels, and each stage's syncs are its span's."""
   import argparse
   from tpu_splatting_torch import bench
   from tpu_splatting_torch.benchmarks import diagnostics as dg
@@ -1468,6 +1470,11 @@ def test_heavy_map_scripts_and_stage_split_on_card(cuda, tmp_path,
       *s.map_args)
   call()
   torch.cuda.synchronize()
+  spans = profile_map2.traced_call(call)
+  stage_spans = [span for _, span in profile_map2.STAGE_SPANS]
+  assert [k for k in spans if k in stage_spans] == stage_spans
+  assert all(spans[k]["calls"] == 1 for k in stage_spans)
+  assert sum(spans[k]["syncs"] for k in stage_spans) > 0
   reading = dg.device_reading(call)
   assert reading is not None, "the profiler lost kernel records"
   whole = reading[0]
@@ -1478,4 +1485,7 @@ def test_heavy_map_scripts_and_stage_split_on_card(cuda, tmp_path,
       break
   assert abs(total - whole) <= 0.1 * whole, (total, whole)
   assert list(split) == list(profile_map2.STAGES)
-  assert all(st.kernels > 0 for st in split.values()), split
+  assert all(st.kernels > 0 and st.host_ms > 0 for st in split.values()), \
+      split
+  assert [st.syncs for st in split.values()] == [
+      spans[k]["syncs"] for k in stage_spans]

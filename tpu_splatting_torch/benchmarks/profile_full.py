@@ -12,111 +12,62 @@ forward + backward, the render forward and the full step; its docstring
 also names the map and the raster's forward + backward, which are timed
 here too (``stream_map_with_config`` on the projected splats, and the
 bench's 2D-protocol step on them).  The H100 question: where do the full
-step's ~42 ms go?  So one more line splits one step by stage with CUDA
-events set by wrappers around the renderer's map and raster calls and by
-gradient hooks: projection + SH + ndc, map, raster forward (K1), loss,
-raster backward (K2 and the reduce), and the autograd tail: the SH
-backward and the projection backward, in the order autograd runs them.
-An event stage also holds the device's waits for the host.
+step's ~42 ms go?  So one more line splits one step by stage with the
+program's own spans (``tpu_splatting_torch.trace``, their CUDA events on
+the card, the host clock on the CPU): projection + SH (``project`` and
+``sh``; the NDC depth is in no span), map, raster forward (``k1``), raster
+backward (``backward.raster``: K2 and the reduce), and the autograd tail:
+the SH backward and the projection backward (``backward.sh`` and
+``backward.project``, opened where autograd reaches each one's gradient).
+"loss" is the rest of the step: the loss, the NDC depth and what no span
+holds.  A span's events also hold the device's waits for the host.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import sys
-import time
 
 import torch
 
-from .. import bench, renderer
+from .. import bench, renderer, trace
 from ..perspective.projection import ndc_depth, project_to_image
 from ..rasterizer.stream_function import stream_map_with_config
 from ..spherical_harmonics import evaluate_sh_at
 from . import diagnostics as dg
 
-STEP_STAGES = ("projection + SH + ndc", "map", "raster forward (K1)", "loss",
-               "raster backward (K2, reduce)", "SH backward",
-               "projection backward")
-
-
-class Marks:
-  """Stage boundaries of one pass, each mark opening the stage it names:
-  CUDA events on the card (a stage then also holds the device's waits
-  for the host), the host clock on the CPU."""
-
-  def __init__(self, dev: torch.device):
-    self.cuda, self.points = dev.type == "cuda", []
-
-  def mark(self, stage: str = ""):
-    if self.cuda:
-      ev = torch.cuda.Event(enable_timing=True)
-      ev.record()
-      self.points.append((stage, ev))
-    else:
-      self.points.append((stage, time.perf_counter()))
-
-  def stages(self) -> list:
-    """[(stage, ms)] between consecutive marks."""
-    if self.cuda:
-      torch.cuda.synchronize()
-    return [(a[0], a[1].elapsed_time(b[1]) if self.cuda
-             else (b[1] - a[1]) * 1e3)
-            for a, b in zip(self.points, self.points[1:])]
-
-  def line(self, label: str) -> str:
-    clock = "CUDA events" if self.cuda else "host clock, cpu twins"
-    return f"{label} ({clock}): " + ", ".join(
-        f"{n} {t:.3f} ms" for n, t in self.stages())
-
-
-@contextlib.contextmanager
-def staged(marks: Marks):
-  """While open, the renderer's map and raster calls mark where their
-  stages start: the map's start and end, the raster forward's end, where
-  the backward reaches the raster's output, and where it reaches the
-  raster's splats (the projection backward follows) and its SH colours
-  (the SH backward follows)."""
-  mapper, raster = (renderer.stream_map_with_config,
-                    renderer.stream_rasterize_with_mapping)
-
-  def map_call(*a, **k):
-    marks.mark("map")
-    out = mapper(*a, **k)
-    marks.mark("raster forward (K1)")
-    return out
-
-  def raster_call(g2d, feats, *a, **k):
-    out = raster(g2d, feats, *a, **k)
-    marks.mark("loss")
-    if out.requires_grad:
-      out.register_hook(lambda g: marks.mark("raster backward (K2, reduce)"))
-      g2d.register_hook(lambda g: marks.mark("projection backward"))
-      feats.register_hook(lambda g: marks.mark("SH backward"))
-    return out
-
-  renderer.stream_map_with_config = map_call
-  renderer.stream_rasterize_with_mapping = raster_call
-  try:
-    yield
-  finally:
-    renderer.stream_map_with_config = mapper
-    renderer.stream_rasterize_with_mapping = raster
+# (stage, the program's spans it sums)
+STEP_STAGES = (("projection + SH + ndc", ("project", "sh")),
+               ("map", ("map",)),
+               ("raster forward (K1)", ("k1",)),
+               ("loss", ()),
+               ("raster backward (K2, reduce)", ("backward.raster",)),
+               ("SH backward", ("backward.sh",)),
+               ("projection backward", ("backward.project",)))
+WHOLE = "full step by stage"
 
 
 def step_by_stage(step, g3d, dev) -> dict:
   """One full step split by stage: {stage: ms}."""
-  marks = Marks(dev)
-  with staged(marks):
-    marks.mark("projection + SH + ndc")
-    step(g3d)
-    marks.mark()
-  stages = marks.stages()
-  if sorted(n for n, _ in stages) != sorted(STEP_STAGES):
-    raise RuntimeError(f"stages {[n for n, _ in stages]}, expected "
-                       f"{STEP_STAGES}")
-  print(marks.line("full step by stage"), flush=True)
-  return dict(stages)
+  trace.reset()
+  trace.enable()
+  try:
+    with trace.span(WHOLE):
+      step(g3d)
+  finally:
+    trace.disable()
+  spans = {k: s["device_ms"] * s["calls"] for k, s in trace.summary().items()}
+  trace.reset()
+  missing = [k for _, names in STEP_STAGES for k in names if k not in spans]
+  if missing:
+    raise RuntimeError(f"spans {sorted(spans)}, missing {missing}")
+  stages = {stage: sum(spans[k] for k in names)
+            for stage, names in STEP_STAGES}
+  stages["loss"] = spans[WHOLE] - sum(stages.values())
+  clock = "CUDA events" if dev.type == "cuda" else "host clock, cpu twins"
+  print(f"{WHOLE} ({clock}): " + ", ".join(
+      f"{n} {t:.3f} ms" for n, t in stages.items()), flush=True)
+  return stages
 
 
 def run(step, g3d, cam, cfg, image_size, opts: dg.Opts) -> dict:

@@ -8,18 +8,15 @@ The reference split the map by the outputs each variant returned: under
 Eager torch runs every line of ``stream_map`` whatever the caller keeps,
 so those variants do not carry over.  The H100 question: which stage of
 ``stream_map`` (``rasterizer/stream.py``) holds the device time, and how
-many times does each stop the host for the device?  One call runs with a
-line tracer on ``stream_map``'s frame (``sys.settrace``) inside one
-``torch.profiler`` session: where the call enters a stage, the tracer
-opens a ``record_function`` range for it, and each CUDA kernel counts in
-the stage whose range holds the op that launched it.  Each stage's line
-gives its device busy ms, the kernels it launched, the host's time in it
-(the tracer's own cost included) and the host syncs it made
-(``torch.cuda.set_sync_debug_mode("warn")``: one warning a synchronising
-call, counted where the tracer stands).  ``stream.py`` is
-not edited for this.  The stages, from the comments and lines that open
-them (``STAGE_MARKS``): bounds, wide/dup, rows and sort (with the table),
-edge table, strip blocks, descriptors, gradient gather.
+many times does each stop the host for the device?  One call runs with
+the program's tracing on (``tpu_splatting_torch.trace``) inside one
+``torch.profiler`` session: ``stream_map`` opens a span for each of its
+stages (``map.bounds`` ... ``map.grad_gather``), and each CUDA kernel
+counts in the stage whose span holds the op that launched it.  Each
+stage's line gives its device busy ms, the kernels it launched, the
+host's time in it and the host syncs it made (the spans' own count).
+The stages: bounds, wide/dup, rows and sort (with the table), edge table,
+strip blocks, descriptors, gradient gather.
 
 Each reference label still has its line: "everything" and "everything,
 no table" are timed calls; the others say which stages their outputs
@@ -31,32 +28,28 @@ sync is given.
 from __future__ import annotations
 
 import bisect
-import contextlib
 import dataclasses
-import inspect
 import sys
-import time
-import warnings
 from typing import Callable, Optional
 
 import torch
 
-from .. import bench
+from .. import bench, trace
 from ..rasterizer import stream
 from . import diagnostics as dg
 
-# (stage, the text of the line that opens it in stream_map); the first
-# stage also holds the lines above its mark
-STAGE_MARKS = (
-    ("bounds", "mean, axis, sigma, alpha = g2d.unpack_g2d"),
-    ("wide/dup", "# wide splats (reach beyond"),
-    ("rows and sort", "pid = iota(n)"),
-    ("edge table", "# ---- class/cell edge table"),
-    ("strip blocks", "# ---- per-group strip blocks"),
-    ("descriptors", "# group chunks bound"),
-    ("gradient gather", "# ---- map-time gradient gather"),
+# (stage, the span stream_map opens for it)
+STAGE_SPANS = (
+    ("bounds", "map.bounds"),
+    ("wide/dup", "map.wide_dup"),
+    ("rows and sort", "map.sort"),
+    ("edge table", "map.edges"),
+    ("strip blocks", "map.strips"),
+    ("descriptors", "map.descriptors"),
+    ("gradient gather", "map.grad_gather"),
 )
-STAGES = tuple(name for name, _ in STAGE_MARKS)
+STAGES = tuple(name for name, _ in STAGE_SPANS)
+STAGE_OF = {span: name for name, span in STAGE_SPANS}
 # the stages each reference variant's outputs need
 NEEDS = {
     "desc+overflow only": STAGES[:6],
@@ -65,48 +58,6 @@ NEEDS = {
     "run_starts only": STAGES[:4],
     "overflow only": STAGES[:6],
 }
-RANGE = "stream_map stage: "      # the record_function ranges' names
-
-
-def stage_starts() -> list:
-  """The first source line of each stage in ``stream.stream_map``."""
-  lines, first = inspect.getsourcelines(stream.stream_map)
-  starts = [first]
-  for name, mark in STAGE_MARKS[1:]:
-    hits = [i for i, text in enumerate(lines) if mark in text]
-    if len(hits) != 1:
-      raise RuntimeError(f"stage {name}: {len(hits)} lines of stream_map "
-                         f"hold {mark!r}")
-    starts.append(first + hits[0])
-  if starts != sorted(starts):
-    raise RuntimeError(f"stage marks out of order: {starts}")
-  return starts
-
-
-@contextlib.contextmanager
-def traced(on_stage: Callable[[int], None]):
-  """While open, ``on_stage(i)`` runs each time a ``stream_map`` frame
-  enters stage i."""
-  starts, code = stage_starts(), stream.stream_map.__code__
-  current = [None]
-
-  def local(frame, event, arg):
-    if event == "line":
-      i = bisect.bisect_right(starts, frame.f_lineno) - 1
-      if i != current[0]:
-        current[0] = i
-        on_stage(i)
-    return local
-
-  def tracer(frame, event, arg):
-    return local if event == "call" and frame.f_code is code else None
-
-  old = sys.gettrace()
-  sys.settrace(tracer)
-  try:
-    yield
-  finally:
-    sys.settrace(old)
 
 
 @dataclasses.dataclass
@@ -117,87 +68,73 @@ class Stage:
   syncs: Optional[int] = None
 
 
+def traced_call(call: Callable[[], object]) -> dict:
+  """``call()`` with the program's tracing on: ``trace.summary()`` of the
+  call alone."""
+  trace.reset()
+  trace.enable()
+  try:
+    call()
+  finally:
+    trace.disable()
+  out = trace.summary()
+  trace.reset()
+  return out
+
+
 def stage_split(call: Callable[[], object], dev: torch.device) -> dict:
   """One ``call()``, which runs ``stream_map`` on ``dev``, split by
   stage: {stage: Stage}, in stage order."""
   if dev.type != "cuda":
-    out, clock = {}, []
-    with traced(lambda i: clock.append((i, time.perf_counter()))):
-      call()
-    clock.append((None, time.perf_counter()))
-    for (i, t0), (_, t1) in zip(clock, clock[1:]):
-      prev = out.get(STAGES[i], Stage(0.0))
-      out[STAGES[i]] = Stage(prev.ms + (t1 - t0) * 1e3)
-    return out
+    spans = traced_call(call)
+    return {STAGE_OF[span]: Stage(s["host_ms"] * s["calls"])
+            for span, s in spans.items() if span in STAGE_OF}
   return _device_split(call)
 
 
 def _device_split(call, attempts: int = 5) -> dict:
-  """The card's split, from one ``torch.profiler`` session: each stage is
-  a ``record_function`` range opened where the call enters it, and each
-  CUDA kernel counts in the range its launching op started in (the
-  profiler links every kernel to the op that launched it).  A session
-  that lost a range is run again, up to ``attempts`` times."""
+  """The card's split, from one ``torch.profiler`` session with tracing
+  on: each CUDA kernel counts in the stage span that holds the op that
+  launched it (the profiler links every kernel to the op that launched
+  it).  A session that lost a span is run again, up to ``attempts``
+  times."""
   for _ in range(attempts):
     out = _one_device_split(call)
     if out is not None:
       return out
-  raise RuntimeError(f"the profiler lost stage ranges in {attempts} "
+  raise RuntimeError(f"the profiler lost stage spans in {attempts} "
                      "sessions")
 
 
 def _one_device_split(call) -> Optional[dict]:
   from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile, record_function
-  order, syncs, ranges = [], {}, []
-
-  def on_stage(i):
-    if ranges:
-      ranges[-1].__exit__(None, None, None)
-    ranges.append(record_function(RANGE + STAGES[i]))
-    ranges[-1].__enter__()
-    order.append(i)
-
-  def on_warning(message, category, filename, lineno, file=None, line=None):
-    if order and "synchronizing" in str(message):
-      st = STAGES[order[-1]]
-      syncs[st] = syncs.get(st, 0) + 1
-
+  from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-    with warnings.catch_warnings():
-      warnings.simplefilter("always")
-      warnings.showwarning = on_warning
-      torch.cuda.set_sync_debug_mode("warn")
-      try:
-        with traced(on_stage):
-          call()
-      finally:
-        torch.cuda.set_sync_debug_mode("default")
-        if ranges:
-          ranges[-1].__exit__(None, None, None)
+    summary = traced_call(call)
     torch.cuda.synchronize()
   evs = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-  spans = sorted((e.time_range.start, e.time_range.end, e.name[len(RANGE):])
-                 for e in evs if e.name.startswith(RANGE))
-  if len(spans) != len(order):
+  spans = sorted((e.time_range.start, e.time_range.end,
+                  STAGE_OF[e.name[len(trace.PREFIX):]])
+                 for e in evs if e.name[len(trace.PREFIX):] in STAGE_OF)
+  if len(spans) != sum(s["calls"] for k, s in summary.items()
+                       if k in STAGE_OF):
     return None
-  out = {STAGES[i]: Stage(0.0, 0, 0.0, 0) for i in sorted(set(order))}
+  out = {STAGE_OF[k]: Stage(0.0, 0, 0.0, s["syncs"])
+         for k, s in summary.items() if k in STAGE_OF}
   for a, b, name in spans:
     out[name].host_ms += (b - a) / 1e3
   starts = [a for a, _, _ in spans]
   for e in evs:
-    if not e.kernels or e.name.startswith(RANGE):
+    if not e.kernels:
       continue
     i = bisect.bisect_right(starts, e.time_range.start) - 1
     if i < 0 or e.time_range.start > spans[i][1]:
-      continue                       # launched outside the traced call
+      continue                       # launched outside the stages
     st = out[spans[i][2]]
     st.ms += sum(k.duration for k in e.kernels) / 1e3
     st.kernels += len(e.kernels)
-  for name, n in syncs.items():
-    out[name].syncs = n
   return out
 
 

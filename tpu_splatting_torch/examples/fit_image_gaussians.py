@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import trace
 from ..data_types import Gaussians2D, RasterConfig
 from ..lib.transforms import inverse_sigmoid
 from ..misc.renderer2d import (point_basis, project_gaussians2d,
@@ -66,7 +67,8 @@ def parse_args(argv=None):
                       help="synthetic target size if no image file")
   parser.add_argument("--write_frames", type=Path, default=None)
   parser.add_argument("--profile", action="store_true",
-                      help="trace one epoch with torch.profiler")
+                      help="trace one epoch with torch.profiler, the "
+                      "program's spans on")
   parser.add_argument("--profile_dir", type=str,
                       default=os.path.join(tempfile.gettempdir(),
                                            "tpu_splatting_torch_trace"))
@@ -293,6 +295,7 @@ def main(argv=None):
       activities = [ProfilerActivity.CPU] + (
           [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
       profiler = profile(activities=activities)
+      trace.enable()      # the program's spans: ts.* ranges in the trace
       profiler.__enter__()
 
     heuristics_sum = torch.zeros((params.batch_size[0], 2),
@@ -312,6 +315,7 @@ def main(argv=None):
       if dev.type == "cuda":
         torch.cuda.synchronize(dev)
       profiler.__exit__(None, None, None)
+      trace.disable()
       os.makedirs(args.profile_dir, exist_ok=True)
       path = os.path.join(args.profile_dir, "trace.json")
       profiler.export_chrome_trace(path)

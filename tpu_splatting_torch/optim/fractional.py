@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import trace
+
 
 def lerp(t, a, b):
   """a * t + b * (1 - t)."""
@@ -238,20 +240,21 @@ class VisibilityOptimizer(FractionalOpt):
   def step(self, params, grads, state: FractionalState,
            visibility: torch.Tensor, basis: Optional[torch.Tensor] = None,
            **kw):
-    visible = visibility > 0
-    updated_vis = power_lerp(self.vis_beta, visibility, state.running_vis,
-                             k=4)
-    updated_vis = torch.where(visible, updated_vis, state.running_vis)
-    weight = torch.where(
-        visible, visibility / torch.clamp(updated_vis, min=1e-12), 0.0)
-    norm_grads = {
-        k: g / (visibility + self.vis_smooth).reshape(
-            (-1,) + (1,) * (g.dim() - 1))
-        for k, g in grads.items() if g is not None}
-    new_params, new_state = super().step(
-        params, norm_grads, state, weight, basis=basis, **kw)
-    return new_params, dataclasses.replace(new_state,
-                                           running_vis=updated_vis)
+    with trace.span("optimizer"):
+      visible = visibility > 0
+      updated_vis = power_lerp(self.vis_beta, visibility, state.running_vis,
+                               k=4)
+      updated_vis = torch.where(visible, updated_vis, state.running_vis)
+      weight = torch.where(
+          visible, visibility / torch.clamp(updated_vis, min=1e-12), 0.0)
+      norm_grads = {
+          k: g / (visibility + self.vis_smooth).reshape(
+              (-1,) + (1,) * (g.dim() - 1))
+          for k, g in grads.items() if g is not None}
+      new_params, new_state = super().step(
+          params, norm_grads, state, weight, basis=basis, **kw)
+      return new_params, dataclasses.replace(new_state,
+                                             running_vis=updated_vis)
 
 
 class VisibilityAwareAdam(VisibilityOptimizer):

@@ -12,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from ..data_types import Gaussians3D, RasterConfig
 from ..lib import gaussian2d as g2d
 from ..lib import transforms
@@ -94,16 +95,17 @@ def project_to_image(
     gaussians: Gaussians3D, camera_params: CameraParams, config: RasterConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """Project 3D gaussians to packed 2D gaussians (EWA splatting)."""
-  return project_gaussians(
-      *gaussians.shape_tensors(),
-      camera_params.T_camera_world,
-      camera_params.projection,
-      camera_params.image_size,
-      camera_params.depth_range,
-      blur_cov=config.blur_cov,
-      clamp_margin=config.clamp_margin,
-      alpha_threshold=config.alpha_threshold,
-  )
+  with trace.span("project"):
+    return project_gaussians(
+        *gaussians.shape_tensors(),
+        camera_params.T_camera_world,
+        camera_params.projection,
+        camera_params.image_size,
+        camera_params.depth_range,
+        blur_cov=config.blur_cov,
+        clamp_margin=config.clamp_margin,
+        alpha_threshold=config.alpha_threshold,
+    )
 
 
 def ndc_depth(depth, near: float, far: float):

@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..data_types import RasterConfig
 from ..lib import gaussian2d as g2d
 from ..mapper.tile_mapper import pad_to_tile, tile_shape
@@ -282,259 +283,267 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
   are static and overflow is counted (``calibrate_stream`` sizes them);
   ``build_table=False`` builds the descriptors only (calibration).
   """
-  dev = gaussians.device
-  n = gaussians.shape[0]
-  f_size = features.shape[1]
-  ts = config.tile_size
-  tw, th = tile_shape(image_size, ts)
-  num_tiles = tw * th
-  db = depth_bits or depth_bits_for(num_tiles)
-  assert num_tiles < (1 << (28 - db))
-  assert tw % group_width == 0, (tw, group_width)
-  assert slab_cap <= 2048 or not build_table, (
-      f"slab_cap {slab_cap} overflows the 11-bit rank-key slot")
-  assert 2 * n + dup_cap < (1 << 30)
-  depth = depth.reshape(n)
-  zero = torch.zeros((), dtype=_I, device=dev)
+  with trace.span("map"):
+    dev = gaussians.device
+    n = gaussians.shape[0]
+    f_size = features.shape[1]
+    ts = config.tile_size
+    tw, th = tile_shape(image_size, ts)
+    num_tiles = tw * th
+    db = depth_bits or depth_bits_for(num_tiles)
+    assert num_tiles < (1 << (28 - db))
+    assert tw % group_width == 0, (tw, group_width)
+    assert slab_cap <= 2048 or not build_table, (
+        f"slab_cap {slab_cap} overflows the 11-bit rank-key slot")
+    assert 2 * n + dup_cap < (1 << 30)
+    depth = depth.reshape(n)
+    zero = torch.zeros((), dtype=_I, device=dev)
 
-  def iota(m):
-    return torch.arange(m, dtype=_I, device=dev)
+    def iota(m):
+      return torch.arange(m, dtype=_I, device=dev)
 
-  mean, axis, sigma, alpha = g2d.unpack_g2d(gaussians)
-  gscale = g2d.gaussian_scale(alpha, config.alpha_threshold)
-  valid = (alpha > config.alpha_threshold) & (depth > 0) & (gscale > 0)
+    with trace.span("map.bounds"):
+      mean, axis, sigma, alpha = g2d.unpack_g2d(gaussians)
+      gscale = g2d.gaussian_scale(alpha, config.alpha_threshold)
+      valid = (alpha > config.alpha_threshold) & (depth > 0) & (gscale > 0)
 
-  lower, upper = g2d.ellipse_bounds(
-      mean, axis * (sigma[:, 0] * gscale)[:, None],
-      g2d.perp(axis) * (sigma[:, 1] * gscale)[:, None])
-  padded = pad_to_tile(image_size, ts)
-  max_tile = torch.tensor([(padded[0] - 1) // ts, (padded[1] - 1) // ts],
-                          dtype=_I, device=dev)
-  lo_t = _tiles_of(lower, ts, max_tile)
-  hi_t = _tiles_of(upper, ts, max_tile)
-  home = _tiles_of(mean, ts, max_tile)
+      lower, upper = g2d.ellipse_bounds(
+          mean, axis * (sigma[:, 0] * gscale)[:, None],
+          g2d.perp(axis) * (sigma[:, 1] * gscale)[:, None])
+      padded = pad_to_tile(image_size, ts)
+      max_tile = torch.tensor([(padded[0] - 1) // ts, (padded[1] - 1) // ts],
+                              dtype=_I, device=dev)
+      lo_t = _tiles_of(lower, ts, max_tile)
+      hi_t = _tiles_of(upper, ts, max_tile)
+      home = _tiles_of(mean, ts, max_tile)
 
-  # wide splats (reach beyond +-1 tile of home) get duplicate rows for
-  # the span tiles outside their 3x3 core
-  reach_ok = torch.all((home - lo_t <= 1) & (hi_t - home <= 1), -1)
-  wide = valid & ~reach_ok
-  if dup_cap > 0:
-    assert wide_cap > 0
-    w_idx = torch.sort(torch.where(wide, iota(n), n)).values[:wide_cap]
-    if n < wide_cap:
-      w_idx = torch.cat([w_idx, torch.full((wide_cap - n,), n, dtype=_I,
-                                           device=dev)])
-    present = w_idx < n
-    far_over = torch.clamp(wide.sum() - wide_cap, min=0)
+    with trace.span("map.wide_dup"):
+      # wide splats (reach beyond +-1 tile of home) get duplicate rows for
+      # the span tiles outside their 3x3 core
+      reach_ok = torch.all((home - lo_t <= 1) & (hi_t - home <= 1), -1)
+      wide = valid & ~reach_ok
+      if dup_cap > 0:
+        assert wide_cap > 0
+        w_idx = torch.sort(torch.where(wide, iota(n), n)).values[:wide_cap]
+        if n < wide_cap:
+          w_idx = torch.cat([w_idx, torch.full((wide_cap - n,), n, dtype=_I,
+                                               device=dev)])
+        present = w_idx < n
+        far_over = torch.clamp(wide.sum() - wide_cap, min=0)
 
-    def gpad(x):
-      return torch.cat([x, torch.zeros_like(x[:1])], 0)[w_idx]
+        def gpad(x):
+          return torch.cat([x, torch.zeros_like(x[:1])], 0)[w_idx]
 
-    lo_w, hi_w, home_w = gpad(lo_t), gpad(hi_t), gpad(home)
-    span_full = hi_w - lo_w + 1
-    span_w = torch.clamp(span_full, max=config.big_tile_window)
-    clip_over = (torch.any(span_full > span_w, -1) & present).sum()
-    cnt_w = torch.where(present, span_w[:, 0] * span_w[:, 1], 0)
-    off = torch.cat([zero[None], torch.cumsum(cnt_w, 0)])
-    total_dup = off[-1]
-    dup_over = torch.clamp(total_dup - dup_cap, min=0)
+        lo_w, hi_w, home_w = gpad(lo_t), gpad(hi_t), gpad(home)
+        span_full = hi_w - lo_w + 1
+        span_w = torch.clamp(span_full, max=config.big_tile_window)
+        clip_over = (torch.any(span_full > span_w, -1) & present).sum()
+        cnt_w = torch.where(present, span_w[:, 0] * span_w[:, 1], 0)
+        off = torch.cat([zero[None], torch.cumsum(cnt_w, 0)])
+        total_dup = off[-1]
+        dup_over = torch.clamp(total_dup - dup_cap, min=0)
 
-    # slot -> owning wide splat: ones at each splat's end slot + cumsum
-    r = iota(dup_cap)
-    ends = off[1:]
-    ends = ends[ends < dup_cap]
-    seg = torch.zeros(dup_cap, dtype=_I, device=dev).index_add_(
-        0, ends, torch.ones_like(ends))
-    w_of = torch.clamp(torch.cumsum(seg, 0), 0, wide_cap - 1)
-    depth_ext = torch.cat([depth, torch.zeros_like(depth[:1])])
-    d16_w = _depth16(depth_ext[w_idx]) >> (16 - db)
-    packed_w = torch.stack(
-        [off[:wide_cap], lo_w[:, 0], lo_w[:, 1],
-         torch.clamp(span_w[:, 0], min=1), home_w[:, 0], home_w[:, 1],
-         w_idx, d16_w], -1)
-    rw = packed_w[w_of]
-    l = r - rw[:, 0]
-    tx = rw[:, 1] + torch.remainder(l, rw[:, 3])
-    ty = rw[:, 2] + torch.div(l, rw[:, 3], rounding_mode="floor")
-    in_core = ((torch.abs(tx - rw[:, 4]) <= 1)
-               & (torch.abs(ty - rw[:, 5]) <= 1))
-    dup_ok = (r < total_dup) & ~in_core & (rw[:, 6] < n)
-    dup_src = torch.where(dup_ok, rw[:, 6], n)
-    key_dup = torch.where(dup_ok, ((ty * tw + tx) << (db + 4)) | rw[:, 7],
-                          SENTINEL)
-    pid_dup = torch.where(dup_ok, dup_src + n, 2 * n + r)
-    num_far = far_over + clip_over + dup_over
-  else:
-    num_far = wide.sum()
+        # slot -> owning wide splat: ones at each splat's end slot + cumsum
+        r = iota(dup_cap)
+        ends = off[1:]
+        ends = ends[ends < dup_cap]
+        seg = torch.zeros(dup_cap, dtype=_I, device=dev).index_add_(
+            0, ends, torch.ones_like(ends))
+        w_of = torch.clamp(torch.cumsum(seg, 0), 0, wide_cap - 1)
+        depth_ext = torch.cat([depth, torch.zeros_like(depth[:1])])
+        d16_w = _depth16(depth_ext[w_idx]) >> (16 - db)
+        packed_w = torch.stack(
+            [off[:wide_cap], lo_w[:, 0], lo_w[:, 1],
+             torch.clamp(span_w[:, 0], min=1), home_w[:, 0], home_w[:, 1],
+             w_idx, d16_w], -1)
+        rw = packed_w[w_of]
+        l = r - rw[:, 0]
+        tx = rw[:, 1] + torch.remainder(l, rw[:, 3])
+        ty = rw[:, 2] + torch.div(l, rw[:, 3], rounding_mode="floor")
+        in_core = ((torch.abs(tx - rw[:, 4]) <= 1)
+                   & (torch.abs(ty - rw[:, 5]) <= 1))
+        dup_ok = (r < total_dup) & ~in_core & (rw[:, 6] < n)
+        dup_src = torch.where(dup_ok, rw[:, 6], n)
+        key_dup = torch.where(dup_ok, ((ty * tw + tx) << (db + 4)) | rw[:, 7],
+                              SENTINEL)
+        pid_dup = torch.where(dup_ok, dup_src + n, 2 * n + r)
+        num_far = far_over + clip_over + dup_over
+      else:
+        num_far = wide.sum()
 
-  def reach_cls(i):
-    neg = lo_t[:, i] < home[:, i]
-    pos = hi_t[:, i] > home[:, i]
-    return torch.where(neg & pos, 2, torch.where(neg, 3,
-                                                 torch.where(pos, 1, 0)))
+      def reach_cls(i):
+        neg = lo_t[:, i] < home[:, i]
+        pos = hi_t[:, i] > home[:, i]
+        return torch.where(neg & pos, 2, torch.where(neg, 3,
+                                                     torch.where(pos, 1, 0)))
 
-  home_id = home[:, 1] * tw + home[:, 0]
-  key = ((home_id << (db + 4)) | (reach_cls(1) << (db + 2))
-         | (reach_cls(0) << db) | (_depth16(depth) >> (16 - db)))
-  key = torch.where(valid, key, SENTINEL)
+      home_id = home[:, 1] * tw + home[:, 0]
+      key = ((home_id << (db + 4)) | (reach_cls(1) << (db + 2))
+             | (reach_cls(0) << db) | (_depth16(depth) >> (16 - db)))
+      key = torch.where(valid, key, SENTINEL)
 
-  pid = iota(n)
-  w_row = 7 + f_size + 1
-  rpb, w_pad = rows_per_block_for(w_row)
-  assert slab_cap % rpb == 0 and strip_cap % rpb == 0
-  n_rows = n + dup_cap
-  if dup_cap > 0:
-    key_all = torch.cat([key, key_dup])
-    pid_all = torch.cat([pid, pid_dup])
-  else:
-    key_all, pid_all = key, pid
-  if build_table:
-    # stable on (key, pid): distinct combined keys, one sort
-    perm = torch.sort((key_all << 30) | pid_all).indices
-    skey = key_all[perm]
-    spid = pid_all[perm]
-    src_all = pid
-    if dup_cap > 0:
-      src_all = torch.cat([pid, dup_src])
-    gf = torch.cat([gaussians, features.to(gaussians.dtype)], 1)
-    gf_ext = torch.cat([gf, torch.zeros_like(gf[:1])], 0)
-    n_pad = ((n_rows + strip_cap - 1) // strip_cap + 2) * strip_cap
-    table = torch.zeros((n_pad, w_pad), dtype=gaussians.dtype, device=dev)
-    table[:n_rows, :7 + f_size] = gf_ext[torch.clamp(src_all[perm], max=n)]
-    # the depth rank rides the float table by value (exact below 2^24)
-    table[:n_rows, 7 + f_size] = (skey & ((1 << db) - 1)).to(table.dtype)
-    table[n_rows:, 7 + f_size] = float((1 << db) - 1)
-    table = table.view(n_pad // rpb, rpb * w_pad)
-    pid_order = torch.cat([spid, torch.full((n_pad - n_rows,),
-                                            2 * n + dup_cap, dtype=_I,
-                                            device=dev)]).to(torch.int32)
-  else:
-    skey = torch.sort(key_all).values
-    table = torch.zeros((1, rpb * w_pad), dtype=gaussians.dtype, device=dev)
-    pid_order = torch.zeros((0,), dtype=torch.int32, device=dev)
+    with trace.span("map.sort"):
+      pid = iota(n)
+      w_row = 7 + f_size + 1
+      rpb, w_pad = rows_per_block_for(w_row)
+      assert slab_cap % rpb == 0 and strip_cap % rpb == 0
+      n_rows = n + dup_cap
+      if dup_cap > 0:
+        key_all = torch.cat([key, key_dup])
+        pid_all = torch.cat([pid, pid_dup])
+      else:
+        key_all, pid_all = key, pid
+      if build_table:
+        # stable on (key, pid): distinct combined keys, one sort
+        perm = torch.sort((key_all << 30) | pid_all).indices
+        skey = key_all[perm]
+        spid = pid_all[perm]
+        src_all = pid
+        if dup_cap > 0:
+          src_all = torch.cat([pid, dup_src])
+        gf = torch.cat([gaussians, features.to(gaussians.dtype)], 1)
+        gf_ext = torch.cat([gf, torch.zeros_like(gf[:1])], 0)
+        n_pad = ((n_rows + strip_cap - 1) // strip_cap + 2) * strip_cap
+        table = torch.zeros((n_pad, w_pad), dtype=gaussians.dtype, device=dev)
+        table[:n_rows, :7 + f_size] = gf_ext[torch.clamp(src_all[perm], max=n)]
+        # the depth rank rides the float table by value (exact below 2^24)
+        table[:n_rows, 7 + f_size] = (skey & ((1 << db) - 1)).to(table.dtype)
+        table[n_rows:, 7 + f_size] = float((1 << db) - 1)
+        table = table.view(n_pad // rpb, rpb * w_pad)
+        pid_order = torch.cat([spid, torch.full((n_pad - n_rows,),
+                                                2 * n + dup_cap, dtype=_I,
+                                                device=dev)]).to(torch.int32)
+      else:
+        skey = torch.sort(key_all).values
+        table = torch.zeros((1, rpb * w_pad), dtype=gaussians.dtype, device=dev)
+        pid_order = torch.zeros((0,), dtype=torch.int32, device=dev)
 
-  # ---- class/cell edge table ------------------------------------------
-  # edges by counting: flat cell id of every sorted row, histogram, cumsum;
-  # depth cells split at equal quantiles of the valid d14 distribution
-  s_edges = num_slabs
-  k_tot = num_tiles * 16 * s_edges
-  d14_r = skey & ((1 << db) - 1)
-  hc_r = skey >> db
-  if s_edges > 1:
-    dv = _depth16(depth) >> (16 - db)
-    dq = torch.sort(torch.where(valid, dv, 0xFFFF)).values
-    n_valid = valid.sum()
-    qpos = (torch.arange(1, s_edges, dtype=_I, device=dev) * n_valid
-            ) // s_edges
-    thr = torch.clamp(dq[qpos] + 1, max=(1 << db) - 1)
-    cell_r = torch.searchsorted(thr, d14_r, right=True)  # thresholds <= d14
-  else:
-    cell_r = torch.zeros_like(d14_r)
-  f_cell = hc_r * s_edges + cell_r
-  f_cell = f_cell[hc_r < num_tiles * 16]
-  cnt = torch.bincount(f_cell, minlength=k_tot)
-  edges_all = torch.cat([zero[None], torch.cumsum(cnt, 0)])
+    with trace.span("map.edges"):
+      # ---- class/cell edge table ------------------------------------------
+      # edges by counting: flat cell id of every sorted row, histogram, cumsum;
+      # depth cells split at equal quantiles of the valid d14 distribution
+      s_edges = num_slabs
+      k_tot = num_tiles * 16 * s_edges
+      d14_r = skey & ((1 << db) - 1)
+      hc_r = skey >> db
+      if s_edges > 1:
+        dv = _depth16(depth) >> (16 - db)
+        dq = torch.sort(torch.where(valid, dv, 0xFFFF)).values
+        n_valid = valid.sum()
+        qpos = (torch.arange(1, s_edges, dtype=_I, device=dev) * n_valid
+                ) // s_edges
+        thr = torch.clamp(dq[qpos] + 1, max=(1 << db) - 1)
+        cell_r = torch.searchsorted(thr, d14_r, right=True)  # thresholds <= d14
+      else:
+        cell_r = torch.zeros_like(d14_r)
+      f_cell = hc_r * s_edges + cell_r
+      f_cell = f_cell[hc_r < num_tiles * 16]
+      cnt = torch.bincount(f_cell, minlength=k_tot)
+      edges_all = torch.cat([zero[None], torch.cumsum(cnt, 0)])
 
-  # ---- per-group strip blocks + local edges ---------------------------
-  gw = group_width
-  groups_x = tw // gw
-  n_groups = th * groups_x
-  gy = iota(n_groups) // groups_x
-  gx = (iota(n_groups) % groups_x) * gw
-  tbl_homes = gw + 2
-  band = gy[:, None] + iota(3)[None, :] - 1                 # (G, 3)
-  band_ok = (band >= 0) & (band < th)
-  h0 = band * tw + torch.clamp(gx[:, None] - 1, min=0)
-  e_idx0 = torch.where(band_ok, h0 * (16 * s_edges), 0)
-  start_row = edges_all[e_idx0]
-  strip_blk = torch.where(band_ok, start_row // strip_cap, 0)
+    with trace.span("map.strips"):
+      # ---- per-group strip blocks + local edges ---------------------------
+      gw = group_width
+      groups_x = tw // gw
+      n_groups = th * groups_x
+      gy = iota(n_groups) // groups_x
+      gx = (iota(n_groups) % groups_x) * gw
+      tbl_homes = gw + 2
+      band = gy[:, None] + iota(3)[None, :] - 1                 # (G, 3)
+      band_ok = (band >= 0) & (band < th)
+      h0 = band * tw + torch.clamp(gx[:, None] - 1, min=0)
+      e_idx0 = torch.where(band_ok, h0 * (16 * s_edges), 0)
+      start_row = edges_all[e_idx0]
+      strip_blk = torch.where(band_ok, start_row // strip_cap, 0)
 
-  per_home = 16 * s_edges
-  hh = gx[:, None, None] - 1 + iota(tbl_homes + 1)[None, None, :]
-  hid = band[:, :, None] * tw + torch.clamp(hh, 0, tw)      # (G, 3, H+1)
-  hidc = torch.clamp(hid, 0, num_tiles)
-  edges_grid = torch.cat(
-      [edges_all[:k_tot].view(num_tiles, per_home),
-       edges_all[k_tot].expand(1, per_home)], 0)
-  evals = torch.cat(
-      [edges_grid[hidc[:, :, :tbl_homes]].reshape(
-          n_groups, 3, tbl_homes * per_home),
-       edges_grid[hidc[:, :, -1], 0][:, :, None]], -1)
-  local = evals - (strip_blk * strip_cap)[:, :, None]
-  local = torch.clamp(torch.where(band_ok[:, :, None], local, 0),
-                      0, 2 * strip_cap)
-  strip_over = torch.clamp(
-      (evals[:, :, -1] - evals[:, :, 0]) - 2 * strip_cap, min=0)
-  del evals
+      per_home = 16 * s_edges
+      hh = gx[:, None, None] - 1 + iota(tbl_homes + 1)[None, None, :]
+      hid = band[:, :, None] * tw + torch.clamp(hh, 0, tw)      # (G, 3, H+1)
+      hidc = torch.clamp(hid, 0, num_tiles)
+      edges_grid = torch.cat(
+          [edges_all[:k_tot].view(num_tiles, per_home),
+           edges_all[k_tot].expand(1, per_home)], 0)
+      evals = torch.cat(
+          [edges_grid[hidc[:, :, :tbl_homes]].reshape(
+              n_groups, 3, tbl_homes * per_home),
+           edges_grid[hidc[:, :, -1], 0][:, :, None]], -1)
+      local = evals - (strip_blk * strip_cap)[:, :, None]
+      local = torch.clamp(torch.where(band_ok[:, :, None], local, 0),
+                          0, 2 * strip_cap)
+      strip_over = torch.clamp(
+          (evals[:, :, -1] - evals[:, :, 0]) - 2 * strip_cap, min=0)
+      del evals
 
-  # group chunks bound the (Gc, gw, 64, S+1) intermediates
-  gchunk = max(1, (1 << 22) // (gw * len(_WLIST) * (s_edges + 1)))
-  descs, overs = [], []
-  for g0 in range(0, n_groups, gchunk):
-    d, o = _desc_pipeline(
-        local[g0:g0 + gchunk], gx[g0:g0 + gchunk], gw=gw, tw=tw,
-        s_edges=s_edges, per_home=per_home, slab_cap=slab_cap,
-        w_max=w_max, run_cap=run_cap, rpb=rpb, strip_cap=strip_cap)
-    descs.append(d)
-    overs.append(o)
-  desc = torch.cat(descs, 0)
-  run_over, chunk_over, win_over, slab_over = torch.stack(overs).sum(0)
-  overflow = torch.stack([num_far, strip_over.sum(), slab_over + chunk_over,
-                          run_over, win_over])
+    with trace.span("map.descriptors"):
+      # group chunks bound the (Gc, gw, 64, S+1) intermediates
+      gchunk = max(1, (1 << 22) // (gw * len(_WLIST) * (s_edges + 1)))
+      descs, overs = [], []
+      for g0 in range(0, n_groups, gchunk):
+        d, o = _desc_pipeline(
+            local[g0:g0 + gchunk], gx[g0:g0 + gchunk], gw=gw, tw=tw,
+            s_edges=s_edges, per_home=per_home, slab_cap=slab_cap,
+            w_max=w_max, run_cap=run_cap, rpb=rpb, strip_cap=strip_cap)
+        descs.append(d)
+        overs.append(o)
+      desc = torch.cat(descs, 0)
+      run_over, chunk_over, win_over, slab_over = torch.stack(overs).sum(0)
+      overflow = torch.stack([num_far, strip_over.sum(), slab_over + chunk_over,
+                              run_over, win_over])
 
-  # ---- map-time gradient gather indices --------------------------------
-  run_starts = edges_all[0::16 * s_edges]
-  zero_i = torch.zeros((0,), dtype=torch.int32, device=dev)
-  if build_table:
-    r_rows = num_tiles * run_cap
-    home_j = skey >> (db + 4)
-    # offset in its home's run (sentinel rows are masked below)
-    row_off = iota(n_rows) - run_starts[torch.clamp(home_j, max=num_tiles)]
-    ok_row = (skey != SENTINEL) & (row_off < run_cap) & (home_j < num_tiles)
-    gout_row = torch.where(
-        ok_row, torch.clamp(home_j, 0, num_tiles - 1) * run_cap + row_off,
-        r_rows)
-    # invert the pid permutation; the duplicates of one splat share the
-    # pid src + n, so the sort is stable (they stay in table order)
-    order2 = torch.sort(spid, stable=True).indices
-    s2k, s2v = spid[order2], gout_row[order2]
-    grad_src = s2v[:n].to(torch.int32)
-    if dup_cap > 0:
-      dup_ok_t = s2k[n:] < 2 * n
-      dup_pid = torch.where(dup_ok_t, s2k[n:] - n, n).to(torch.int32)
-      dup_src = torch.where(dup_ok_t, s2v[n:], r_rows).to(torch.int32)
-    else:
-      dup_src = dup_pid = zero_i
-  else:
-    grad_src = dup_src = dup_pid = zero_i
+    with trace.span("map.grad_gather"):
+      # ---- map-time gradient gather indices --------------------------------
+      run_starts = edges_all[0::16 * s_edges]
+      zero_i = torch.zeros((0,), dtype=torch.int32, device=dev)
+      if build_table:
+        r_rows = num_tiles * run_cap
+        home_j = skey >> (db + 4)
+        # offset in its home's run (sentinel rows are masked below)
+        row_off = iota(n_rows) - run_starts[torch.clamp(home_j, max=num_tiles)]
+        ok_row = (skey != SENTINEL) & (row_off < run_cap) & (home_j < num_tiles)
+        gout_row = torch.where(
+            ok_row, torch.clamp(home_j, 0, num_tiles - 1) * run_cap + row_off,
+            r_rows)
+        # invert the pid permutation; the duplicates of one splat share the
+        # pid src + n, so the sort is stable (they stay in table order)
+        order2 = torch.sort(spid, stable=True).indices
+        s2k, s2v = spid[order2], gout_row[order2]
+        grad_src = s2v[:n].to(torch.int32)
+        if dup_cap > 0:
+          dup_ok_t = s2k[n:] < 2 * n
+          dup_pid = torch.where(dup_ok_t, s2k[n:] - n, n).to(torch.int32)
+          dup_src = torch.where(dup_ok_t, s2v[n:], r_rows).to(torch.int32)
+        else:
+          dup_src = dup_pid = zero_i
+      else:
+        grad_src = dup_src = dup_pid = zero_i
 
-  overflow = overflow.to(torch.int32)
-  return StreamMapping(
-      table=table,
-      pid_order=pid_order,
-      desc=desc.to(torch.int32),
-      strip_blk=strip_blk.to(torch.int32),
-      run_starts=run_starts.to(torch.int32),
-      num_overflow=overflow.sum(dtype=torch.int32),
-      overflow=overflow,
-      grad_src=grad_src,
-      dup_src=dup_src,
-      dup_pid=dup_pid,
-      num_points=n,
-      num_tiles=num_tiles,
-      tiles_wide=tw,
-      tiles_high=th,
-      feature_size=f_size,
-      group_width=gw,
-      num_slabs=s_edges,
-      strip_cap=strip_cap,
-      slab_cap=slab_cap,
-      w_max=w_max,
-      run_cap=run_cap,
-      dup_cap=dup_cap,
-      depth_bits=db,
-      rows_per_block=rpb,
-  )
+    overflow = overflow.to(torch.int32)
+    return StreamMapping(
+        table=table,
+        pid_order=pid_order,
+        desc=desc.to(torch.int32),
+        strip_blk=strip_blk.to(torch.int32),
+        run_starts=run_starts.to(torch.int32),
+        num_overflow=overflow.sum(dtype=torch.int32),
+        overflow=overflow,
+        grad_src=grad_src,
+        dup_src=dup_src,
+        dup_pid=dup_pid,
+        num_points=n,
+        num_tiles=num_tiles,
+        tiles_wide=tw,
+        tiles_high=th,
+        feature_size=f_size,
+        group_width=gw,
+        num_slabs=s_edges,
+        strip_cap=strip_cap,
+        slab_cap=slab_cap,
+        w_max=w_max,
+        run_cap=run_cap,
+        dup_cap=dup_cap,
+        depth_bits=db,
+        rows_per_block=rpb,
+    )
 
 
 def wide_stats(gaussians, depth, image_size, config: RasterConfig):

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..data_types import RasterConfig
 from ..mapper.tile_mapper import tile_shape
 from .stream import StreamMapping, stream_map
@@ -161,7 +162,8 @@ class _StreamRaster(torch.autograd.Function):
     (image_tiled,) = ctx.saved_tensors
     mapping, config = ctx.mapping, ctx.config
     f = mapping.feature_size
-    g = backward_reduce(mapping, image_tiled, g_image_tiled, config)
+    with trace.span("backward.raster"):
+      g = backward_reduce(mapping, image_tiled, g_image_tiled, config)
     return g[:, :7], g[:, 7:7 + f], g[:, 7 + f:], None, None
 
 

@@ -59,6 +59,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..data_types import RasterConfig
 from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
                                  check_smem, declare_plan_entries,
@@ -812,31 +813,33 @@ def stream_forward(mapping: StreamMapping, config: RasterConfig,
 
   CPU mapping -> ``stream_forward_reference``; CUDA mapping -> the
   ``csrc/stream_forward.cu`` kernel, or an exception."""
-  mode = _ablation(ablate, FWD_ABLATIONS, "stream_forward")
-  if mode or with_counts:
-    _check_profile("stream_forward", band0, False, stream_forward_plan(
-        mapping.feature_size, mapping.slab_cap, mapping.w_max,
-        config.tile_area).max_features, FLOOR_WIDTH)
-  if mapping.table.device.type == "cpu":
-    return stream_forward_reference(mapping, config, band0, mode,
-                                    with_counts)
-  if not mode and not with_counts:
-    out = _launch_forward(mapping, config, True, "stream_forward", band0)
-    launch_counts["stream_forward"] += 1
+  with trace.span("k1"):
+    mode = _ablation(ablate, FWD_ABLATIONS, "stream_forward")
+    if mode or with_counts:
+      _check_profile("stream_forward", band0, False, stream_forward_plan(
+          mapping.feature_size, mapping.slab_cap, mapping.w_max,
+          config.tile_area).max_features, FLOOR_WIDTH)
+    if mapping.table.device.type == "cpu":
+      return stream_forward_reference(mapping, config, band0, mode,
+                                      with_counts)
+    if not mode and not with_counts:
+      out = _launch_forward(mapping, config, True, "stream_forward", band0)
+      launch_counts["stream_forward"] += 1
+      return out
+    if mode == "skeleton" and not config.use_alpha_blending:
+      raise ValueError("stream_forward floor: blending mode only")
+    counts = (torch.zeros((mapping.num_groups, 3), dtype=torch.int32,
+                          device=mapping.table.device)
+              if with_counts else None)
+    out = _launch_forward(mapping, config, mode != "skeleton",
+                          f"stream_forward ablate={mode!r}", band0,
+                          FWD_ABLATIONS[mode], counts)
+    if mode:
+      probe_launch_counts[f"stream_forward_{mode}"] += 1
+    if with_counts:
+      probe_launch_counts["stream_forward_counts"] += 1
+      return out, counts_block(counts)
     return out
-  if mode == "skeleton" and not config.use_alpha_blending:
-    raise ValueError("stream_forward floor: blending mode only")
-  counts = (torch.zeros((mapping.num_groups, 3), dtype=torch.int32,
-                        device=mapping.table.device) if with_counts else None)
-  out = _launch_forward(mapping, config, mode != "skeleton",
-                        f"stream_forward ablate={mode!r}", band0,
-                        FWD_ABLATIONS[mode], counts)
-  if mode:
-    probe_launch_counts[f"stream_forward_{mode}"] += 1
-  if with_counts:
-    probe_launch_counts["stream_forward_counts"] += 1
-    return out, counts_block(counts)
-  return out
 
 
 def _check_profile(name: str, band0: int, halo: bool, width: int,

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from . import trace
 from .data_types import Gaussians3D, RasterConfig
 from .mapper.tile_mapper import map_to_tiles
 from .perspective.params import CameraParams
@@ -48,11 +49,13 @@ def render_gaussians(
   ``use_depth16`` and ``max_overlaps`` only concern the sorted pipeline)."""
   gaussians2d, depths, in_view = project_to_image(
       gaussians, camera_params, config)
+  trace.grad_span(gaussians2d, "backward.project")
 
   if use_sh:
     features = evaluate_sh_at(
         gaussians.feature, gaussians.position.detach(),
         camera_params.camera_position)
+    trace.grad_span(features, "backward.sh")
   else:
     features = gaussians.feature
     assert features.dim() == 2, (
@@ -229,7 +232,8 @@ def render_with_heuristics(loss_fn, gaussians: Gaussians3D,
     rendering = render_gaussians(Gaussians3D(*leaves), camera_params, config,
                                  **kw, **render_kwargs)
     loss = loss_fn(rendering)
-    grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
+    with trace.span("backward"):
+      grads = torch.autograd.grad(loss, leaves + [probe], allow_unused=True)
   grads = [torch.zeros_like(x) if g is None else g
            for x, g in zip(leaves + [probe], grads)]
   gpr = grads[-1]

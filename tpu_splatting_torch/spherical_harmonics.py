@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from . import trace
 from .lib import transforms
 from .lib.sh import check_sh_degree, rsh_cart
 
@@ -25,11 +26,12 @@ def evaluate_sh_at(
   offset by +0.5 and clamped to [0, 1]."""
   degree = check_sh_degree(sh_params)
 
-  if indexes is not None:
-    sh_params = sh_params[indexes]
-    positions = positions[indexes]
+  with trace.span("sh"):
+    if indexes is not None:
+      sh_params = sh_params[indexes]
+      positions = positions[indexes]
 
-  direction = transforms.normalize(positions - camera_pos)
-  basis = rsh_cart(direction, degree)              # (N, B)
-  out = torch.einsum("nkb,nb->nk", sh_params, basis)
-  return torch.clamp(out + 0.5, 0.0, 1.0)
+    direction = transforms.normalize(positions - camera_pos)
+    basis = rsh_cart(direction, degree)              # (N, B)
+    out = torch.einsum("nkb,nb->nk", sh_params, basis)
+    return torch.clamp(out + 0.5, 0.0, 1.0)
