@@ -585,6 +585,7 @@ def backward_vs_twin(mapping, config, label, reps=3):
 SOURCES = {"K1": "stream_forward.cu", "K2": "stream_backward.cu",
            "K4": "sorted_forward.cu", "K5": "sorted_backward.cu",
            "K6, K7, row_gather": "layout.cu",
+           "map descriptors": "stream_map.cu",
            "T1-T4 (exp_mosaic probes)": "exp_mosaic.cu",
            "U1-U2, T1, F1 (exp_pack probes)": "exp_pack.cu",
            "V_a-V_p, T2 (exp_pack2 probes)": "exp_pack2.cu"}
@@ -2115,7 +2116,7 @@ def phase_sharded(dev, g3d, cams, cfg_caps, shard_checks, phase2_out):
       f"{base_mem / 2 ** 30:.3f} GiB held")
   assert counts == {"stream_forward": 2 * N_SHARDS,
                     "stream_backward": N_SHARDS,
-                    "halo_merge": N_SHARDS}, counts
+                    "halo_merge": N_SHARDS, "stream_descriptors": 0}, counts
   assert torch.equal(img_fwd, full), "sharded forward image differs"
   assert torch.equal(img_sh, full), "sharded grad's image differs"
   tol_col = 1e-4 * want.abs().amax(0) + 1e-6

@@ -13,6 +13,7 @@ import torch
 
 from tpu_splatting_torch import RasterConfig, calibrate_stream, stream_map
 from tpu_splatting_torch.parallel.mesh import make_mesh
+from tpu_splatting_torch.rasterizer import stream as st
 from tpu_splatting_torch.rasterizer import stream_kernels as sk
 from tpu_splatting_torch.scenes import uniform_scene
 
@@ -230,9 +231,208 @@ def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
                                          probe=probe)
   (img.square().sum() + w.sum()).backward()
   assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1,
-                              "halo_merge": 0}
+                              "halo_merge": 0, "stream_descriptors": 0}
   assert float(probe.grad[:, 0].max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
+
+
+def test_cuda_maps_never_take_the_descriptor_twin(cuda, monkeypatch):
+  """A render and a 2D training step on the card build their mappings'
+  descriptors with the kernel: the plain pipeline raises if a CUDA tensor
+  reaches it."""
+  from tpu_splatting_torch.parallel.dryrun import _synthetic_scene
+  from tpu_splatting_torch.rasterizer.stream_function import (
+      stream_rasterize_with_mapping)
+  from tpu_splatting_torch.renderer import render_gaussians
+  pipeline = st._desc_pipeline
+
+  def refuse_cuda(local_c, gx_c, **kw):
+    if local_c.is_cuda:
+      raise AssertionError("a CUDA tensor reached the descriptor twin")
+    return pipeline(local_c, gx_c, **kw)
+  monkeypatch.setattr(st, "_desc_pipeline", refuse_cuda)
+  g, camera = _synthetic_scene(2000, (128, 96), seed=4, device=cuda)
+  sk.reset_launch_counts()
+  out = render_gaussians(g, camera, RasterConfig())
+  assert float(out.image.abs().max()) > 0.0
+  assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 0,
+                              "halo_merge": 0, "stream_descriptors": 1}
+  config = RasterConfig(compute_point_heuristic=True,
+                        compute_visibility=True)
+  packed, depth, feats = (
+      torch.from_numpy(x).to(cuda)
+      for x in uniform_scene(np.random.default_rng(0), 4000, (128, 96)))
+  cal = calibrate_stream(packed, depth, feats, (128, 96), config,
+                         group_width=8)
+  caps = {k: cal[k] for k in MAP_KEYS}
+  g2d = packed.clone().requires_grad_(True)
+  feats = feats.clone().requires_grad_(True)
+  sk.reset_launch_counts()
+  m = stream_map(packed, depth, feats.detach(), (128, 96), config,
+                 group_width=8, **caps)
+  assert int(m.num_overflow) == 0
+  img, w = stream_rasterize_with_mapping(g2d, feats, m, (128, 96), config)
+  (img.square().sum() + w.sum()).backward()
+  assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1,
+                              "halo_merge": 0, "stream_descriptors": 1}
+  assert bool(torch.isfinite(g2d.grad).all())
+
+
+# --- the mapper's window descriptors (csrc/stream_map.cu) ------------------
+
+MAP_KEYS = ("num_slabs", "strip_cap", "slab_cap", "w_max", "run_cap",
+            "wide_cap", "dup_cap")
+
+
+def recorded_descriptor_calls(monkeypatch):
+  """The (edges_all, strip_blk, kw, (desc, over)) of each
+  ``stream_descriptors`` call that ``stream_map`` makes from now on."""
+  calls = []
+  wrapper = sk.stream_descriptors
+
+  def record(edges_all, strip_blk, **kw):
+    out = wrapper(edges_all, strip_blk, **kw)
+    calls.append((edges_all, strip_blk, kw, out))
+    return out
+  monkeypatch.setattr(sk, "stream_descriptors", record)
+  return calls
+
+
+def check_descriptors(calls):
+  """Each recorded kernel call bit for bit its twin on the same inputs."""
+  assert calls
+  for edges_all, strip_blk, kw, (desc, over) in calls:
+    assert desc.is_cuda and desc.dtype == torch.int32
+    want_desc, want_over = st.stream_descriptors_reference(
+        edges_all, strip_blk, **kw)
+    assert torch.equal(desc, want_desc), kw
+    assert torch.equal(over, want_over), (over.tolist(), want_over.tolist())
+
+
+def assert_same_mapping(a, b):
+  """Every field of two stream mappings equal (tensors compared on the
+  CPU, exactly)."""
+  for f in dataclasses.fields(a):
+    x, y = getattr(a, f.name), getattr(b, f.name)
+    if isinstance(x, torch.Tensor):
+      assert x.dtype == y.dtype and x.shape == y.shape, f.name
+      assert torch.equal(x.cpu(), y.cpu()), f.name
+    else:
+      assert x == y, f.name
+
+
+def descriptors_on_card_and_cpu(monkeypatch, scene, size, config, caps):
+  """Map ``scene`` on the card (one descriptor launch, held to the twin)
+  and on the CPU, assert every field equal; the card's mapping."""
+  packed, depth, feats = scene
+  calls = recorded_descriptor_calls(monkeypatch)
+  sk.reset_launch_counts()
+  m = stream_map(packed, depth, feats, size, config, **caps)
+  assert sk.launch_counts["stream_descriptors"] == 1 and len(calls) == 1
+  check_descriptors(calls)
+  m_cpu = stream_map(*(x.cpu() for x in scene), size, config, **caps)
+  assert_same_mapping(m, m_cpu)
+  assert int((m.desc.view(-1, 4)[:, 1] > 0).sum()) > 0
+  return m
+
+
+def heavy_case(dev, n=60_000, size=(256, 192), gw=8):
+  """A heavy scene on ``dev``, calibrated (32 slabs): (scene, config,
+  caps)."""
+  from tpu_splatting_torch.scenes import heavy_scene
+  scene = tuple(torch.from_numpy(x).to(dev) for x in heavy_scene(
+      np.random.default_rng(3), n, size))
+  cal = calibrate_stream(*scene, size, RasterConfig(), group_width=gw)
+  config = RasterConfig(big_tile_window=cal["big_tile_window"])
+  return scene, config, {**{k: cal[k] for k in MAP_KEYS}, "group_width": gw}
+
+
+# case: (change to the calibrated capacities, the overflow cause it
+# provokes: OVERFLOW_CAUSES' index, or None: no row dropped)
+DESC_CASES = {
+    "calibrated": ({}, None),
+    "pass1": (dict(num_slabs=4, strip_cap=1 << 27, slab_cap=1 << 27,
+                   run_cap=1 << 27, w_max=72, build_table=False), None),
+    "window_overflow": (dict(w_max=3), 4),
+    "run_overflow": (dict(run_cap=16), 3),
+    "slab_cap8": (dict(slab_cap=8), 2),
+    "one_slab": (dict(num_slabs=1), None),
+    "gw2": (dict(group_width=2), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESC_CASES))
+def test_descriptor_kernel_matches_twin(cuda, monkeypatch, case):
+  """The kernel bit for bit the twin, and ``stream_map`` on the card
+  equal to it on the CPU in every field, at a heavy scene's calibrated
+  capacities and at capacities that make each clamp drop rows."""
+  scene, config, caps = heavy_case(cuda)
+  change, cause = DESC_CASES[case]
+  m = descriptors_on_card_and_cpu(monkeypatch, scene, (256, 192), config,
+                                  {**caps, **change})
+  if cause is None:
+    assert int(m.num_overflow) == 0, m.overflow.tolist()
+  else:
+    assert int(m.overflow[cause]) > 0, m.overflow.tolist()
+
+
+def test_descriptor_kernel_wider_than_a_block(cuda, monkeypatch):
+  """A group of 40 tiles: 8 warps, each taking five tiles."""
+  size = (640, 64)
+  scene = tuple(torch.from_numpy(x).to(cuda) for x in uniform_scene(
+      np.random.default_rng(2), 6000, size))
+  descriptors_on_card_and_cpu(monkeypatch, scene, size, RasterConfig(), dict(
+      group_width=40, num_slabs=2, strip_cap=8192, slab_cap=512, w_max=40,
+      run_cap=256, wide_cap=8192, dup_cap=1 << 17))
+
+
+@pytest.mark.parametrize("name", ["uniform", "heavy"])
+def test_descriptor_kernel_at_2m(cuda, monkeypatch, tmp_path, name):
+  """The bench's 2M-splat scenes at 2048x1536 at their calibrated
+  capacities (heavy: 32 slabs): kernel and twin bit for bit, the card's
+  mapping equal to the CPU's."""
+  from tpu_splatting_torch import bench
+  monkeypatch.setattr(bench, "CAL_PATH", str(tmp_path / "cal.json"))
+  scene = bench.to_device(cuda, *bench.scene_arrays(name))
+  cal = bench.calibrate_scene(name, *scene, bench.IMAGE_SIZE, 8)
+  config = dataclasses.replace(bench._trainer_config(8),
+                               big_tile_window=cal["big_tile_window"])
+  m = descriptors_on_card_and_cpu(
+      monkeypatch, scene, bench.IMAGE_SIZE, config,
+      {**{k: cal[k] for k in MAP_KEYS}, "group_width": 8})
+  assert int(m.num_overflow) == 0
+
+
+def test_calibrate_stream_same_with_kernel_and_twin(cuda, monkeypatch):
+  """``calibrate_stream`` on a heavy scene returns the same dict when
+  its mappings' descriptors come from the twin."""
+  from tpu_splatting_torch.scenes import heavy_scene
+  size = (256, 192)
+  scene = tuple(torch.from_numpy(x).to(cuda) for x in heavy_scene(
+      np.random.default_rng(4), 60_000, size))
+  sk.reset_launch_counts()
+  cal = calibrate_stream(*scene, size, RasterConfig(), group_width=8)
+  assert sk.launch_counts["stream_descriptors"] >= 3
+  assert sum(cal["overflow"]) == 0
+  monkeypatch.setattr(sk, "stream_descriptors",
+                      lambda e, b, **kw: st.stream_descriptors_reference(
+                          e, b, **kw))
+  assert calibrate_stream(*scene, size, RasterConfig(), group_width=8) == cal
+
+
+def test_descriptor_plan_matches_the_kernel(cuda):
+  """The plan's shared memory equals the C entry's; the heavy shapes'
+  occupancy."""
+  from tpu_splatting_torch.utils.cuda_build import occupancy
+  lib = sk._map_kernel()
+  for gw in (1, 2, 8, 16, 40):
+    for s in (1, 2, 32):
+      for w_max in (1, 57, 72):
+        assert lib.tpu_splat_stream_descriptors_smem(gw, s, w_max) == (
+            sk.stream_descriptors_plan(gw, s, w_max).smem)
+  occ = occupancy(lib, "tpu_splat_stream_descriptors",
+                  sk.stream_descriptors_plan(8, 32, 57))
+  assert occ["blocks_per_sm"] == 3, occ
 
 
 # --- the sorted-overlap pipeline: K4, K5, K6, K7 ---------------------------
@@ -872,7 +1072,7 @@ def test_band_sharded_path_on_card(cuda):
   img, got = band_sharded_grad(m, gimg, config, mesh)
   torch.cuda.synchronize()
   assert sk.launch_counts == {"stream_forward": 4, "stream_backward": 4,
-                              "halo_merge": 4}
+                              "halo_merge": 4, "stream_descriptors": 0}
   assert torch.equal(img, full)
   assert float(want.abs().max()) > 0.1
   columns_close(got, want)

@@ -170,5 +170,5 @@ def test_cpu_tensors_take_the_twins_at_any_shape():
                         tm.chunk_to_tile, config, tm.num_tiles, tm.tiles_wide)
   assert img_s.shape == (tm.num_tiles + 1, 101, 16)
   assert sk.launch_counts == {"stream_forward": 0, "stream_backward": 0,
-                              "halo_merge": 0}
+                              "halo_merge": 0, "stream_descriptors": 0}
   assert kk.launch_counts == {"sorted_forward": 0, "sorted_backward": 0}

@@ -143,3 +143,34 @@ def test_stream_map_constants():
     assert tstream.rows_per_block_for(w) == jstream.rows_per_block_for(w)
   for t in (1, 16383, 16384, 49152):
     assert tstream.depth_bits_for(t) == jstream.depth_bits_for(t)
+
+
+UNBOUNDED = dict(strip_cap=1 << 27, slab_cap=1 << 27, run_cap=1 << 27,
+                 build_table=False)
+
+
+@pytest.mark.parametrize("case", ["unbounded_slab", "unbounded_long_runs",
+                                  "window_overflow", "run_overflow",
+                                  "one_slab_window_overflow"])
+def test_stream_map_descriptor_edges(case):
+  """The descriptor pipeline's edges that the card's kernel is held to:
+  calibration's unbounded pass (slab_cap > 2048: one piece a window, a
+  run longer than a piece counted as window overflow), windows past
+  w_max, runs past run_cap, and one slab."""
+  if case == "unbounded_long_runs":
+    packed, depths, feats = deep_tile_scene()
+    mj, mt = both(packed, depths, feats, (16, 8), num_slabs=1, w_max=8,
+                  group_width=2, **UNBOUNDED)
+  else:
+    packed, depths, feats = make_scene(0, 80, (32, 24))
+    kw = {"unbounded_slab": dict(UNBOUNDED, num_slabs=4, w_max=72),
+          "window_overflow": dict(TIGHT, w_max=2),
+          "run_overflow": dict(TIGHT, run_cap=4),
+          "one_slab_window_overflow": dict(TIGHT, num_slabs=1, w_max=3),
+          }[case]
+    mj, mt = both(packed, depths, feats, (32, 24), group_width=2, **kw)
+  cause = {"unbounded_long_runs": 4, "window_overflow": 4, "run_overflow": 3,
+           "one_slab_window_overflow": 4}.get(case)
+  if cause is not None:
+    assert int(mt.overflow[cause]) > 0
+  pc.assert_mappings_equal(mj, mt)

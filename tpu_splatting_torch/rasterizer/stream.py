@@ -13,9 +13,13 @@ not what:
 * ``searchsorted`` does the descriptor compaction;
 * gathers and scatters mask out-of-range indices explicitly where the
   reference relies on JAX's clamping or ``mode="drop"``;
-* the per-group descriptor pipeline loops over group chunks in Python.
+* on the card the window descriptors are one hand-written kernel,
+  ``csrc/stream_map.cu`` (``stream_kernels.stream_descriptors``); on the
+  CPU its plain twin, ``stream_descriptors_reference``, builds each
+  group's band-local edge slices and runs the reference's descriptor
+  pipeline (``_desc_pipeline``) over group chunks in Python.
 
-Everything here is plain torch and runs on the inputs' device.
+Everything else here is plain torch and runs on the inputs' device.
 """
 
 from __future__ import annotations
@@ -270,6 +274,63 @@ def _desc_pipeline(local_c, gx_c, *, gw, tw, s_edges, per_home, slab_cap,
   return desc, torch.stack([run_over, chunk_over, win_over, slab_over])
 
 
+def stream_descriptors_reference(edges_all, strip_blk, *, tiles_wide,
+                                 tiles_high, group_width, num_slabs,
+                                 strip_cap, slab_cap, w_max, run_cap,
+                                 rows_per_block):
+  """Plain twin of ``stream_kernels.stream_descriptors``: the window
+  descriptors of every tile group from the cell-edge table ``edges_all``
+  (tiles * 16 * S + 1 int64) and the groups' strip blocks ``strip_blk``
+  ((G, 3) int64).  Each group's band-local edges (homes x0-1 .. x0+gw of
+  its three band strips, relative to the strip's block and clamped to
+  [0, 2 * strip_cap]), then ``_desc_pipeline`` over group chunks.
+  Returns (desc int32 (G, 1, gw*S*w_max*4), int64 [run, chunk, window,
+  slab] overflow)."""
+  dev = edges_all.device
+  tw, th, gw, s_edges = tiles_wide, tiles_high, group_width, num_slabs
+  num_tiles = tw * th
+  groups_x = tw // gw
+  n_groups = th * groups_x
+
+  def iota(m):
+    return torch.arange(m, dtype=_I, device=dev)
+
+  gy = iota(n_groups) // groups_x
+  gx = (iota(n_groups) % groups_x) * gw
+  tbl_homes = gw + 2
+  band = gy[:, None] + iota(3)[None, :] - 1                     # (G, 3)
+  band_ok = (band >= 0) & (band < th)
+  per_home = 16 * s_edges
+  k_tot = num_tiles * per_home
+  hh = gx[:, None, None] - 1 + iota(tbl_homes + 1)[None, None, :]
+  hid = band[:, :, None] * tw + torch.clamp(hh, 0, tw)          # (G, 3, H+1)
+  hidc = torch.clamp(hid, 0, num_tiles)
+  edges_grid = torch.cat(
+      [edges_all[:k_tot].view(num_tiles, per_home),
+       edges_all[k_tot].expand(1, per_home)], 0)
+  evals = torch.cat(
+      [edges_grid[hidc[:, :, :tbl_homes]].reshape(
+          n_groups, 3, tbl_homes * per_home),
+       edges_grid[hidc[:, :, -1], 0][:, :, None]], -1)
+  local = evals - (strip_blk * strip_cap)[:, :, None]
+  local = torch.clamp(torch.where(band_ok[:, :, None], local, 0),
+                      0, 2 * strip_cap)
+  del evals
+
+  # group chunks bound the (Gc, gw, 64, S+1) intermediates
+  gchunk = max(1, (1 << 22) // (gw * len(_WLIST) * (s_edges + 1)))
+  descs, overs = [], []
+  for g0 in range(0, n_groups, gchunk):
+    d, o = _desc_pipeline(
+        local[g0:g0 + gchunk], gx[g0:g0 + gchunk], gw=gw, tw=tw,
+        s_edges=s_edges, per_home=per_home, slab_cap=slab_cap,
+        w_max=w_max, run_cap=run_cap, rpb=rows_per_block,
+        strip_cap=strip_cap)
+    descs.append(d)
+    overs.append(o)
+  return torch.cat(descs, 0).to(torch.int32), torch.stack(overs).sum(0)
+
+
 def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
                features: torch.Tensor, image_size: Tuple[int, int],
                config: RasterConfig, num_slabs: int = 1,
@@ -442,13 +503,12 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
       edges_all = torch.cat([zero[None], torch.cumsum(cnt, 0)])
 
     with trace.span("map.strips"):
-      # ---- per-group strip blocks + local edges ---------------------------
+      # ---- per-group strip blocks ------------------------------------------
       gw = group_width
       groups_x = tw // gw
       n_groups = th * groups_x
       gy = iota(n_groups) // groups_x
       gx = (iota(n_groups) % groups_x) * gw
-      tbl_homes = gw + 2
       band = gy[:, None] + iota(3)[None, :] - 1                 # (G, 3)
       band_ok = (band >= 0) & (band < th)
       h0 = band * tw + torch.clamp(gx[:, None] - 1, min=0)
@@ -456,37 +516,23 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
       start_row = edges_all[e_idx0]
       strip_blk = torch.where(band_ok, start_row // strip_cap, 0)
 
-      per_home = 16 * s_edges
-      hh = gx[:, None, None] - 1 + iota(tbl_homes + 1)[None, None, :]
-      hid = band[:, :, None] * tw + torch.clamp(hh, 0, tw)      # (G, 3, H+1)
-      hidc = torch.clamp(hid, 0, num_tiles)
-      edges_grid = torch.cat(
-          [edges_all[:k_tot].view(num_tiles, per_home),
-           edges_all[k_tot].expand(1, per_home)], 0)
-      evals = torch.cat(
-          [edges_grid[hidc[:, :, :tbl_homes]].reshape(
-              n_groups, 3, tbl_homes * per_home),
-           edges_grid[hidc[:, :, -1], 0][:, :, None]], -1)
-      local = evals - (strip_blk * strip_cap)[:, :, None]
-      local = torch.clamp(torch.where(band_ok[:, :, None], local, 0),
-                          0, 2 * strip_cap)
+      # rows of each band strip: homes x0-1 .. x0+gw, clamped to the band's
+      # row (out-of-image bands read 0 rows)
+      def strip_edge(hh):
+        hid = torch.clamp(band * tw + torch.clamp(hh, 0, tw), 0, num_tiles)
+        return edges_all[hid * (16 * s_edges)]
       strip_over = torch.clamp(
-          (evals[:, :, -1] - evals[:, :, 0]) - 2 * strip_cap, min=0)
-      del evals
+          strip_edge(gx[:, None] + gw + 1) - strip_edge(gx[:, None] - 1)
+          - 2 * strip_cap, min=0)
 
     with trace.span("map.descriptors"):
-      # group chunks bound the (Gc, gw, 64, S+1) intermediates
-      gchunk = max(1, (1 << 22) // (gw * len(_WLIST) * (s_edges + 1)))
-      descs, overs = [], []
-      for g0 in range(0, n_groups, gchunk):
-        d, o = _desc_pipeline(
-            local[g0:g0 + gchunk], gx[g0:g0 + gchunk], gw=gw, tw=tw,
-            s_edges=s_edges, per_home=per_home, slab_cap=slab_cap,
-            w_max=w_max, run_cap=run_cap, rpb=rpb, strip_cap=strip_cap)
-        descs.append(d)
-        overs.append(o)
-      desc = torch.cat(descs, 0)
-      run_over, chunk_over, win_over, slab_over = torch.stack(overs).sum(0)
+      from .stream_kernels import stream_descriptors
+      desc, over = stream_descriptors(
+          edges_all, strip_blk, tiles_wide=tw, tiles_high=th,
+          group_width=gw, num_slabs=s_edges, strip_cap=strip_cap,
+          slab_cap=slab_cap, w_max=w_max, run_cap=run_cap,
+          rows_per_block=rpb)
+      run_over, chunk_over, win_over, slab_over = over
       overflow = torch.stack([num_far, strip_over.sum(), slab_over + chunk_over,
                               run_over, win_over])
 
@@ -521,7 +567,7 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
     return StreamMapping(
         table=table,
         pid_order=pid_order,
-        desc=desc.to(torch.int32),
+        desc=desc,
         strip_blk=strip_blk.to(torch.int32),
         run_starts=run_starts.to(torch.int32),
         num_overflow=overflow.sum(dtype=torch.int32),

@@ -20,6 +20,9 @@ Counterpart of ``tpu_splatting/rasterizer/stream_kernels.py``.
   (the reference's ``merge_grad_slabs(..., halo=True)``, K3's halo mode)
   adds the halo bands received from the neighbouring shards into a
   shard's first and last own bands.
+* ``stream_descriptors`` builds the mapping's window descriptors for
+  ``stream_map`` (``csrc/stream_map.cu``, one launch for every tile
+  group); its twin is ``stream.stream_descriptors_reference``.
 
 A mapping on a CUDA device goes to the hand-written Hopper kernels in
 ``csrc/`` (built at first use); each wrapper checks shapes and types,
@@ -67,7 +70,8 @@ from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
                                  load_kernel_library)
 from .kernels import (_NEG_BIG, _antialias_grads, _s_sig, footprint_reference,
                       quad_coeffs, thread_pixels, walk_mask, warp_rects)
-from .stream import STRIP_SLACK, StreamMapping
+from .stream import (STRIP_SLACK, StreamMapping,
+                     stream_descriptors_reference)
 
 # The profiling modes (the reference's ``ablate``), numbered as the kernels'
 # ``mode``; the forward's skeleton is the floor probe.  ``no_sort`` (no rank
@@ -79,7 +83,8 @@ BWD_ABLATIONS = {"": 0, "skeleton": 1, "no_sort": 2, "no_grad": 3,
 ABLATION_ALIASES = {"no_mask": "no_sort"}
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
-launch_counts = {"stream_forward": 0, "stream_backward": 0, "halo_merge": 0}
+launch_counts = {"stream_forward": 0, "stream_backward": 0, "halo_merge": 0,
+                 "stream_descriptors": 0}
 # launches of the floor probe and the profiling modes, which lie on no path
 # of the system: ``stream_forward_<mode>``, ``stream_forward_counts`` (a
 # launch with ``with_counts``, in any mode), ``stream_backward_<mode>``
@@ -1095,3 +1100,91 @@ def halo_merge(buf: torch.Tensor, tiles_high: int, band_rows: int,
     raise RuntimeError(f"halo_merge kernel launch failed: CUDA error {err}")
   launch_counts["halo_merge"] += 1
   return own
+
+
+# ---- the mapper's window descriptors (csrc/stream_map.cu) ----------------
+
+def stream_descriptors_plan(group_width: int, num_slabs: int,
+                            w_max: int) -> KernelPlan:
+  """The descriptor kernel's threads (a warp a tile of the group, at most
+  8 warps) and shared memory: per warp a descriptor row (w_max int4), the
+  cell counts (S int64) and the slab plan (S + 1 ints); the group's three
+  band strips of (gw + 2) * 16 * S + 1 int32 edges
+  (``tpu_splat_stream_descriptors_smem``)."""
+  warps = min(group_width, 8)
+  strip = (group_width + 2) * 16 * num_slabs + 1
+  return KernelPlan(0, 32 * warps, warps * (16 * w_max + 8 * num_slabs
+                                            + 4 * (num_slabs + 1))
+                    + 12 * strip)
+
+
+@functools.cache
+def _map_kernel():
+  """The built descriptor library, with its C signatures declared."""
+  lib = load_kernel_library("stream_map.cu")
+  lib.tpu_splat_stream_descriptors.restype = ctypes.c_int
+  lib.tpu_splat_stream_descriptors.argtypes = (
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+      + [ctypes.c_void_p])
+  declare_plan_entries(lib, "tpu_splat_stream_descriptors", 3)
+  return lib
+
+
+def stream_descriptors(edges_all: torch.Tensor, strip_blk: torch.Tensor, *,
+                       tiles_wide: int, tiles_high: int, group_width: int,
+                       num_slabs: int, strip_cap: int, slab_cap: int,
+                       w_max: int, run_cap: int, rows_per_block: int):
+  """``stream_map``'s window descriptors: (desc int32 (G, 1,
+  gw*S*w_max*4), int64 [run, chunk, window, slab] overflow), from the
+  cell-edge table ``edges_all`` ((tiles * 16 * S + 1,) int64) and the
+  groups' strip blocks ``strip_blk`` ((G, 3) int64).  ``slab_cap`` above
+  2048 is calibration's unbounded pass (one clamped piece a window).
+
+  CPU tensors -> ``stream_descriptors_reference``; CUDA tensors -> the
+  ``csrc/stream_map.cu`` kernel, one launch and no host sync, or an
+  exception.  The kernel takes rows_per_block 1, 2 or 4 and strip_cap
+  below 2^30 (its edge slices are int32); ValueError only where one
+  block's shared memory cannot hold the group's edge slices."""
+  kw = dict(tiles_wide=tiles_wide, tiles_high=tiles_high,
+            group_width=group_width, num_slabs=num_slabs,
+            strip_cap=strip_cap, slab_cap=slab_cap, w_max=w_max,
+            run_cap=run_cap, rows_per_block=rows_per_block)
+  if edges_all.device.type == "cpu":
+    return stream_descriptors_reference(edges_all, strip_blk, **kw)
+  name = "stream_descriptors"
+  tw, th, gw, s = tiles_wide, tiles_high, group_width, num_slabs
+  if gw < 1 or tw % gw or th < 1 or s < 1 or w_max < 1:
+    raise ValueError(f"{name}: tiles {tw}x{th}, group width {gw}, "
+                     f"{s} slabs, w_max {w_max}")
+  if rows_per_block not in (1, 2, 4):
+    raise ValueError(f"{name}: rows_per_block {rows_per_block} is not 1, "
+                     "2 or 4")
+  if not (0 < strip_cap < (1 << 30) and slab_cap > 0 and run_cap > 0):
+    raise ValueError(f"{name}: capacities strip {strip_cap}, slab "
+                     f"{slab_cap}, run {run_cap} (strip_cap below 2^30)")
+  n_groups = th * (tw // gw)
+  for label, x, shape in (("edges_all", edges_all, (tw * th * 16 * s + 1,)),
+                          ("strip_blk", strip_blk, (n_groups, 3))):
+    if x.dtype != torch.int64 or tuple(x.shape) != shape or (
+        not x.is_contiguous()) or x.device != edges_all.device:
+      raise ValueError(f"{name}: {label} must be a contiguous int64 "
+                       f"{shape} tensor on {edges_all.device}, got "
+                       f"{tuple(x.shape)} {x.dtype} on {x.device}")
+  plan = stream_descriptors_plan(gw, s, w_max)
+  check_smem(name, plan, f"group width {gw}, {s} slabs, w_max {w_max}")
+  dev = edges_all.device
+  if dev.type != "cuda":
+    raise ValueError(f"{name}: unsupported device {dev}")
+  desc = torch.empty((n_groups, 1, gw * s * w_max * 4), dtype=torch.int32,
+                     device=dev)
+  over = torch.zeros(4, dtype=torch.int64, device=dev)
+  lib = _map_kernel()
+  with launch_stream(dev) as stream:
+    err = lib.tpu_splat_stream_descriptors(
+        edges_all.data_ptr(), strip_blk.data_ptr(), desc.data_ptr(),
+        over.data_ptr(), tw, th, gw, s, w_max, rows_per_block, strip_cap,
+        slab_cap, run_cap, stream)
+  if err != 0:
+    raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+  launch_counts[name] += 1
+  return desc, over
