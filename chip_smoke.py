@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 1. Device and build: needs CUDA, prints the card's name and power limit,
    builds every kernel from ``tpu_splatting_torch/csrc`` (one ``nvcc``
    per source, all in parallel: the stream forward K1 and backward K2
-   with the halo merge, the sorted forward K4 and backward K5, the layout
+   with the halo merge, the mapper's window-descriptor kernel
+   (``stream_map.cu``), the sorted forward K4 and backward K5, the layout
    kernels K6, K7 and the row-gather probe, the exp_mosaic probes T1-T4,
    the exp_pack and exp_pack2 probes)
    and prints each kernel instantiation's registers and spills (K2's and
@@ -19,7 +20,11 @@ Phases (any failure raises and exits non-zero):
    the resident blocks and warps per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); and the plans'
    shared-memory formulas (Python) against the kernels' own ``*_smem``
-   entries (C) over a grid of feature counts, tiles and capacities; and
+   entries (C) over a grid of feature counts, tiles and capacities; the
+   descriptor kernel's plan, registers and resident warps per SM at the
+   heavy 2M mapping's shapes (group width 8, 32 slabs, w_max 57) and its
+   plan's shared memory against ``tpu_splat_stream_descriptors_smem``
+   over group widths 1-40, 1-32 slabs and w_max 1-72; and
    that the floor probes of K1 and K4 (their walk taken out) kept their
    staging loads and shared stores in the SASS (``cuobjdump -sass``), and
    that T3's kernel and T4's bulk instantiation kept a bulk asynchronous
@@ -43,7 +48,8 @@ Phases (any failure raises and exits non-zero):
    (``scenes.uniform_scene`` lifted to 3D), five ``render_gaussians``
    requests under ``torch.no_grad()`` (the last with the median-depth
    pass), checked for zero overflow, finite images and weights in [0, 1],
-   with the K1 launch count of that run; then a staged timing of one
+   with the K1 and descriptor-kernel launch counts of that run (one
+   descriptor launch a mapping); then a staged timing of one
    render (by CUDA events, then with each stage alone between
    synchronisations), K1 against its twin at the full-size shapes, the
    plain model's estimate of the share of its (row, warp) pairs that a
@@ -218,8 +224,13 @@ Phases (any failure raises and exits non-zero):
    difference is printed, not failed on), its mapping's overflow [0, 0, 0,
    0, 0], K1 and K2 once against their twins on that mapping (K1 max abs
    <= TOL, K2 per column), the heavy map's device busy share
-   (``device_split``), and K1 and K2 against their twins on the uniform
-   scene's mapping too; (b) ``bench.run`` at its defaults, its JSON
+   (``device_split``), and the map's one ``stream_descriptors`` call
+   recorded and its output held bit for bit against the twin's on the
+   same inputs, then kernel and twin each timed by events and by device
+   time beside the kernel's byte bound and occupancy
+   (``benchmarks.bench_descriptors.run``); K1 and K2 against their twins
+   on the uniform scene's mapping too, and its descriptors as the heavy
+   map's; (b) ``bench.run`` at its defaults, its JSON
    line printed on a line of its own and no ``errors``, then one full
    step with its K1 and K2 calls recorded and held against their twins,
    and the step's device busy share; (c) ``bench_4k`` at
@@ -272,6 +283,9 @@ The last two lines of standard output are one JSON object with the
 kernels' launches, errors, times, bounds and resident warps per SM at the
 full shapes (K1 and K2 with their band-sharded launches and errors, the
 halo merge with the band-sharded run's launches and its device time,
+the window-descriptor kernel with its launches in phase 3's renders and
+phase 13's times, byte bounds and twin times at the heavy and uniform
+maps,
 K6 and K7 with ``device_ms`` and ``library_device_ms`` too, K1 and K2
 with their launches on phase 11's default-size run
 (``fit_image_launches``) and on phase 12's render of the loaded
@@ -750,6 +764,40 @@ def phase_plans():
           checked += 1
   log(f"  plan shared memory equals the C *_smem entries at {checked} "
       "shapes (F 3-100, tiles of 16-1024 pixels)")
+  occ["stream_descriptors"] = descriptor_plans()
+  return occ
+
+
+# the heavy 2M mapping's descriptor shapes (.bench_cal.json heavy_gw8_v7)
+DESC_HEAVY = dict(group_width=8, num_slabs=32, w_max=57)
+
+
+def descriptor_plans():
+  """The descriptor kernel's occupancy at the heavy 2M mapping's shapes,
+  and its plan's shared memory against ``tpu_splat_stream_descriptors_smem``
+  over group widths, slabs and w_max."""
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  from tpu_splatting_torch.rasterizer.stream import MAX_SLABS, W_MAX_LIMIT
+  from tpu_splatting_torch.utils.cuda_build import occupancy
+  lib = sk._map_kernel()
+  plan = sk.stream_descriptors_plan(**DESC_HEAVY)
+  occ = occupancy(lib, "tpu_splat_stream_descriptors", plan)
+  log(f"  stream_descriptors at the heavy 2M shapes {DESC_HEAVY}: "
+      f"{plan.threads} threads, {plan.smem} B of shared memory; "
+      f"{occ['registers']} registers, {occ['local_bytes']} local bytes, "
+      f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps "
+      "resident per SM")
+  checked = 0
+  for gw in (1, 2, 4, 8, 16, 40):
+    for s in (1, 2, 4, 16, MAX_SLABS):
+      for w_max in (1, 15, 27, 57, W_MAX_LIMIT):
+        c_smem = lib.tpu_splat_stream_descriptors_smem(gw, s, w_max)
+        want = sk.stream_descriptors_plan(gw, s, w_max).smem
+        assert c_smem == want, (gw, s, w_max, c_smem, want)
+        checked += 1
+  log(f"  stream_descriptors plan shared memory equals the C entry at "
+      f"{checked} shapes (group width 1-40, 1-{MAX_SLABS} slabs, w_max "
+      f"1-{W_MAX_LIMIT})")
   return occ
 
 
@@ -1078,11 +1126,13 @@ def phase_full(dev):
           f"{w_max:.6f}]  mean rgb {r.image.mean().item():.4f}"
           + ("  (+median pass)" if median else ""))
   launches = sk.launch_counts["stream_forward"]
+  desc_launches = sk.launch_counts["stream_descriptors"]
   floor_launches = sk.probe_launch_counts["stream_forward_floor"]
   peak = torch.cuda.max_memory_allocated() / 2 ** 30
   log(f"  K1 launches in the 5 requests: {launches}; its floor probe's: "
-      f"{floor_launches}")
+      f"{floor_launches}; the descriptor kernel's: {desc_launches}")
   assert launches >= len(cams), launches
+  assert desc_launches == len(cams), desc_launches   # one map a request
   log(f"  end-to-end ms per render: {[round(t, 3) for t in times]}")
   log(f"  peak device memory: {peak:.3f} GiB")
 
@@ -1136,7 +1186,7 @@ def phase_full(dev):
       nbytes(m.table, m.desc, m.strip_blk), "full")}
   log(f"  K1 {k_ms:.3f} ms = floor (staging and sort) "
       f"{k1_floor['ms']:.3f} + walk {k_ms - k1_floor['ms']:.3f} ms")
-  return k1, k1_floor, g3d, cams, cfg, image0
+  return k1, k1_floor, g3d, cams, cfg, image0, desc_launches
 
 
 def phase_train(dev, g3d, cams, cfg_caps):
@@ -3538,6 +3588,30 @@ def log_busy(label, fn):
           f"{short_kernel_name(k)} {v:.4f}" for k, v in top))
 
 
+def descriptors_vs_twin(s, label):
+  """The one ``stream_descriptors`` call of the scene's ``stream_map``
+  held bit for bit against its twin on the same inputs, then both timed
+  (``benchmarks.bench_descriptors.run``: by events over 20 calls and by
+  device time), with the byte bound and the kernel's occupancy.  Returns
+  its kernels-line fields."""
+  from tpu_splatting_torch.benchmarks import bench_descriptors as bd
+  from tpu_splatting_torch.benchmarks import diagnostics as dg
+  log(f"  {label} map's window descriptors, kernel against its twin:")
+  out = bd.run(s, dg.Opts(iters=20, warmup=3))
+  assert out["equal"], f"{label}: the descriptor kernel differs from its twin"
+  assert out["launches"] == 1, (label, out["launches"])
+  kern, twin = out["kernel"], out["twin"]
+  b_ms, b_by = bound_ms(0, out["bound_bytes"])
+  return {"ms": kern.ms, "device_ms": kern.device_ms, "plain_ms": twin.ms,
+          "plain_device_ms": twin.device_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "launches_per_map": out["launches"],
+          "resident_warps_per_sm": out["occupancy"]["warps_per_sm"],
+          "registers": out["occupancy"]["registers"],
+          "smem": out["plan"].smem,
+          "shapes": {k: out["kw"][k] for k in ("group_width", "num_slabs",
+                                               "w_max", "slab_cap")}}
+
+
 def mapping_summary(m):
   return (f"{m.num_tiles} tiles ({m.tiles_wide}x{m.tiles_high}), "
           f"depth_bits {m.depth_bits}, group width {m.group_width}, "
@@ -3550,9 +3624,10 @@ def mapping_summary(m):
 def phase_bench(dev, card):
   """Phase 13: the port's bench (``tpu_splatting_torch.bench`` and its
   companions in ``tpu_splatting_torch.benchmarks``), called as functions.
-  Returns {"K1": .., "K2": .., "sorted": ..}: each kernel's launches on
-  each bench path (counted from zero around the path) and its largest
-  error against its twin there."""
+  Returns {"K1": .., "K2": .., "sorted": .., "descriptors": ..}: each
+  kernel's launches on each bench path (counted from zero around the
+  path) and its largest error against its twin there; the descriptor
+  kernel's times, bound and occupancy at the heavy and uniform maps."""
   from tpu_splatting_torch import bench
   from tpu_splatting_torch.benchmarks import (bench_4k, bench_components,
                                               bench_stream, check_card)
@@ -3594,11 +3669,14 @@ def phase_bench(dev, card):
   log(f"  peak device memory of (a): "
       f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
   log_busy("heavy map", lambda: s.map_f(*s.map_args))
+  desc = descriptors_vs_twin(s, "heavy 2M")
   del s
   s = bench.prepare_scene("uniform", *bench.to_device(
       dev, *bench.scene_arrays("uniform")), bench.IMAGE_SIZE, 8)
   uniform_differ = cal_beside_reference("uniform", s.cal, "uniform_gw8_v7")
   keep(twins_once(s.mapping, s.config, "uniform 2M"))
+  desc.update({f"uniform_{k}": v for k, v in
+               descriptors_vs_twin(s, "uniform 2M").items()})
   del s
   _, _, full_cal = bench.lift_and_calibrate(
       "uniform", *bench.scene_arrays("uniform"), 8, device=dev)
@@ -3690,6 +3768,7 @@ def phase_bench(dev, card):
                                     stream_launches.items()},
                  "bench_max_abs_err": max(errs["K2"]),
                  "thin_rows_vs_f64": thin_share},
+          "descriptors": desc,
           "sorted": {k: {"bench_components_launches": sorted_launches[k],
                          "bench_components_max_abs_err": err}
                      for k, err in (("sorted_forward", e4),
@@ -3941,7 +4020,7 @@ def main():
   exp_mosaic.reset_launch_counts()       # the probes lie on no path: 0
   exp_pack.reset_launch_counts()
   exp_pack2.reset_launch_counts()
-  k1, k1_floor, g3d, cams, cfg, image0 = phase_full(dev)
+  k1, k1_floor, g3d, cams, cfg, image0, desc_launches = phase_full(dev)
   k2, k3 = phase_train(dev, g3d, cams, cfg)
   e4, e5, e7 = phase_sorted_twin(dev)
   sorted_cross_device_check(dev)
@@ -4000,6 +4079,13 @@ def main():
            source=src + "stream_backward.cu", replaces=ref + "996",
            mode_of="merge_grad_slabs (halo=True)", path="band_sharded_grad",
            **halo),
+      dict(name="stream_descriptors", route="cuda",
+           source=src + "stream_map.cu", replaces=None,
+           counterpart="tpu_splatting/rasterizer/stream.py:506 "
+           "desc_pipeline (XLA ops, no Pallas kernel)",
+           library_ms=None, launches=desc_launches, max_abs_err=0.0,
+           also_on=["stream_map", "calibrate_stream", *BENCH_PATHS],
+           **bench_paths["descriptors"]),
       *sorted_entries,
       dict(name="stream_forward_floor", route="cuda",
            source=src + "stream_forward.cu", replaces=ref + "412",

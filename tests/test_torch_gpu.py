@@ -284,20 +284,6 @@ MAP_KEYS = ("num_slabs", "strip_cap", "slab_cap", "w_max", "run_cap",
             "wide_cap", "dup_cap")
 
 
-def recorded_descriptor_calls(monkeypatch):
-  """The (edges_all, strip_blk, kw, (desc, over)) of each
-  ``stream_descriptors`` call that ``stream_map`` makes from now on."""
-  calls = []
-  wrapper = sk.stream_descriptors
-
-  def record(edges_all, strip_blk, **kw):
-    out = wrapper(edges_all, strip_blk, **kw)
-    calls.append((edges_all, strip_blk, kw, out))
-    return out
-  monkeypatch.setattr(sk, "stream_descriptors", record)
-  return calls
-
-
 def check_descriptors(calls):
   """Each recorded kernel call bit for bit its twin on the same inputs."""
   assert calls
@@ -321,13 +307,14 @@ def assert_same_mapping(a, b):
       assert x == y, f.name
 
 
-def descriptors_on_card_and_cpu(monkeypatch, scene, size, config, caps):
+def descriptors_on_card_and_cpu(scene, size, config, caps):
   """Map ``scene`` on the card (one descriptor launch, held to the twin)
   and on the CPU, assert every field equal; the card's mapping."""
+  from tpu_splatting_torch.benchmarks.bench_descriptors import recorded_calls
   packed, depth, feats = scene
-  calls = recorded_descriptor_calls(monkeypatch)
   sk.reset_launch_counts()
-  m = stream_map(packed, depth, feats, size, config, **caps)
+  with recorded_calls() as calls:
+    m = stream_map(packed, depth, feats, size, config, **caps)
   assert sk.launch_counts["stream_descriptors"] == 1 and len(calls) == 1
   check_descriptors(calls)
   m_cpu = stream_map(*(x.cpu() for x in scene), size, config, **caps)
@@ -362,13 +349,13 @@ DESC_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(DESC_CASES))
-def test_descriptor_kernel_matches_twin(cuda, monkeypatch, case):
+def test_descriptor_kernel_matches_twin(cuda, case):
   """The kernel bit for bit the twin, and ``stream_map`` on the card
   equal to it on the CPU in every field, at a heavy scene's calibrated
   capacities and at capacities that make each clamp drop rows."""
   scene, config, caps = heavy_case(cuda)
   change, cause = DESC_CASES[case]
-  m = descriptors_on_card_and_cpu(monkeypatch, scene, (256, 192), config,
+  m = descriptors_on_card_and_cpu(scene, (256, 192), config,
                                   {**caps, **change})
   if cause is None:
     assert int(m.num_overflow) == 0, m.overflow.tolist()
@@ -376,12 +363,12 @@ def test_descriptor_kernel_matches_twin(cuda, monkeypatch, case):
     assert int(m.overflow[cause]) > 0, m.overflow.tolist()
 
 
-def test_descriptor_kernel_wider_than_a_block(cuda, monkeypatch):
+def test_descriptor_kernel_wider_than_a_block(cuda):
   """A group of 40 tiles: 8 warps, each taking five tiles."""
   size = (640, 64)
   scene = tuple(torch.from_numpy(x).to(cuda) for x in uniform_scene(
       np.random.default_rng(2), 6000, size))
-  descriptors_on_card_and_cpu(monkeypatch, scene, size, RasterConfig(), dict(
+  descriptors_on_card_and_cpu(scene, size, RasterConfig(), dict(
       group_width=40, num_slabs=2, strip_cap=8192, slab_cap=512, w_max=40,
       run_cap=256, wide_cap=8192, dup_cap=1 << 17))
 
@@ -398,7 +385,7 @@ def test_descriptor_kernel_at_2m(cuda, monkeypatch, tmp_path, name):
   config = dataclasses.replace(bench._trainer_config(8),
                                big_tile_window=cal["big_tile_window"])
   m = descriptors_on_card_and_cpu(
-      monkeypatch, scene, bench.IMAGE_SIZE, config,
+      scene, bench.IMAGE_SIZE, config,
       {**{k: cal[k] for k in MAP_KEYS}, "group_width": 8})
   assert int(m.num_overflow) == 0
 

@@ -75,26 +75,22 @@ def test_stream_descriptors_plan():
 def test_stream_map_on_the_cpu_takes_the_twin(monkeypatch):
   """A CPU mapping's descriptors come from the twin's pipeline, through
   the wrapper, and launch nothing."""
-  calls, pipelines = [], []
-  wrapper, pipeline = sk.stream_descriptors, st._desc_pipeline
-
-  def record(edges_all, strip_blk, **kw):
-    out = wrapper(edges_all, strip_blk, **kw)
-    calls.append((edges_all, strip_blk, kw, out))
-    return out
+  from tpu_splatting_torch.benchmarks.bench_descriptors import recorded_calls
+  pipelines = []
+  pipeline = st._desc_pipeline
 
   def counted(*args, **kw):
     pipelines.append(1)
     return pipeline(*args, **kw)
-  monkeypatch.setattr(sk, "stream_descriptors", record)
   monkeypatch.setattr(st, "_desc_pipeline", counted)
   size = (128, 96)
   packed, depth, feats = (torch.from_numpy(x) for x in heavy_scene(
       np.random.default_rng(1), 2000, size))
   sk.reset_launch_counts()
-  m = st.stream_map(packed, depth, feats, size, RasterConfig(),
-                    num_slabs=3, strip_cap=2048, slab_cap=256, w_max=24,
-                    run_cap=128, wide_cap=256, dup_cap=4096)
+  with recorded_calls() as calls:
+    m = st.stream_map(packed, depth, feats, size, RasterConfig(),
+                      num_slabs=3, strip_cap=2048, slab_cap=256, w_max=24,
+                      run_cap=128, wide_cap=256, dup_cap=4096)
   assert len(calls) == 1 and pipelines
   assert sk.launch_counts["stream_descriptors"] == 0
   edges_all, strip_blk, kw, (desc, over) = calls[0]

@@ -6,19 +6,21 @@
 
 The scene is the bench's (``bench.scene_arrays``), calibrated through the
 bench's cache and mapped once (``diagnostics.prepare``); that ``stream_map``
-call's ``stream_descriptors`` inputs are recorded, and then each of
+call's ``stream_descriptors`` inputs and output are recorded, the output
+held to the twin on the same inputs, and then each of
 ``stream_kernels.stream_descriptors`` (``csrc/stream_map.cu`` on the card)
 and ``stream.stream_descriptors_reference`` (the twin: the band-local edge
 slices and ``_desc_pipeline`` over group chunks, on the same device) is
 timed on them (``diagnostics.timed``).  On the card the kernel's line also
 gives its byte bound (the descriptor table written, the cell-edge table
 and strip blocks read once, at 3.35 TB/s) and its device time's share of
-it, and its resident warps per SM, registers and shared memory.  The last
-line says whether the two outputs are equal, bit for bit.
+it, and its resident warps per SM, registers and shared memory.  The first
+line says whether the map's descriptors equal the twin's, bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import torch
@@ -30,20 +32,23 @@ from . import diagnostics as dg
 HBM_BYTES_PER_S = 3.35e12
 
 
-def recorded_inputs(s) -> tuple:
-  """(edges_all, strip_blk, kw) of the scene's ``stream_map`` call."""
+@contextlib.contextmanager
+def recorded_calls():
+  """Every ``stream_descriptors`` call made inside the block, in order, as
+  (edges_all, strip_blk, kw, (desc, over)).  ``stream_map`` looks the
+  wrapper up in ``stream_kernels`` at each call, so this sees them all."""
   calls = []
   wrapper = sk.stream_descriptors
 
   def record(edges_all, strip_blk, **kw):
-    calls.append((edges_all, strip_blk, kw))
-    return wrapper(edges_all, strip_blk, **kw)
+    out = wrapper(edges_all, strip_blk, **kw)
+    calls.append((edges_all, strip_blk, kw, out))
+    return out
   sk.stream_descriptors = record
   try:
-    s.map_f(*s.map_args)
+    yield calls
   finally:
     sk.stream_descriptors = wrapper
-  return calls[0]
 
 
 def bound_bytes(edges_all, strip_blk, kw) -> int:
@@ -55,9 +60,24 @@ def bound_bytes(edges_all, strip_blk, kw) -> int:
 
 
 def run(s, opts: dg.Opts) -> dict:
-  """{"kernel": Timing, "twin": Timing, "equal": bool}; prints a line
+  """The scene's ``stream_map`` call once, its one descriptor call's
+  output held to the twin on the same inputs, then both timed.  Returns
+  {"kernel": Timing, "twin": Timing, "equal": bool, "kw": the call's
+  shapes and capacities, "launches": the map's kernel launches,
+  "bound_bytes"; on the card also "plan" and "occupancy"}; prints a line
   each."""
-  edges_all, strip_blk, kw = recorded_inputs(s)
+  sk.reset_launch_counts()
+  with recorded_calls() as calls:
+    s.map_f(*s.map_args)
+  assert len(calls) == 1, len(calls)
+  edges_all, strip_blk, kw, got = calls[0]
+  out = {"kw": kw, "launches": sk.launch_counts["stream_descriptors"],
+         "bound_bytes": bound_bytes(edges_all, strip_blk, kw)}
+  want = st.stream_descriptors_reference(edges_all, strip_blk, **kw)
+  out["equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+  print(f"kernel equals twin: {out['equal']} (desc {tuple(got[0].shape)}, "
+        f"overflow {got[1].tolist()}; {kw})", flush=True)
+  del calls, got, want
   call = lambda e, b: sk.stream_descriptors(e, b, **kw)
   twin = lambda e, b: st.stream_descriptors_reference(e, b, **kw)
   on_card = edges_all.is_cuda
@@ -67,23 +87,20 @@ def run(s, opts: dg.Opts) -> dict:
     plan = sk.stream_descriptors_plan(kw["group_width"], kw["num_slabs"],
                                       kw["w_max"])
     occ = occupancy(sk._map_kernel(), "tpu_splat_stream_descriptors", plan)
-    nbytes = bound_bytes(edges_all, strip_blk, kw)
+    out.update(plan=plan, occupancy=occ)
+    nbytes = out["bound_bytes"]
     note = (f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B); "
             f"{occ['warps_per_sm']} warps resident per SM "
             f"({occ['blocks_per_sm']} blocks of {plan.threads} threads, "
             f"{occ['registers']} registers, {occ['local_bytes']} local "
             f"bytes, {plan.smem} B of shared memory)")
-  out = {"kernel": dg.timed("descriptors kernel", call,
-                            (edges_all, strip_blk), opts, note)}
+  out["kernel"] = dg.timed("descriptors kernel", call,
+                           (edges_all, strip_blk), opts, note)
   if on_card and out["kernel"].device_ms is not None:
     share = nbytes / HBM_BYTES_PER_S * 1e3 / out["kernel"].device_ms
     print(f"kernel device time at {share:.1%} of its byte bound", flush=True)
   out["twin"] = dg.timed("descriptors twin", twin, (edges_all, strip_blk),
                          opts)
-  got, want = call(edges_all, strip_blk), twin(edges_all, strip_blk)
-  out["equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
-  print(f"kernel equals twin: {out['equal']} (desc {tuple(got[0].shape)}, "
-        f"overflow {got[1].tolist()}; {kw})", flush=True)
   return out
 
 

@@ -140,6 +140,17 @@ def _tiles_of(x, ts, max_tile):
   return torch.minimum(torch.clamp(t, min=0), max_tile)
 
 
+def _group_bands(tw, th, gw, dev):
+  """Each tile group's first tile column gx ((G,) int64) and its three
+  bands gy - 1 .. gy + 1 ((G, 3) int64) with their in-image mask."""
+  groups_x = tw // gw
+  g = torch.arange(th * groups_x, dtype=_I, device=dev)
+  gx = (g % groups_x) * gw
+  band = (g // groups_x)[:, None] + torch.arange(3, dtype=_I,
+                                                 device=dev)[None, :] - 1
+  return gx, band, (band >= 0) & (band < th)
+
+
 def _desc_pipeline(local_c, gx_c, *, gw, tw, s_edges, per_home, slab_cap,
                    w_max, run_cap, rpb, strip_cap):
   """Window descriptors of one chunk of groups (reference
@@ -289,20 +300,13 @@ def stream_descriptors_reference(edges_all, strip_blk, *, tiles_wide,
   dev = edges_all.device
   tw, th, gw, s_edges = tiles_wide, tiles_high, group_width, num_slabs
   num_tiles = tw * th
-  groups_x = tw // gw
-  n_groups = th * groups_x
-
-  def iota(m):
-    return torch.arange(m, dtype=_I, device=dev)
-
-  gy = iota(n_groups) // groups_x
-  gx = (iota(n_groups) % groups_x) * gw
+  gx, band, band_ok = _group_bands(tw, th, gw, dev)
+  n_groups = gx.shape[0]
   tbl_homes = gw + 2
-  band = gy[:, None] + iota(3)[None, :] - 1                     # (G, 3)
-  band_ok = (band >= 0) & (band < th)
   per_home = 16 * s_edges
   k_tot = num_tiles * per_home
-  hh = gx[:, None, None] - 1 + iota(tbl_homes + 1)[None, None, :]
+  hh = gx[:, None, None] - 1 + torch.arange(
+      tbl_homes + 1, dtype=_I, device=dev)[None, None, :]
   hid = band[:, :, None] * tw + torch.clamp(hh, 0, tw)          # (G, 3, H+1)
   hidc = torch.clamp(hid, 0, num_tiles)
   edges_grid = torch.cat(
@@ -505,12 +509,7 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
     with trace.span("map.strips"):
       # ---- per-group strip blocks ------------------------------------------
       gw = group_width
-      groups_x = tw // gw
-      n_groups = th * groups_x
-      gy = iota(n_groups) // groups_x
-      gx = (iota(n_groups) % groups_x) * gw
-      band = gy[:, None] + iota(3)[None, :] - 1                 # (G, 3)
-      band_ok = (band >= 0) & (band < th)
+      gx, band, band_ok = _group_bands(tw, th, gw, dev)
       h0 = band * tw + torch.clamp(gx[:, None] - 1, min=0)
       e_idx0 = torch.where(band_ok, h0 * (16 * s_edges), 0)
       start_row = edges_all[e_idx0]
@@ -526,6 +525,7 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
           - 2 * strip_cap, min=0)
 
     with trace.span("map.descriptors"):
+      # imported here: stream_kernels imports this module
       from .stream_kernels import stream_descriptors
       desc, over = stream_descriptors(
           edges_all, strip_blk, tiles_wide=tw, tiles_high=th,
