@@ -1676,3 +1676,44 @@ def test_heavy_map_scripts_and_stage_split_on_card(cuda, tmp_path,
       split
   assert [st.syncs for st in split.values()] == [
       spans[k]["syncs"] for k in stage_spans]
+
+
+def test_wide_dup_counter_adds_no_host_sync(cuda, monkeypatch):
+  """The heavy scene lifted to 3D (200,000 splats, 1024x768, SH 3) viewed
+  with tracing on: the host syncs the spans count per view are the same
+  with ``map.wide_dup``'s counter as with the counter taken out, and the
+  counter reads wide splats and duplicate rows."""
+  from tpu_splatting_torch import bench, render_gaussians, trace
+  from tpu_splatting_torch.scenes import heavy_scene
+  size = (1024, 768)
+  monkeypatch.setattr(bench, "_cal_cached",
+                      lambda key, compute, force=False: compute())
+  g3d, cam, cal = bench.lift_and_calibrate(
+      "heavy", *heavy_scene(np.random.default_rng(5), 200_000, size), 8,
+      size, cuda)
+  config = bench.full_config(cal, 8)
+  views = 3
+
+  def traced_views():
+    render_gaussians(g3d, cam, config, use_sh=True)
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+      overflow = [render_gaussians(g3d, cam, config, use_sh=True).num_overflow
+                  for _ in range(views)]
+    finally:
+      trace.disable()
+    summary = trace.summary()
+    trace.reset()
+    assert all(int(o) == 0 for o in overflow)
+    return sum(s["syncs"] for s in summary.values()) / views, summary
+
+  syncs, summary = traced_views()
+  counts = summary["map.wide_dup"]["counts"]
+  assert 0 < counts["wide"] < counts["dup_rows"]
+  assert counts["wide"] % views == 0 and counts["dup_rows"] % views == 0
+  monkeypatch.setattr(trace, "count", lambda **values: None)
+  syncs_without, summary = traced_views()
+  assert "counts" not in summary["map.wide_dup"]
+  assert syncs == syncs_without > 0

@@ -2,8 +2,10 @@
 counts.  Off, a span is a shared no-op (no profiler range, no tensor hook,
 nothing recorded); on, ``stream_map`` enters its seven stages once each,
 in order, the training step yields its span tree with the backward phases
-inside ``backward``, and no number of the step changes.  The ``gpu`` test
-counts a host sync on the card."""
+inside ``backward``, and no number of the step changes; ``map.wide_dup``
+counts the mapping's own wide splats and duplicate rows, summed over
+calls, and nothing with tracing off.  The ``gpu`` test counts a host sync
+on the card."""
 
 import dataclasses
 import warnings
@@ -15,8 +17,10 @@ from torch.profiler import ProfilerActivity, profile
 from tpu_splatting_torch import (bench, calibrate_stream,
                                  render_with_heuristics, stream_map, trace)
 from tpu_splatting_torch.optim import GroupConfig, VisibilityAwareAdam
+from tpu_splatting_torch.rasterizer.stream import wide_stats
 
 SIZE = (64, 32)
+HEAVY_SIZE = (128, 96)
 MAP_STAGES = ["map.bounds", "map.wide_dup", "map.sort", "map.edges",
               "map.strips", "map.descriptors", "map.grad_gather"]
 TOP = ["project", "sh", "map", "k1", "backward", "optimizer"]
@@ -96,16 +100,29 @@ def test_off_path_records_nothing(full):
   assert trace.summary() == {}
 
 
-def test_stream_map_enters_its_stages_in_order(tracing):
-  s = bench.scene_arrays("heavy", 2000, (128, 96))
+@pytest.fixture(scope="module")
+def heavy():
+  """The bench's heavy scene at 2,000 splats, 128x96, and its calibrated
+  capacities (group width 8): it has wide splats and duplicate rows."""
+  s = bench.scene_arrays("heavy", 2000, HEAVY_SIZE)
   packed, depth, feats = (torch.from_numpy(x) for x in s)
   config = bench._trainer_config(8)
-  cal = calibrate_stream(packed, depth, feats, (128, 96), config,
+  cal = calibrate_stream(packed, depth, feats, HEAVY_SIZE, config,
                          group_width=8)
-  trace.reset()
+  return packed, depth, feats, config, {k: cal[k] for k in bench.MAP_KEYS}
+
+
+def heavy_map(heavy, shift=0.0):
+  packed, depth, feats, config, caps = heavy
+  packed = packed.clone()
+  packed[:, :2] += shift
+  return stream_map(packed, depth, feats, HEAVY_SIZE, config, **caps,
+                    group_width=8)
+
+
+def test_stream_map_enters_its_stages_in_order(heavy, tracing):
   with profile(activities=[ProfilerActivity.CPU]) as prof:
-    stream_map(packed, depth, feats, (128, 96), config,
-               **{k: cal[k] for k in bench.MAP_KEYS}, group_width=8)
+    heavy_map(heavy)
   got = ranges(prof)
   assert [name for name, _, _ in got] == ["map"] + MAP_STAGES
   (_, start, end) = got[0]
@@ -115,6 +132,51 @@ def test_stream_map_enters_its_stages_in_order(tracing):
   assert list(summary) == ["map"] + MAP_STAGES
   assert all(s["calls"] == 1 and s["host_ms"] > 0 and s["syncs"] == 0
              for s in summary.values())
+
+
+def test_wide_dup_counts_are_the_mappings_own(heavy, tracing):
+  m = heavy_map(heavy)
+  packed, depth, _, config, _ = heavy
+  num_wide, _, _ = wide_stats(packed, depth, HEAVY_SIZE, config)
+  counts = trace.summary()["map.wide_dup"]["counts"]
+  assert counts == {"wide": int(num_wide),
+                    "dup_rows": int((m.dup_pid < m.num_points).sum())}
+  assert 0 < counts["wide"] < counts["dup_rows"]
+  assert all("counts" not in s for name, s in trace.summary().items()
+             if name != "map.wide_dup")
+
+
+def test_wide_dup_counts_sum_over_calls(heavy, tracing):
+  alone = []
+  for shift in (0.0, 7.0):
+    trace.reset()
+    heavy_map(heavy, shift)
+    alone.append(trace.summary()["map.wide_dup"]["counts"])
+  assert alone[0] != alone[1]
+  trace.reset()
+  for shift in (0.0, 7.0, 0.0):
+    heavy_map(heavy, shift)
+  summed = trace.summary()["map.wide_dup"]
+  assert summed["calls"] == 3
+  assert summed["counts"] == {k: 2 * alone[0][k] + alone[1][k]
+                              for k in alone[0]}
+
+
+def test_counts_record_nothing_with_tracing_off(heavy):
+  def made():
+    raise AssertionError("a count's callable ran with tracing off")
+
+  trace.reset()
+  heavy_map(heavy)
+  with trace.span("outer"):
+    trace.count(wide=1, dup_rows=made)
+  assert trace._pending_counts == [] and trace.summary() == {}
+  trace.enable()
+  try:
+    trace.count(wide=1)       # outside every span
+  finally:
+    trace.disable()
+  assert trace._pending_counts == [] and trace.summary() == {}
 
 
 def test_training_step_yields_the_span_tree(full, tracing):

@@ -387,6 +387,7 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
       # the span tiles outside their 3x3 core
       reach_ok = torch.all((home - lo_t <= 1) & (hi_t - home <= 1), -1)
       wide = valid & ~reach_ok
+      num_wide = wide.sum()
       if dup_cap > 0:
         assert wide_cap > 0
         w_idx = torch.sort(torch.where(wide, iota(n), n)).values[:wide_cap]
@@ -394,7 +395,7 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
           w_idx = torch.cat([w_idx, torch.full((wide_cap - n,), n, dtype=_I,
                                                device=dev)])
         present = w_idx < n
-        far_over = torch.clamp(wide.sum() - wide_cap, min=0)
+        far_over = torch.clamp(num_wide - wide_cap, min=0)
 
         def gpad(x):
           return torch.cat([x, torch.zeros_like(x[:1])], 0)[w_idx]
@@ -433,8 +434,10 @@ def stream_map(gaussians: torch.Tensor, depth: torch.Tensor,
                               SENTINEL)
         pid_dup = torch.where(dup_ok, dup_src + n, 2 * n + r)
         num_far = far_over + clip_over + dup_over
+        trace.count(wide=num_wide, dup_rows=dup_ok.sum)
       else:
-        num_far = wide.sum()
+        num_far = num_wide
+        trace.count(wide=num_wide, dup_rows=0)
 
       def reach_cls(i):
         neg = lo_t[:, i] < home[:, i]

@@ -16,6 +16,13 @@ tensor hook.  ``enable()`` turns it on for the whole process; then each span
   the span entered last on any thread).  Syncs made inside the autograd
   engine's C++ nodes raise no Python warning and are not counted.
 
+``count(**values)`` adds integer device scalars (or plain numbers) to the
+innermost open span of the thread: they are kept as they are, with no
+host sync, and ``summary()`` sums them over the span's calls at the sync
+it makes anyway.  A value that would take a kernel to make is passed as a
+zero-argument callable, run only while tracing is on.  Off, it records
+nothing.
+
 The span stack is per thread: the autograd engine runs a custom
 ``backward`` on a thread of its own.  ``grad_span(tensor, name)`` opens a
 span when the backward pass reaches ``tensor``'s gradient; it lasts until
@@ -27,7 +34,9 @@ Spans of the program: ``project``, ``sh``, ``map`` (with ``map.bounds``,
 ``torch.autograd.grad`` of ``render_with_heuristics``), ``backward.raster``
 (K2 and the reduce), ``backward.sh`` and ``backward.project`` (from the
 gradient of the SH colours and of the projected splats on), and
-``optimizer``.
+``optimizer``.  Counts: ``map.wide_dup``'s ``wide`` (the mapping's wide
+splats, those that reach past the 3x3 tiles about their home) and
+``dup_rows`` (the duplicate rows it made for them).
 
 In one's own trainer::
 
@@ -68,6 +77,8 @@ _open = []                # every open span, in the order entered
 _phases = []              # open spans that grad_span opened
 _totals = {}              # name -> [calls, host s, syncs, device ms]
 _pending = []             # (name, start event, end event), not yet read
+_pending_counts = []      # (name, {key: device scalar or number})
+_counts = {}              # name -> {key: sum read so far}
 _lock = threading.Lock()  # the counts are shared by every thread
 
 
@@ -124,6 +135,20 @@ def span(name: str):
   if not _on:
     return _OFF
   return _Span(name)
+
+
+def count(**values) -> None:
+  """While tracing is on, add each value (an integer device scalar, a
+  number, or a zero-argument callable giving one, called only then) to
+  the innermost open span of this thread; ``summary()`` gives their sums
+  under the span's ``"counts"``.  Nothing outside a span."""
+  if not _on:
+    return
+  stack = _stacks.get(threading.get_ident())
+  if stack:
+    values = {k: v() if callable(v) else v for k, v in values.items()}
+    with _lock:
+      _pending_counts.append((stack[-1].name, values))
 
 
 def grad_span(tensor: torch.Tensor, name: str) -> None:
@@ -200,21 +225,50 @@ def reset() -> None:
   """Forget what the closed spans recorded."""
   _totals.clear()
   _pending.clear()
+  _pending_counts.clear()
+  _counts.clear()
+
+
+def _read_counts() -> None:
+  """Fold the pending counts into ``_counts``: the device scalars of each
+  device read in one copy."""
+  by_device = {}
+  for name, values in _pending_counts:
+    sums = _counts.setdefault(name, {})
+    for key, v in values.items():
+      sums.setdefault(key, 0)
+      if isinstance(v, torch.Tensor):
+        by_device.setdefault(v.device, []).append((sums, key, v))
+      else:
+        sums[key] += v
+  for items in by_device.values():
+    read = torch.stack([v.reshape(()).to(torch.int64)
+                        for _, _, v in items]).tolist()
+    for (sums, key, _), v in zip(items, read):
+      sums[key] += v
+  _pending_counts.clear()
 
 
 def summary() -> dict:
-  """{span name: {"calls", "device_ms", "host_ms", "syncs"}}, in the order
-  the spans were first entered: ``device_ms`` and ``host_ms`` the mean per
-  call (``device_ms`` from the CUDA events, which also hold the device's
-  waits for the host; the host clock without CUDA), ``syncs`` the host
-  syncs made inside the span and not inside a span within it, over all
-  calls."""
+  """{span name: {"calls", "device_ms", "host_ms", "syncs"[, "counts"]}},
+  in the order the spans were first entered: ``device_ms`` and ``host_ms``
+  the mean per call (``device_ms`` from the CUDA events, which also hold
+  the device's waits for the host; the host clock without CUDA),
+  ``syncs`` the host syncs made inside the span and not inside a span
+  within it, over all calls; ``counts`` ({key: sum over all calls}) where
+  ``count`` was called inside the span."""
   if _pending:
     torch.cuda.synchronize()
     for name, start, end in _pending:
       _totals[name][3] += start.elapsed_time(end)
     _pending.clear()
-  return {name: {"calls": calls, "device_ms": dev_ms / calls,
-                 "host_ms": host_s * 1e3 / calls, "syncs": syncs}
-          for name, (calls, host_s, syncs, dev_ms) in _totals.items()
-          if calls}
+  if _pending_counts:
+    _read_counts()
+  out = {name: {"calls": calls, "device_ms": dev_ms / calls,
+                "host_ms": host_s * 1e3 / calls, "syncs": syncs}
+         for name, (calls, host_s, syncs, dev_ms) in _totals.items()
+         if calls}
+  for name, sums in _counts.items():
+    if name in out:
+      out[name]["counts"] = dict(sums)
+  return out
