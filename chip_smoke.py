@@ -706,7 +706,9 @@ def kernel_plans(f, tile_area, slab_cap, w_max, chunk, heur=True):
              (slab_cap, w_max, f)),
       "K2": (sk._bwd_kernel(), "tpu_splat_stream_backward",
              sk.stream_backward_plan(f, slab_cap, w_max, slabw, tile_area),
-             (slab_cap, w_max, f, slabw)),
+             (slab_cap, sk.stream_backward_chunk(f, slab_cap, w_max, slabw,
+                                                 tile_area),
+              w_max, f, slabw)),
       "K4": (kk._fwd_kernel(), "tpu_splat_sorted_forward",
              kk.sorted_forward_plan(f, chunk, tile_area), (chunk, f)),
       "K5": (kk._bwd_kernel(), "tpu_splat_sorted_backward",
@@ -752,10 +754,20 @@ def phase_plans():
         + f"{occ[name]['registers']} registers, {occ[name]['local_bytes']} "
         f"local bytes, {occ[name]['blocks_per_sm']} blocks = "
         f"{occ[name]['warps_per_sm']} warps resident per SM")
+  # K2 at the heavy scene's slab capacity: its slabs staged in chunks
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  for slab_cap in (512, 1792):
+    plan = sk.stream_backward_plan(3, slab_cap, 58, 13, 256)
+    o = occupancy_of("K2", plan)
+    log(f"  K2 at slab_cap {slab_cap} (F 3, 13 columns, w_max 58): chunk "
+        f"{sk.stream_backward_chunk(3, slab_cap, 58, 13, 256)} rows, "
+        f"{plan.smem} B, {o['blocks_per_sm']} blocks = {o['warps_per_sm']} "
+        "warps resident per SM")
   checked = 0
   for f in (3, 6, 7, 8, 22, 23, 24, 56, 57, 64, 100):
     for tile_area in (16, 64, 256, 1024):
-      for slab_cap, chunk in ((128, 32), (512, 128), (1792, 128)):
+      for slab_cap, chunk in ((128, 32), (512, 128), (1024, 128),
+                              (1536, 128), (1792, 128), (2048, 128)):
         for name, (lib, stem, plan, args) in kernel_plans(
             f, tile_area, slab_cap, 27, chunk).items():
           c_smem = getattr(lib, f"{stem}_smem")(*args, plan.max_features,
@@ -918,13 +930,14 @@ def phase_twin(dev):
         m, dataclasses.replace(cfg, **HEUR), "heavy heuristics", reps=1)[0])
 
   # the heavy scene's calibration at 2M splats asks for slab_cap 1792:
-  # K2 must still fit one block's shared memory there at F = 3 with
+  # K2 stages it in chunks that hold three blocks an SM at F = 3 with
   # heuristics (13 columns; w_max as in the 32-slab mapping above)
-  from tpu_splatting_torch.utils.cuda_build import SMEM_LIMIT
-  smem = sk.stream_backward_plan(3, 1792, m.w_max, 13, 256).smem
-  log(f"  K2 shared memory at slab_cap 1792, w_max {m.w_max}, F 3, 13 "
-      f"columns: {smem} B of {SMEM_LIMIT}")
-  assert smem <= SMEM_LIMIT, smem
+  plan = sk.stream_backward_plan(3, 1792, m.w_max, 13, 256)
+  occ = occupancy_of("K2", plan)
+  log(f"  K2 at slab_cap 1792, w_max {m.w_max}, F 3, 13 columns: chunk "
+      f"{sk.stream_backward_chunk(3, 1792, m.w_max, 13, 256)} rows, "
+      f"{plan.smem} B, {occ['blocks_per_sm']} blocks an SM")
+  assert occ["blocks_per_sm"] >= 3, (plan, occ)
 
   # past the headline: 64 features (the generic instantiations; slabs of
   # 128 rows, which K2's shared memory holds at that width) and 16-pixel
@@ -2166,6 +2179,7 @@ def phase_sharded(dev, g3d, cams, cfg_caps, shard_checks, phase2_out):
       f"{base_mem / 2 ** 30:.3f} GiB held")
   assert counts == {"stream_forward": 2 * N_SHARDS,
                     "stream_backward": N_SHARDS,
+                    "stream_backward_chunked": 0,
                     "halo_merge": N_SHARDS, "stream_descriptors": 0}, counts
   assert torch.equal(img_fwd, full), "sharded forward image differs"
   assert torch.equal(img_sh, full), "sharded grad's image differs"
@@ -3612,6 +3626,41 @@ def descriptors_vs_twin(s, label):
                                                "w_max", "slab_cap")}}
 
 
+def k2_timed(m, config, label):
+  """K2 alone on the mapping (heuristics and visibility, a seeded
+  cotangent): device time over 5 calls (None where the profiler's session
+  lost records), events over 5, its bound, chunk and blocks an SM, as
+  kernels-line fields prefixed by ``label``."""
+  from tpu_splatting_torch.rasterizer import stream_kernels as sk
+  hcfg = dataclasses.replace(config, **HEUR)
+  img = sk.stream_forward(m, hcfg)
+  gimg = torch.randn(img.shape, device=img.device, generator=torch.Generator(
+      device=img.device).manual_seed(5))
+  slabw = sk.slab_width(hcfg, m.feature_size)
+  shapes = (m.feature_size, m.slab_cap, m.w_max, slabw, hcfg.tile_area)
+  buf = sk.stream_backward(m, img, gimg, hcfg)
+
+  def fn():
+    return sk.stream_backward(m, img, gimg, hcfg)
+  try:
+    d_ms = device_ms(fn, reps=5)
+  except AssertionError as err:         # device_split: records were lost
+    log(f"  {label} K2 device time not measured: {err}")
+    d_ms = None
+  e_ms = cuda_ms(fn, 5)
+  b_ms, b_by = bound_ms(pairs_of(m, hcfg) * k2_ops_per_pair(slabw),
+                        nbytes(m.table, m.desc, m.strip_blk, img, gimg, buf))
+  occ = occupancy_of("K2", sk.stream_backward_plan(*shapes))
+  chunk = sk.stream_backward_chunk(*shapes)
+  log(f"  {label} K2 alone: device {d_ms} ms, events {e_ms:.3f} ms a call, "
+      f"bound {b_ms:.4f} ms ({b_by}); slab_cap {m.slab_cap} in chunks of "
+      f"{chunk}, {occ['blocks_per_sm']} blocks an SM")
+  return {f"{label}_device_ms": d_ms, f"{label}_ms": e_ms,
+          f"{label}_bound_ms": b_ms, f"{label}_bound_by": b_by,
+          f"{label}_chunk": chunk,
+          f"{label}_blocks_per_sm": occ["blocks_per_sm"]}
+
+
 def mapping_summary(m):
   return (f"{m.num_tiles} tiles ({m.tiles_wide}x{m.tiles_high}), "
           f"depth_bits {m.depth_bits}, group width {m.group_width}, "
@@ -3626,8 +3675,9 @@ def phase_bench(dev, card):
   companions in ``tpu_splatting_torch.benchmarks``), called as functions.
   Returns {"K1": .., "K2": .., "sorted": .., "descriptors": ..}: each
   kernel's launches on each bench path (counted from zero around the
-  path) and its largest error against its twin there; the descriptor
-  kernel's times, bound and occupancy at the heavy and uniform maps."""
+  path) and its largest error against its twin there; K2's time alone on
+  the heavy 2M mapping beside its bound; the descriptor kernel's times,
+  bound and occupancy at the heavy and uniform maps."""
   from tpu_splatting_torch import bench
   from tpu_splatting_torch.benchmarks import (bench_4k, bench_components,
                                               bench_stream, check_card)
@@ -3666,6 +3716,7 @@ def phase_bench(dev, card):
   heavy_differ = cal_beside_reference("heavy", s.cal, "heavy_gw8_v7")
   assert s.mapping.overflow.tolist() == [0] * 5, s.mapping.overflow.tolist()
   keep(twins_once(s.mapping, s.config, "heavy 2M"))
+  k2_heavy = k2_timed(s.mapping, s.config, "heavy_2m")
   log(f"  peak device memory of (a): "
       f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
   log_busy("heavy map", lambda: s.map_f(*s.map_args))
@@ -3767,7 +3818,7 @@ def phase_bench(dev, card):
           "K2": {"bench_launches": {k: v["stream_backward"] for k, v in
                                     stream_launches.items()},
                  "bench_max_abs_err": max(errs["K2"]),
-                 "thin_rows_vs_f64": thin_share},
+                 "thin_rows_vs_f64": thin_share, **k2_heavy},
           "descriptors": desc,
           "sorted": {k: {"bench_components_launches": sorted_launches[k],
                          "bench_components_max_abs_err": err}

@@ -100,9 +100,10 @@ def columns_close(got, want):
   assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
 
 
-def check_backward(dev, m, config):
-  """K2 on a random cotangent against its twin, column by column."""
-  img = sk.stream_forward(m, config)
+def check_backward(dev, m, config, img=None):
+  """K2 on a random cotangent of K1's image (or ``img``) against its twin,
+  column by column."""
+  img = sk.stream_forward(m, config) if img is None else img
   gen = torch.Generator(device=dev).manual_seed(0)
   gimg = torch.randn(img.shape, generator=gen, device=dev)
   sk.reset_launch_counts()
@@ -122,6 +123,161 @@ def check_backward(dev, m, config):
 def test_backward_kernel_matches_twin(cuda, mode, tile_size):
   config = RasterConfig(tile_size=tile_size, **BWD_MODES[mode])
   check_backward(cuda, mapping_for(cuda, config), config)
+
+
+# --- K2 in chunks: slabs of more rows than one chunk ------------------------
+
+
+def heavy_mapping(dev, config, n, slab_cap, size=(256, 192)):
+  """The heavy scene's mapping, calibrated from ``slab_cap``."""
+  from tpu_splatting_torch.scenes import heavy_scene
+  scene = tuple(torch.from_numpy(x).to(dev) for x in heavy_scene(
+      np.random.default_rng(3), n, size))
+  return calibrated_mapping(scene, size, config, slab_cap)
+
+
+def calibrated_mapping(scene, size, config, slab_cap):
+  cal = calibrate_stream(*scene, size, config, group_width=8,
+                         slab_cap=slab_cap)
+  config = dataclasses.replace(config, big_tile_window=cal["big_tile_window"])
+  m = stream_map(*scene, size, config, group_width=8,
+                 **{k: cal[k] for k in MAP_KEYS})
+  assert int(m.num_overflow) == 0
+  return m, config
+
+
+def freeze_mapping(dev, config):
+  """1,500 wide splats over a 128x32 image, by depth: the first 1,000
+  faint (point alpha 0.006), the rest nearly opaque (0.6).  Each tile's
+  one slab holds 891-1,200 rows, two chunks (608 rows with heuristics),
+  and every tile freezes inside one: at rows 416-591 (the first chunk) or
+  645-715 (the second)."""
+  n, size = 1500, (128, 32)
+  rng = np.random.default_rng(4)
+  packed = np.zeros((n, 7), np.float32)
+  packed[:, 0] = rng.uniform(0, size[0], n)
+  packed[:, 1] = rng.uniform(0, size[1], n)
+  packed[:, 2] = 1.0
+  packed[:, 4:6] = 40.0
+  packed[:, 6] = np.where(np.arange(n) < 1000, 0.006, 0.6)
+  depth = np.linspace(0.05, 0.95, n).astype(np.float32)
+  feats = rng.random((n, 3)).astype(np.float32)
+  scene = tuple(torch.from_numpy(x).to(dev) for x in (packed, depth, feats))
+  return calibrated_mapping(scene, size, config, 1792)
+
+
+# case: (mapping builder, whether its slabs take several chunks)
+CHUNK_CASES = {
+    "heavy_1792": (lambda dev, c: heavy_mapping(dev, c, 100_000, 1792), True),
+    "heavy_1024": (lambda dev, c: heavy_mapping(dev, c, 60_000, 1024), True),
+    "uniform_512": (lambda dev, c: (mapping_for(dev, c), c), False),
+    "thin_slabs": (lambda dev, c: (mapping_for(dev, c, n=20_000,
+                                               slab_cap=128), c), False),
+    "freeze": (freeze_mapping, True),
+}
+
+
+def chunk_of(m, config):
+  return sk.stream_backward_chunk(
+      m.feature_size, m.slab_cap, m.w_max,
+      sk.slab_width(config, m.feature_size), config.tile_area)
+
+
+@pytest.mark.parametrize("mode", sorted(BWD_MODES))
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_backward_kernel_in_chunks_matches_twin(cuda, case, mode):
+  """K2 against its twin where a slab holds more rows than one chunk (the
+  heavy scene from slab_cap 1792 and 1024, 2 slabs a tile at most; tiles
+  that freeze inside a chunk) and where it does not (512; 16 slabs of 128
+  rows): the walk's state runs on across chunks and slabs, each row is
+  flushed once, and ``stream_backward_chunked`` counts only the launches
+  whose slab_cap passes the chunk."""
+  build, several = CHUNK_CASES[case]
+  m, config = build(cuda, RasterConfig(**BWD_MODES[mode]))
+  chunk = chunk_of(m, config)
+  rows = sk._window_slots(m)[1].sum(-1)
+  assert (chunk < m.slab_cap) == several, (chunk, m.slab_cap)
+  assert (int(rows.max()) > chunk) == several, (int(rows.max()), chunk)
+  if case == "thin_slabs":
+    assert m.slab_cap == 128 and int((rows > 0).sum(1).max()) >= 8
+  check_backward(cuda, m, config)
+  assert sk.launch_counts["stream_backward_chunked"] == int(several)
+
+
+def test_backward_kernel_freezes_inside_a_chunk(cuda):
+  """The freeze scene: every pixel saturates, the points behind every
+  tile's freeze get no gradient, and points walked in the second chunk
+  do: the walk stops inside a chunk and that chunk is flushed."""
+  from tpu_splatting_torch.rasterizer.stream_function import reduce_stage2
+  m, config = freeze_mapping(cuda, RasterConfig(**BWD_MODES["heuristics"]))
+  img = sk.stream_forward(m, config)
+  assert float(img[:, -1].min()) > 0.9998
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  gimg = torch.randn(img.shape, generator=gen, device=cuda)
+  sk.reset_launch_counts()
+  got = reduce_stage2(sk.stream_backward(m, img, gimg, config), m)
+  want = reduce_stage2(sk.stream_backward_reference(m, img, gimg, config), m)
+  assert sk.launch_counts["stream_backward_chunked"] == 1
+  columns_close(got, want)
+  for g in (got, want):
+    hit = g.abs().sum(1) > 0         # by point, in depth order
+    assert not bool(hit[1100:].any()) and bool(hit[700:1000].any())
+
+
+def test_backward_kernel_in_chunks_halo_mode(cuda):
+  """The heavy mapping from slab_cap 1792 on 4 virtual shards of one card
+  (3 bands each): K2 with band0 > 0 in halo mode, in chunks, against its
+  twin."""
+  from tpu_splatting_torch.parallel import stream_sharded as ss
+  m, config = heavy_mapping(cuda, RasterConfig(**BWD_MODES["heuristics"]),
+                            100_000, 1792)
+  assert chunk_of(m, config) < m.slab_cap
+  th_local, shards = ss._shards(m, make_mesh(4, devices=[cuda] * 4))
+  full = sk.stream_forward(m, config)
+  t_local = m.tiles_wide * th_local
+  gen = torch.Generator(device=cuda).manual_seed(3)
+  gimg = torch.randn(full.shape, generator=gen, device=cuda)
+  assert [band0 for _, band0, _, _ in shards] == [0, 3, 6, 9]
+  for d, band0, _, lm in shards:
+    img = sk.stream_forward(lm, config, band0)
+    g = gimg[d * t_local:(d + 1) * t_local]
+    sk.reset_launch_counts()
+    got = sk.stream_backward(lm, img, g, config, band0, halo=True)
+    torch.cuda.synchronize()
+    assert sk.launch_counts["stream_backward_chunked"] == 1
+    want = sk.stream_backward_reference(lm, img, g, config, band0, halo=True)
+    assert float(want.abs().max()) > 0.1
+    columns_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["heavy_1792", "uniform_512"])
+def test_backward_raster_counts_chunks_and_blocks(cuda, case):
+  """With tracing on, a 2D training step's ``backward.raster`` span
+  counts K2's chunks a slab (ceil(slab_cap / chunk)) and its plan's
+  resident blocks an SM: three at F 3 with heuristics, chunked or not."""
+  from tpu_splatting_torch import trace
+  from tpu_splatting_torch.rasterizer.stream_function import (
+      stream_rasterize_with_mapping)
+  m, config = CHUNK_CASES[case][0](cuda, RasterConfig(**BWD_MODES[
+      "heuristics"]))
+  n = m.num_points
+  g2d = torch.zeros((n, 7), device=cuda, requires_grad=True)
+  feats = torch.zeros((n, 3), device=cuda, requires_grad=True)
+  probe = torch.zeros((n, 3), device=cuda, requires_grad=True)
+  trace.reset()
+  trace.enable()
+  try:
+    size = (m.tiles_wide * config.tile_size, m.tiles_high * config.tile_size)
+    img, w = stream_rasterize_with_mapping(g2d, feats, m, size, config,
+                                           probe=probe)
+    (img.square().sum() + w.sum()).backward()
+  finally:
+    trace.disable()
+  counts = trace.summary()["backward.raster"]["counts"]
+  trace.reset()
+  chunk = chunk_of(m, config)
+  assert counts == {"k2_chunks": -(-m.slab_cap // chunk),
+                    "k2_blocks_per_sm": 3}, (counts, chunk, m.slab_cap)
 
 
 @pytest.mark.parametrize("num_features", [16, 40])
@@ -199,15 +355,22 @@ def test_stream_kernels_any_shape(cuda, shape):
 
 def test_stream_kernels_raise_only_past_shared_memory(cuda):
   """At 100 features a slab of 2048 rows needs more shared memory than
-  one block has: both kernels raise ValueError with the bytes."""
+  one block has: K1 raises ValueError with the bytes, while K2 stages the
+  slab in chunks of 128 rows and matches its twin.  At 200 features not
+  even a chunk of 128 rows fits beside the image cotangents of 256
+  threads: K2 raises too."""
   config = RasterConfig(**BWD_MODES["heuristics"])
   m = mapping_for(cuda, config, num_features=100, slab_cap=128)
   img = sk.stream_forward(m, config)
   big = dataclasses.replace(m, slab_cap=2048)
   with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
     sk.stream_forward(big, config)
+  assert chunk_of(big, config) == 128
+  check_backward(cuda, big, config, img)
+  m = mapping_for(cuda, config, num_features=200, slab_cap=128)
+  img = sk.stream_forward_reference(m, config)
   with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
-    sk.stream_backward(big, img, img, config)
+    sk.stream_backward(m, img, img, config)
 
 
 def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
@@ -231,7 +394,8 @@ def test_cuda_step_never_takes_a_twin(cuda, monkeypatch):
                                          probe=probe)
   (img.square().sum() + w.sum()).backward()
   assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1,
-                              "halo_merge": 0, "stream_descriptors": 0}
+                              "stream_backward_chunked": 0, "halo_merge": 0,
+                              "stream_descriptors": 0}
   assert float(probe.grad[:, 0].max()) > 0.0
   assert bool(torch.isfinite(g2d.grad).all())
 
@@ -256,7 +420,8 @@ def test_cuda_maps_never_take_the_descriptor_twin(cuda, monkeypatch):
   out = render_gaussians(g, camera, RasterConfig())
   assert float(out.image.abs().max()) > 0.0
   assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 0,
-                              "halo_merge": 0, "stream_descriptors": 1}
+                              "stream_backward_chunked": 0, "halo_merge": 0,
+                              "stream_descriptors": 1}
   config = RasterConfig(compute_point_heuristic=True,
                         compute_visibility=True)
   packed, depth, feats = (
@@ -274,7 +439,8 @@ def test_cuda_maps_never_take_the_descriptor_twin(cuda, monkeypatch):
   img, w = stream_rasterize_with_mapping(g2d, feats, m, (128, 96), config)
   (img.square().sum() + w.sum()).backward()
   assert sk.launch_counts == {"stream_forward": 1, "stream_backward": 1,
-                              "halo_merge": 0, "stream_descriptors": 1}
+                              "stream_backward_chunked": 0, "halo_merge": 0,
+                              "stream_descriptors": 1}
   assert bool(torch.isfinite(g2d.grad).all())
 
 
@@ -1059,7 +1225,8 @@ def test_band_sharded_path_on_card(cuda):
   img, got = band_sharded_grad(m, gimg, config, mesh)
   torch.cuda.synchronize()
   assert sk.launch_counts == {"stream_forward": 4, "stream_backward": 4,
-                              "halo_merge": 4, "stream_descriptors": 0}
+                              "stream_backward_chunked": 0, "halo_merge": 4,
+                              "stream_descriptors": 0}
   assert torch.equal(img, full)
   assert float(want.abs().max()) > 0.1
   columns_close(got, want)

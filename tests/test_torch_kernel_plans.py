@@ -11,9 +11,11 @@ expected bytes restate each kernel's shared-memory layout:
   4 footprint floats and 7 + F coefficients a slab row, 7 ints a window,
   2 counters, generic F accumulators a thread, and a 16-bit row list of
   slab_cap entries a warp.
-* K2 (stream backward): rank keys, 12 + F coefficients a slab row, the
-  gradient columns at a stride of slab_cap rounded up to 32 plus one, 8
-  ints a window, 2 counters, and, generic, F image cotangents a thread.
+* K2 (stream backward): the slab's rank keys, and per row of a chunk of
+  the slab 12 + F coefficients and the gradient columns at a stride of the
+  chunk rounded up to 32 plus one, 8 ints a window, 2 counters, and,
+  generic, F image cotangents a thread.  The chunk is the whole slab
+  where that holds three blocks an SM (every row of ``EXPECTED``).
 * K4 (sorted forward): 4 footprint floats and 7 + F coefficients a chunk
   row, one visibility partial a warp and row, generic F accumulators a
   thread, and a 16-bit row list of chunk entries a warp.
@@ -90,6 +92,73 @@ def test_shared_memory_layouts_restated():
       512 + 14 * 300 + 7 * 20 + 2) + 2 * (pix // 32) * 300
   assert sk.stream_backward_plan(3, 300, 20, 13, pix).smem == 4 * (
       512 + 15 * 300 + 13 * (320 + 1) + 8 * 20 + 2)
+
+
+# (features, pixels a tile) of K2's chunk cases: the register
+# instantiations <6, 16>, <22, 32>, <56, 32> and two generic shapes
+K2_SHAPES = [(3, 256), (6, 256), (22, 256), (56, 256), (3, 16), (64, 256)]
+K2_CAPS = [512, 1024, 1536, 1792, 2048]
+THIRD = cb.SMEM_SM // 3 - cb.SMEM_RESERVED       # 76,800 B: three blocks
+
+
+def k2_blocks(f, slab_cap, chunk, tile_area, w_max=58):
+  threads = cb.block_threads(tile_area)
+  generic = cb.instantiation(f, tile_area, sk.K2_WIDTHS) == 0
+  slabw = 10 + f
+  smem = 4 * (sk._sort_cap(slab_cap) + (12 + f) * chunk
+              + slabw * cb.acc_stride(chunk) + 8 * w_max + 2
+              + (f * threads if generic else 0))
+  return smem, min(3, cb.blocks_by_smem(smem))
+
+
+@pytest.mark.parametrize("slab_cap", K2_CAPS)
+@pytest.mark.parametrize("f,tile_area", K2_SHAPES,
+                         ids=[f"F{f}-pix{p}" for f, p in K2_SHAPES])
+def test_backward_plan_stages_the_largest_chunk_of_three_blocks(
+    f, tile_area, slab_cap):
+  """K2 at the heavy scene's slab capacities (w_max 58, heuristics: 10 + F
+  columns): the chunk is the whole slab or a multiple of 32 from 128 below
+  it; of those it holds the most blocks an SM (up to three) and is the
+  largest that does; the bytes restate the layout at that chunk, fit one
+  block, and at F <= 6 a third of the SM.  Once the slab is chunked its
+  bytes stop growing with slab_cap but for the rank keys, as long as it
+  keeps its blocks (<56, 32>'s 128-row chunks hold three blocks at 512
+  and 1024; past them the keys leave room for two)."""
+  slabw = 10 + f
+  plan = sk.stream_backward_plan(f, slab_cap, 58, slabw, tile_area)
+  chunk = sk.stream_backward_chunk(f, slab_cap, 58, slabw, tile_area)
+  assert chunk == slab_cap or (chunk % 32 == 0 and 128 <= chunk < slab_cap)
+  smem, blocks = k2_blocks(f, slab_cap, chunk, tile_area)
+  assert plan.smem == smem <= cb.SMEM_LIMIT
+  candidates = [slab_cap, *range(128, slab_cap, 32)]
+  best = max(k2_blocks(f, slab_cap, c, tile_area)[1] for c in candidates)
+  assert blocks == best >= 1
+  assert all(k2_blocks(f, slab_cap, c, tile_area)[1] < best
+             for c in candidates if c > chunk)
+  if f <= 6 and tile_area == 256:
+    assert (blocks, plan.smem <= THIRD) == (3, True), plan
+  keys = 4 * sk._sort_cap(slab_cap)
+  for cap in K2_CAPS:
+    if chunk < slab_cap < cap:
+      later = sk.stream_backward_plan(f, cap, 58, slabw, tile_area)
+      if min(3, cb.blocks_by_smem(later.smem)) == blocks:
+        assert later.smem - 4 * sk._sort_cap(cap) <= plan.smem - keys
+
+
+@pytest.mark.parametrize("slab_cap,chunk,smem", [
+    (512, 512, 61308), (1024, 608, 74108), (1536, 576, 74620),
+    (1792, 576, 74620), (2048, 576, 74620)])
+def test_headline_backward_keeps_three_blocks_at_every_slab_cap(
+    slab_cap, chunk, smem):
+  """F 3 with heuristics (13 columns), w_max 58: the uniform cells' 512 in
+  one chunk, 61,308 B as before; the heavy scene's 1792 in chunks of 576,
+  74,620 B in place of the whole slab's 210,812 (one block an SM)."""
+  plan = sk.stream_backward_plan(3, slab_cap, 58, 13, 256)
+  assert sk.stream_backward_chunk(3, slab_cap, 58, 13, 256) == chunk
+  assert tuple(plan) == (6, 256, smem)
+  assert cb.blocks_by_smem(plan.smem) == 3
+  assert k2_blocks(3, 1792, 1792, 256)[0] == 210812
+  assert cb.blocks_by_smem(210812) == 1
 
 
 @pytest.mark.parametrize("kernel,plan,cap", [
@@ -170,5 +239,6 @@ def test_cpu_tensors_take_the_twins_at_any_shape():
                         tm.chunk_to_tile, config, tm.num_tiles, tm.tiles_wide)
   assert img_s.shape == (tm.num_tiles + 1, 101, 16)
   assert sk.launch_counts == {"stream_forward": 0, "stream_backward": 0,
-                              "halo_merge": 0, "stream_descriptors": 0}
+                              "stream_backward_chunked": 0, "halo_merge": 0,
+                              "stream_descriptors": 0}
   assert kk.launch_counts == {"sorted_forward": 0, "sorted_backward": 0}

@@ -37,10 +37,25 @@
 // and, per row and warp, the reduction of the gradient terms over the
 // warp's pixels.  Bytes are few (the table rows, the image and its
 // cotangent, the buffer).  Every per-row gradient stays out of device
-// memory: a warp reduces its pixels' terms, adds them to a per-slab shared
-// accumulator (slabw x slab_cap), and the slab's rows are flushed to the
-// buffer with one global atomicAdd per nonzero value.  Warps with no live
-// pixel for a row skip the reduction.
+// memory: a warp reduces its pixels' terms, adds them to a shared
+// accumulator (slabw x chunk), and the rows are flushed to the buffer
+// with one global atomicAdd per nonzero value.  Warps with no live pixel
+// for a row skip the reduction.
+//
+// The walk is bound by latency (exp, log1p, the reduce-scatter, shared
+// atomics, a block vote every 32 rows), so it needs warps resident to hide
+// it.  Shared memory is sized to a chunk of the slab, not to the slab:
+// each (tile, slab) stages its rows' rank keys only (the row's depth
+// column), sorts them, then walks the sorted order in chunks of `chunk`
+// rows, each staged in rank order (the row found from its slot through the
+// window list), walked and flushed before the next.  The walk's state runs
+// on across the chunks of a slab, so the walk and the freeze decisions are
+// the whole slab's; each row lies in one chunk, so its flush is the same.
+// The plan (stream_kernels.stream_backward_plan) takes the largest chunk
+// that holds three blocks an SM, the whole slab where it fits: the
+// headline's 512-row slabs in one chunk, the heavy scene's 1792 in four
+// of 576 rows (74,620 B against 210,812 for the whole slab: 24 warps an
+// SM instead of 8).
 //
 // The reduction is a reduce-scatter (a transposed butterfly).  A thread's
 // terms sit in V slots: the 7 packed-gaussian terms, visibility, prune and
@@ -51,8 +66,8 @@
 // in place of 5 per column.  Then lane l holds the warp's sum of slot l
 // (V = 32) or of slot l / 2 (V = 16), and the lanes that own a column add
 // it to the shared accumulator in one atomicAdd instruction.  The
-// accumulator's column stride is slab_cap rounded up to 32, plus one, so
-// the columns of one slot fall in different banks.
+// accumulator's column stride is the chunk rounded up to 32, plus one, so
+// the columns of one row fall in different banks.
 //
 // Design: one block per tile, one thread per pixel (a tile that is not whole
 // warps runs in the generic instantiation, padded with frozen lanes:
@@ -119,7 +134,8 @@ struct Params {
   const float* gimg;       // (T, F+1, tile_area) its cotangent
   float* out;              // (T * run_cap + 1, slabw) zero-initialised
   int num_tiles, tiles_wide, group_width, num_slabs, w_max, strip_cap;
-  int slab_cap, sort_cap, rpb, w_pad, f, tile_size, antialias, run_cap;
+  int slab_cap, sort_cap, chunk, rpb, w_pad, f, tile_size, antialias;
+  int run_cap;
   int slabw, with_vis, heur;
   // band sharding: the absolute band of the first tile, and 1 where `out`
   // holds a halo band of homes above (and below) the mapping's own
@@ -168,17 +184,80 @@ __device__ __forceinline__ float block_sum(float x, float* scratch, int tid,
   return total;
 }
 
+// The window of assembly slot `slot`: the last of the w_max windows whose
+// first slot is at most `slot` (an empty window sits at the cursor, so the
+// first slots ascend and a staged slot's window is the last at or below
+// it).
+__device__ __forceinline__ int window_of(const int* s_win, int w_max,
+                                         int slot) {
+  int lo = 0, hi = w_max - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (s_win[4 * mid] <= slot) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Add one row's accumulated terms (column c at acc[c * stride]) into its
+// buffer row `o`; without antialias the moments become the six geometry
+// gradients with this tile's mean offsets (stream_kernels._flush_rows, the
+// reference's :882-893), the linear forms recomputed from the table row
+// as the staging computes them.  The z0 column is divided by pa and the
+// prune column multiplied by pa^2.
+__device__ __forceinline__ void flush_row(const Params& p, const float* row,
+                                          float* o, const float* acc,
+                                          int stride, float ox, float oy) {
+  const float pa = row[6];
+  float g6[6];
+  if (p.antialias) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) g6[c] = acc[c * stride];
+  } else {
+    const float mlx = row[0] - ox, mly = row[1] - oy;
+    const float ax = row[2], ay = row[3];
+    const float isx = 1.0f / fmaxf(row[4], 1e-12f);
+    const float isy = 1.0f / fmaxf(row[5], 1e-12f);
+    const float su_px = acc[0], su_py = acc[1 * stride];
+    const float su = acc[2 * stride];
+    const float sv_px = acc[3 * stride], sv_py = acc[4 * stride];
+    const float sv = acc[5 * stride];
+    const float su_dx = su_px - mlx * su, su_dy = su_py - mly * su;
+    const float sv_dx = sv_px - mlx * sv, sv_dy = sv_py - mly * sv;
+    const float suu = ax * isx * su_px + ay * isx * su_py
+                      + -(mlx * ax + mly * ay) * isx * su;
+    const float svv = -ay * isy * sv_px + ax * isy * sv_py
+                      + (mlx * ay - mly * ax) * isy * sv;
+    g6[0] = ax * isx * su - ay * isy * sv;
+    g6[1] = ay * isx * su + ax * isy * sv;
+    g6[2] = -isx * su_dx - isy * sv_dy;
+    g6[3] = -isx * su_dy + isy * sv_dx;
+    g6[4] = isx * suu;
+    g6[5] = isy * svv;
+  }
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    if (g6[c] != 0.0f) atomicAdd(o + c, g6[c]);
+  const int c_prune = 7 + p.f + 1;
+  for (int c = 6; c < p.slabw; ++c) {
+    float x = acc[c * stride];
+    if (c == 6) x = x / fmaxf(pa, 1e-20f);
+    if (p.heur && c == c_prune) x = x * (pa * pa);
+    if (x != 0.0f) atomicAdd(o + c, x);
+  }
+}
+
 template <int MAXF, int V, int kMode = kComposite>
 __device__ __forceinline__ void stream_backward_body(const Params& p) {
   constexpr bool kRegs = MAXF > 0;       // image cotangent in registers
   constexpr int NB = (kLead + MAXF + V - 1) / V;   // reduction batches
   extern __shared__ __align__(16) unsigned char smem[];
-  const int sc = p.slab_cap;
-  const int sa = acc_stride(sc);
-  int* s_key = reinterpret_cast<int*>(smem);
-  float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);
-  float* s_feat = s_geo + kGeo * sc;
-  float* s_acc = s_feat + p.f * sc;      // [column][slot], stride sa
+  const int cc = p.chunk;                // rows staged at once
+  const int sa = acc_stride(cc);
+  int* s_key = reinterpret_cast<int*>(smem);       // the slab's rank keys
+  float* s_geo = reinterpret_cast<float*>(s_key + p.sort_cap);  // [k][row]
+  float* s_feat = s_geo + kGeo * cc;     // [feature][row]
+  float* s_acc = s_feat + p.f * cc;      // [column][row], stride sa
   int* s_desc = reinterpret_cast<int*>(s_acc + p.slabw * sa);
   int* s_win = s_desc + 4 * p.w_max;     // [slot0, len, row0, grad row0]
   int* s_cnt = s_win + 4 * p.w_max;      // [slots used, valid rows]
@@ -270,7 +349,7 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
         const int b = cls / 3, k = cls % 3;
         const int head = lo % p.rpb;
         const int ln = max(min(len, p.slab_cap - (cur + head)), 0);
-        s_win[4 * w] = cur + head;
+        s_win[4 * w] = ln > 0 ? cur + head : cur;   // window_of's order
         s_win[4 * w + 1] = ln;
         s_win[4 * w + 2] = p.strip_blk[g * 3 + b] * p.strip_cap
                            + (lo - b * band_stride);
@@ -290,51 +369,16 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     int n_sort = 1;
     while (n_sort < n_slots) n_sort <<= 1;
     for (int i = tid; i < n_sort; i += nthr) s_key[i] = kKeyInvalid;
-    for (int i = tid; i < p.slabw * n_slots; i += nthr)
-      s_acc[(i / n_slots) * sa + i % n_slots] = 0.0f;
     __syncthreads();
 
-    // rows -> per-slot coefficients, features and rank keys
+    // the slab's rank keys, from each row's depth column
     for (int w = 0; w < p.w_max; ++w) {
       const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
       const int row0 = s_win[4 * w + 2];
       for (int r = tid; r < ln; r += nthr) {
-        const int slot = slot0 + r;
         const float* row = p.table + static_cast<size_t>(row0 + r) * p.w_pad;
-        const float mlx = row[0] - ox, mly = row[1] - oy;
-        const float ax = row[2], ay = row[3];
-        const float sx = row[4], sy = row[5], pa = row[6];
-        float* geo = s_geo + slot;
-        if (p.antialias) {
-          geo[0] = ax;
-          geo[1 * sc] = ay;
-          geo[2 * sc] = -(mlx * ax + mly * ay);
-          geo[3 * sc] = mlx * ay - mly * ax;
-          geo[4 * sc] = fmaxf(sx, 1e-12f);
-          geo[5 * sc] = fmaxf(sy, 1e-12f);
-          geo[10 * sc] = mlx;
-          geo[11 * sc] = mly;
-        } else {
-          // the linear forms u = lu . [px, py, 1], v = lv . [px, py, 1]
-          // (stream_kernels._backward_alpha_raw)
-          const float isx = 1.0f / fmaxf(sx, 1e-12f);
-          const float isy = 1.0f / fmaxf(sy, 1e-12f);
-          geo[0] = ax * isx;
-          geo[1 * sc] = ay * isx;
-          geo[2 * sc] = -(mlx * ax + mly * ay) * isx;
-          geo[3 * sc] = -ay * isy;
-          geo[4 * sc] = ax * isy;
-          geo[5 * sc] = (mlx * ay - mly * ax) * isy;
-        }
-        geo[6 * sc] = pa;
-        for (int c = 0; c < p.f; ++c)
-          s_feat[c * sc + slot] = row[7 + c];
-        s_key[slot] = (static_cast<int>(row[7 + p.f]) << 11) | slot;
-        if constexpr (kMode == kSkeleton) {
-          float sum = 0.0f;
-          for (int c = 0; c < 8 + p.f; ++c) sum += row[c];
-          for (int c = 0; c < p.slabw; ++c) s_acc[c * sa + slot] = 1e-20f * sum;
-        }
+        s_key[slot0 + r] = (static_cast<int>(row[7 + p.f]) << 11)
+                           | (slot0 + r);
       }
     }
     __syncthreads();
@@ -357,225 +401,253 @@ __device__ __forceinline__ void stream_backward_body(const Params& p) {
     }
 
     // front-to-back walk in rank order, the forward's association of the
-    // log transmittance (carry + sequential slab sum)
+    // log transmittance (carry + sequential slab sum), in chunks: each
+    // staged in walk order, walked, then flushed
     const float lt_in = lt;
     float acc_l = 0.0f, acc_wgf = 0.0f, ag_sum = 0.0f;
     bool done = lt <= p.lcut;
-    const int n_walk = kMode == kSkeleton ? 0
-                       : kMode == kNoSort ? n_slots : n_valid;
-    for (int j = 0; j < n_walk; ++j) {
-      if ((j & 31) == 0 && __syncthreads_and(done)) break;
-      int slot;
-      if constexpr (kMode == kNoSort) {
-        if (s_key[j] == kKeyInvalid) continue;   // a slot between windows
-        slot = j;
-      } else {
-        slot = s_key[j] & 2047;
-      }
-      const float* geo = s_geo + slot;
+    const int n_rows = kMode == kNoSort ? n_slots : n_valid;
+    const int n_walk = kMode == kSkeleton ? 0 : n_rows;
+    bool stop = false;
+    for (int j0 = 0; j0 < n_rows && !stop; j0 += cc) {
+      const int cn = min(cc, n_rows - j0);
 
-      // slots 0-6 the packed-gaussian terms, then w, ag^2 and the split
-      // term; the features' terms are w * gi
-      float a_raw, u = 0.0f, v = 0.0f;
-      if (p.antialias) {
-        const float ax = geo[0], ay = geo[1 * sc];
-        const float sx = geo[4 * sc], sy = geo[5 * sc];
-        const float tu = ax * px + ay * py + geo[2 * sc];
-        const float tv = -ay * px + ax * py + geo[3 * sc];
-        const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
-        const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
-        a_raw = geo[6 * sc] * (kTau * ix * iy);
-      } else {
-        u = geo[0] * px + geo[1 * sc] * py + geo[2 * sc];
-        v = geo[3 * sc] * px + geo[4 * sc] * py + geo[5 * sc];
-        a_raw = geo[6 * sc] * expf(-0.5f * (u * u + v * v));
+      // the chunk's rows -> per-row coefficients and features
+      if constexpr (kMode != kSkeleton) {
+        for (int i = tid; i < p.slabw * cn; i += nthr)
+          s_acc[(i / cn) * sa + i % cn] = 0.0f;
       }
-      const float a = a_raw > p.alpha_threshold
-                          ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
-      const float lt_j = acc_l + lt_in;
-      const bool live = lt_j > p.lcut && a > 0.0f;
-
-      float t7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      float tw = 0.0f, tprune = 0.0f, tsplit = 0.0f;
-      if (live) {
-        const float t = expf(lt_j);
-        const float w = a * t;
-        float gf = 0.0f;
-        if constexpr (kRegs) {
-#pragma unroll
-          for (int c = 0; c < MAXF; ++c)
-            if (c < p.f) gf += s_feat[c * sc + slot] * gi[c];
+      for (int i = tid; i < cn; i += nthr) {
+        const int key = s_key[j0 + i];
+        if (kMode == kNoSort && key == kKeyInvalid) continue;  // a gap
+        const int slot = key & 2047;
+        const int w = window_of(s_win, p.w_max, slot);
+        const float* row = p.table + static_cast<size_t>(
+            s_win[4 * w + 2] + slot - s_win[4 * w]) * p.w_pad;
+        const float mlx = row[0] - ox, mly = row[1] - oy;
+        const float ax = row[2], ay = row[3];
+        const float sx = row[4], sy = row[5], pa = row[6];
+        float* geo = s_geo + i;
+        if (p.antialias) {
+          geo[0] = ax;
+          geo[1 * cc] = ay;
+          geo[2 * cc] = -(mlx * ax + mly * ay);
+          geo[3 * cc] = mlx * ay - mly * ax;
+          geo[4 * cc] = fmaxf(sx, 1e-12f);
+          geo[5 * cc] = fmaxf(sy, 1e-12f);
+          geo[10 * cc] = mlx;
+          geo[11 * cc] = mly;
         } else {
-          for (int c = 0; c < p.f; ++c)
-            gf += s_feat[c * sc + slot] * s_gi[c * nthr + tid];
+          // the linear forms u = lu . [px, py, 1], v = lv . [px, py, 1]
+          // (stream_kernels._backward_alpha_raw)
+          const float isx = 1.0f / fmaxf(sx, 1e-12f);
+          const float isy = 1.0f / fmaxf(sy, 1e-12f);
+          geo[0] = ax * isx;
+          geo[1 * cc] = ay * isx;
+          geo[2 * cc] = -(mlx * ax + mly * ay) * isx;
+          geo[3 * cc] = -ay * isy;
+          geo[4 * cc] = ax * isy;
+          geo[5 * cc] = (mlx * ay - mly * ax) * isy;
         }
-        gf += gi_w;
-        const float wgf = w * gf;
-        acc_wgf += wgf;
-        const float s_i = s_total - (acc_wgf + s_prev);
-        const float ag = t * gf - s_i / (1.0f - a);
-        acc_l += log1pf(-a);
-        if constexpr (kMode == kNoGrad) {
-          ag_sum += ag;
+        geo[6 * cc] = pa;
+        for (int c = 0; c < p.f; ++c)
+          s_feat[c * cc + i] = row[7 + c];
+        if constexpr (kMode == kSkeleton) {
+          float sum = 0.0f;
+          for (int c = 0; c < 8 + p.f; ++c) sum += row[c];
+          for (int c = 0; c < p.slabw; ++c) s_acc[c * sa + i] = 1e-20f * sum;
+        }
+      }
+      __syncthreads();
+
+      for (int j = j0; j < min(j0 + cn, n_walk); ++j) {
+        if ((j & 31) == 0 && __syncthreads_and(done)) {
+          stop = true;
+          break;
+        }
+        if constexpr (kMode == kNoSort) {
+          if (s_key[j] == kKeyInvalid) continue;   // a slot between windows
+        }
+        const int i = j - j0;
+        const float* geo = s_geo + i;
+
+        // slots 0-6 the packed-gaussian terms, then w, ag^2 and the split
+        // term; the features' terms are w * gi
+        float a_raw, u = 0.0f, v = 0.0f;
+        if (p.antialias) {
+          const float ax = geo[0], ay = geo[1 * cc];
+          const float sx = geo[4 * cc], sy = geo[5 * cc];
+          const float tu = ax * px + ay * py + geo[2 * cc];
+          const float tv = -ay * px + ax * py + geo[3 * cc];
+          const float ix = sx * (s_sig(tu + 0.5f, sx) - s_sig(tu - 0.5f, sx));
+          const float iy = sy * (s_sig(tv + 0.5f, sy) - s_sig(tv - 0.5f, sy));
+          a_raw = geo[6 * cc] * (kTau * ix * iy);
         } else {
-          const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
-          if (p.antialias) {
-            const float dx = px - geo[10 * sc], dy = py - geo[11 * sc];
-            const float ax = geo[0], ay = geo[1 * sc];
-            const float sx = geo[4 * sc], sy = geo[5 * sc];
-            const float pa = geo[6 * sc];
-            const float tu = ax * px + ay * py + geo[2 * sc];
-            const float tv = -ay * px + ax * py + geo[3 * sc];
-            float sx1, dx1, dx1s, sx2, dx2, dx2s;
-            float sy1, dy1, dy1s, sy2, dy2, dy2s;
-            s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
-            s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
-            s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
-            s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
-            const float ix = sx * (sx1 - sx2);
-            const float iy = sy * (sy1 - sy2);
-            const float dsx_t = iy * sx * (dx1 - dx2);
-            const float dsy_t = ix * sy * (dy1 - dy2);
-            const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
-            t7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
-            t7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
-            t7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
-            t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
-            t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
-            t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
-            tsplit = fabsf(t7[0]) + fabsf(t7[1]);
+          u = geo[0] * px + geo[1 * cc] * py + geo[2 * cc];
+          v = geo[3 * cc] * px + geo[4 * cc] * py + geo[5 * cc];
+          a_raw = geo[6 * cc] * expf(-0.5f * (u * u + v * v));
+        }
+        const float a = a_raw > p.alpha_threshold
+                            ? fminf(a_raw, p.clamp_max_alpha) : 0.0f;
+        const float lt_j = acc_l + lt_in;
+        const bool live = lt_j > p.lcut && a > 0.0f;
+
+        float t7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float tw = 0.0f, tprune = 0.0f, tsplit = 0.0f;
+        if (live) {
+          const float t = expf(lt_j);
+          const float w = a * t;
+          float gf = 0.0f;
+          if constexpr (kRegs) {
+#pragma unroll
+            for (int c = 0; c < MAXF; ++c)
+              if (c < p.f) gf += s_feat[c * cc + i] * gi[c];
           } else {
-            // the pixel moments; the flush makes them gradients
-            const float zu = z0 * u, zv = z0 * v;
-            t7[0] = zu * px;
-            t7[1] = zu * py;
-            t7[2] = zu;
-            t7[3] = zv * px;
-            t7[4] = zv * py;
-            t7[5] = zv;
-            tsplit = fabsf(zu * geo[0] + zv * geo[3 * sc])
-                     + fabsf(zu * geo[1 * sc] + zv * geo[4 * sc]);
+            for (int c = 0; c < p.f; ++c)
+              gf += s_feat[c * cc + i] * s_gi[c * nthr + tid];
           }
-          t7[6] = z0;                            // / pa at the flush
-          tw = w;
-          tprune = ag * ag;                      // * pa^2 at the flush
+          gf += gi_w;
+          const float wgf = w * gf;
+          acc_wgf += wgf;
+          const float s_i = s_total - (acc_wgf + s_prev);
+          const float ag = t * gf - s_i / (1.0f - a);
+          acc_l += log1pf(-a);
+          if constexpr (kMode == kNoGrad) {
+            ag_sum += ag;
+          } else {
+            const float z0 = a_raw < p.clamp_max_alpha ? ag * a_raw : 0.0f;
+            if (p.antialias) {
+              const float dx = px - geo[10 * cc], dy = py - geo[11 * cc];
+              const float ax = geo[0], ay = geo[1 * cc];
+              const float sx = geo[4 * cc], sy = geo[5 * cc];
+              const float pa = geo[6 * cc];
+              const float tu = ax * px + ay * py + geo[2 * cc];
+              const float tv = -ay * px + ax * py + geo[3 * cc];
+              float sx1, dx1, dx1s, sx2, dx2, dx2s;
+              float sy1, dy1, dy1s, sy2, dy2, dy2s;
+              s_grads(tu + 0.5f, sx, sx1, dx1, dx1s);
+              s_grads(tu - 0.5f, sx, sx2, dx2, dx2s);
+              s_grads(tv + 0.5f, sy, sy1, dy1, dy1s);
+              s_grads(tv - 0.5f, sy, sy2, dy2, dy2s);
+              const float ix = sx * (sx1 - sx2);
+              const float iy = sy * (sy1 - sy2);
+              const float dsx_t = iy * sx * (dx1 - dx2);
+              const float dsy_t = ix * sy * (dy1 - dy2);
+              const float aag = a_raw < p.clamp_max_alpha ? pa * ag : 0.0f;
+              t7[0] = aag * (kTau * (-dsx_t * ax + dsy_t * ay));
+              t7[1] = aag * (kTau * (-dsx_t * ay - dsy_t * ax));
+              t7[2] = aag * (kTau * (dsx_t * dx + dsy_t * dy));
+              t7[3] = aag * (kTau * (dsx_t * dy - dsy_t * dx));
+              t7[4] = aag * (kTau * iy * (sx1 - sx2 + (dx1s - dx2s) * sx));
+              t7[5] = aag * (kTau * ix * (sy1 - sy2 + (dy1s - dy2s) * sy));
+              tsplit = fabsf(t7[0]) + fabsf(t7[1]);
+            } else {
+              // the pixel moments; the flush makes them gradients
+              const float zu = z0 * u, zv = z0 * v;
+              t7[0] = zu * px;
+              t7[1] = zu * py;
+              t7[2] = zu;
+              t7[3] = zv * px;
+              t7[4] = zv * py;
+              t7[5] = zv;
+              tsplit = fabsf(zu * geo[0] + zv * geo[3 * cc])
+                       + fabsf(zu * geo[1 * cc] + zv * geo[4 * cc]);
+            }
+            t7[6] = z0;                            // / pa at the flush
+            tw = w;
+            tprune = ag * ag;                      // * pa^2 at the flush
+          }
         }
-      }
-      done = acc_l + lt_in <= p.lcut;
+        done = acc_l + lt_in <= p.lcut;
 
-      if (kMode != kNoGrad && __any_sync(kFull, live)) {
-        float* acc = s_acc + slot;
-        if constexpr (kRegs) {
+        if (kMode != kNoGrad && __any_sync(kFull, live)) {
+          float* acc = s_acc + i;
+          if constexpr (kRegs) {
 #pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            if (b > 0 && b * V >= kLead + p.f) break;
-            float v[V];
+            for (int b = 0; b < NB; ++b) {
+              if (b > 0 && b * V >= kLead + p.f) break;
+              float v[V];
 #pragma unroll
-            for (int i = 0; i < V; ++i) {
-              const int k = b * V + i;          // slot
-              const int c = k - kLead;          // feature of the slot
-              float x = 0.0f;
-              if (k < 7) x = t7[k < 7 ? k : 0];
-              else if (k == 7) x = tw;
-              else if (k == 8) x = tprune;
-              else if (k == 9) x = tsplit;
-              else if (c < MAXF) x = tw * gi[c >= 0 && c < MAXF ? c : 0];
-              v[i] = x;
+              for (int k = 0; k < V; ++k) {
+                const int q = b * V + k;          // slot
+                const int c = q - kLead;          // feature of the slot
+                float x = 0.0f;
+                if (q < 7) x = t7[q < 7 ? q : 0];
+                else if (q == 7) x = tw;
+                else if (q == 8) x = tprune;
+                else if (q == 9) x = tsplit;
+                else if (c < MAXF) x = tw * gi[c >= 0 && c < MAXF ? c : 0];
+                v[k] = x;
+              }
+              const float x = reduce_scatter<V>(v, lane);
+              if (dst[b] >= 0 && x != 0.0f) atomicAdd(acc + dst[b] * sa, x);
             }
-            const float x = reduce_scatter<V>(v, lane);
-            if (dst[b] >= 0 && x != 0.0f) atomicAdd(acc + dst[b] * sa, x);
-          }
-        } else {
-          // batch 0 holds the lead slots (index i, compile-time), every
-          // batch the features from shared memory
-          const float lead[kLead] = {t7[0], t7[1], t7[2], t7[3], t7[4],
-                                     t7[5], t7[6], tw, tprune, tsplit};
-          for (int b = 0; b * V < kLead + p.f; ++b) {
-            float v[V];
+          } else {
+            // batch 0 holds the lead slots (index k, compile-time), every
+            // batch the features from shared memory
+            const float lead[kLead] = {t7[0], t7[1], t7[2], t7[3], t7[4],
+                                       t7[5], t7[6], tw, tprune, tsplit};
+            for (int b = 0; b * V < kLead + p.f; ++b) {
+              float v[V];
 #pragma unroll
-            for (int i = 0; i < V; ++i) {
-              const int c = b * V + i - kLead;
-              float x = 0.0f;
-              if (b == 0 && i < kLead) x = lead[i < kLead ? i : 0];
-              else if (c < p.f) x = tw * s_gi[c * nthr + tid];
-              v[i] = x;
+              for (int k = 0; k < V; ++k) {
+                const int c = b * V + k - kLead;
+                float x = 0.0f;
+                if (b == 0 && k < kLead) x = lead[k < kLead ? k : 0];
+                else if (c < p.f) x = tw * s_gi[c * nthr + tid];
+                v[k] = x;
+              }
+              const float x = reduce_scatter<V>(v, lane);
+              const int slot = scatter_slot<V>(lane);
+              const int col = slot < 0 ? -1 : slot_column(b * V + slot, p.f,
+                                                          p.with_vis, p.heur);
+              if (col >= 0 && x != 0.0f) atomicAdd(acc + col * sa, x);
             }
-            const float x = reduce_scatter<V>(v, lane);
-            const int slot = scatter_slot<V>(lane);
-            const int col = slot < 0 ? -1 : slot_column(b * V + slot, p.f,
-                                                        p.with_vis, p.heur);
-            if (col >= 0 && x != 0.0f) atomicAdd(acc + col * sa, x);
           }
         }
       }
+      __syncthreads();
+
+      // the chunk's rows into the home-major buffer (kNoCopyback: into
+      // this thread's sum; kNoGrad: after the slab)
+      if constexpr (kMode == kNoCopyback) {
+        for (int i = tid; i < p.slabw * cn; i += nthr)
+          acc_sum += s_acc[(i / cn) * sa + i % cn];
+      } else if constexpr (kMode != kNoGrad) {
+        for (int i = tid; i < cn; i += nthr) {
+          const int key = s_key[j0 + i];
+          if (kMode == kNoSort && key == kKeyInvalid) continue;
+          const int slot = key & 2047;
+          const int w = window_of(s_win, p.w_max, slot);
+          const int r = slot - s_win[4 * w];
+          const int grow = s_win[4 * w + 3] + r;
+          if (grow < 0 || grow >= r_rows) continue;
+          flush_row(p, p.table + static_cast<size_t>(s_win[4 * w + 2] + r)
+                           * p.w_pad,
+                    p.out + static_cast<size_t>(grow) * p.slabw, s_acc + i,
+                    sa, ox, oy);
+        }
+      }
+      __syncthreads();   // shared buffers are rewritten by the next chunk
     }
     lt = acc_l + lt_in;
     s_prev += acc_wgf;
-    __syncthreads();
     if constexpr (kMode == kNoGrad) {
-      const float x = 1e-20f * block_sum(ag_sum, s_acc, tid, nthr);
-      for (int i = tid; i < p.slabw * n_slots; i += nthr)
-        s_acc[(i / n_slots) * sa + i % n_slots] = x;
-      __syncthreads();
-    }
-    if constexpr (kMode == kNoCopyback) {
-      for (int i = tid; i < p.slabw * n_slots; i += nthr)
-        acc_sum += s_acc[(i / n_slots) * sa + i % n_slots];
-      __syncthreads();
-      continue;
-    }
-
-    // flush the slab's rows into the home-major buffer; without
-    // antialias, the moments -> gradients with this tile's mean offsets
-    // (stream_kernels._flush_rows, the reference's :882-893)
-    for (int w = 0; w < p.w_max; ++w) {
-      const int slot0 = s_win[4 * w], ln = s_win[4 * w + 1];
-      const int row0 = s_win[4 * w + 2], grow0 = s_win[4 * w + 3];
-      for (int r = tid; r < ln; r += nthr) {
-        const int grow = grow0 + r;
-        if (grow < 0 || grow >= r_rows) continue;
-        const float* row = p.table + static_cast<size_t>(row0 + r) * p.w_pad;
-        const float pa = row[6];
-        const float* acc = s_acc + slot0 + r;
-        float* o = p.out + static_cast<size_t>(grow) * p.slabw;
-        float g6[6];
-        if (p.antialias) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) g6[c] = acc[c * sa];
-        } else {
-          const float mlx = row[0] - ox, mly = row[1] - oy;
-          const float ax = row[2], ay = row[3];
-          const float isx = 1.0f / fmaxf(row[4], 1e-12f);
-          const float isy = 1.0f / fmaxf(row[5], 1e-12f);
-          const float su_px = acc[0], su_py = acc[1 * sa], su = acc[2 * sa];
-          const float sv_px = acc[3 * sa], sv_py = acc[4 * sa];
-          const float sv = acc[5 * sa];
-          const float su_dx = su_px - mlx * su, su_dy = su_py - mly * su;
-          const float sv_dx = sv_px - mlx * sv, sv_dy = sv_py - mly * sv;
-          const float* geo = s_geo + slot0 + r;
-          const float suu = geo[0] * su_px + geo[1 * sc] * su_py
-                            + geo[2 * sc] * su;
-          const float svv = geo[3 * sc] * sv_px + geo[4 * sc] * sv_py
-                            + geo[5 * sc] * sv;
-          g6[0] = ax * isx * su - ay * isy * sv;
-          g6[1] = ay * isx * su + ax * isy * sv;
-          g6[2] = -isx * su_dx - isy * sv_dy;
-          g6[3] = -isx * su_dy + isy * sv_dx;
-          g6[4] = isx * suu;
-          g6[5] = isy * svv;
-        }
-#pragma unroll
-        for (int c = 0; c < 6; ++c)
-          if (g6[c] != 0.0f) atomicAdd(o + c, g6[c]);
-        for (int c = 6; c < p.slabw; ++c) {
-          float x = acc[c * sa];
-          if (c == 6) x = x / fmaxf(pa, 1e-20f);
-          if (p.heur && c == c_vis + 1) x = x * (pa * pa);
-          if (x != 0.0f) atomicAdd(o + c, x);
+      // every row of the slab gets 1e-20 x the tile's sum of alpha_grad
+      const float x[1] = {1e-20f * block_sum(ag_sum, s_acc, tid, nthr)};
+      for (int w = 0; w < p.w_max; ++w) {
+        const int ln = s_win[4 * w + 1];
+        const int row0 = s_win[4 * w + 2], grow0 = s_win[4 * w + 3];
+        for (int r = tid; r < ln; r += nthr) {
+          const int grow = grow0 + r;
+          if (grow < 0 || grow >= r_rows) continue;
+          flush_row(p, p.table + static_cast<size_t>(row0 + r) * p.w_pad,
+                    p.out + static_cast<size_t>(grow) * p.slabw, x, 0, ox,
+                    oy);
         }
       }
+      __syncthreads();
     }
-    __syncthreads();   // shared buffers are rewritten by the next slab
   }
   if constexpr (kMode == kNoCopyback) {
     const float total = block_sum(acc_sum, s_acc, tid, nthr);
@@ -660,11 +732,12 @@ constexpr int kMergeThreads = 256;
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes: rank keys, per-row
-// coefficients and features, the [column][slot] accumulator, window
-// descriptors, and (generic instantiation, max_features 0) the image
-// cotangent of every thread.
-extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
+// Dynamic shared memory of one block, in bytes: the slab's rank keys, per
+// row of a chunk of `chunk` rows its coefficients and features and the
+// [column][row] accumulator, window descriptors, and (generic
+// instantiation, max_features 0) the image cotangent of every thread.
+extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int chunk,
+                                                    int w_max,
                                                     int feature_size,
                                                     int slabw,
                                                     int max_features,
@@ -672,8 +745,8 @@ extern "C" long long tpu_splat_stream_backward_smem(int slab_cap, int w_max,
   int sort_cap = 1;
   while (sort_cap < slab_cap) sort_cap <<= 1;
   return 4LL * (sort_cap
-                + static_cast<long long>(kGeo + feature_size) * slab_cap
-                + static_cast<long long>(slabw) * acc_stride(slab_cap)
+                + static_cast<long long>(kGeo + feature_size) * chunk
+                + static_cast<long long>(slabw) * acc_stride(chunk)
                 + 8 * w_max + 2
                 + (max_features == 0
                        ? static_cast<long long>(feature_size) * threads : 0));
@@ -693,17 +766,18 @@ extern "C" int tpu_splat_stream_backward_occupancy(int max_features,
 // mapping's first band; with `halo` 1 `out` holds (tiles_high + 2) bands of
 // homes, a halo band above and below the mapping's own.  `mode`
 // (kSkeleton, kNoSort, kNoGrad, kNoCopyback) selects a profiling mode of
-// <6, 16>.  Returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue where no
-// instantiation matches.
+// <6, 16>.  A block stages `chunk` rows of a slab at once (0 < chunk <=
+// slab_cap).  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue where no instantiation matches or the chunk is out
+// of range.
 // `out` must be zero-initialised: the kernel only adds to it.
 extern "C" int tpu_splat_stream_backward(
     const float* table, const int* desc, const int* strip_blk,
     const float* img, const float* gimg, float* out, int num_tiles,
     int tiles_wide, int group_width, int num_slabs, int w_max, int strip_cap,
-    int slab_cap, int rpb, int w_pad, int feature_size, int tile_size,
-    int antialias, int run_cap, int slabw, int with_vis, int heur,
-    int max_features, int threads, int band0, int halo, int mode,
+    int slab_cap, int chunk, int rpb, int w_pad, int feature_size,
+    int tile_size, int antialias, int run_cap, int slabw, int with_vis,
+    int heur, int max_features, int threads, int band0, int halo, int mode,
     float alpha_threshold, float clamp_max_alpha, float lcut, void* stream) {
   Params p;
   p.table = table;
@@ -721,6 +795,7 @@ extern "C" int tpu_splat_stream_backward(
   p.slab_cap = slab_cap;
   p.sort_cap = 1;
   while (p.sort_cap < slab_cap) p.sort_cap <<= 1;
+  p.chunk = chunk;
   p.rpb = rpb;
   p.w_pad = w_pad;
   p.f = feature_size;
@@ -735,10 +810,11 @@ extern "C" int tpu_splat_stream_backward(
   p.alpha_threshold = alpha_threshold;
   p.clamp_max_alpha = clamp_max_alpha;
   p.lcut = lcut;
-  if (max_features > 0 && feature_size > max_features)
+  if ((max_features > 0 && feature_size > max_features) || chunk <= 0
+      || chunk > slab_cap)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(tpu_splat_stream_backward_smem(
-      slab_cap, w_max, feature_size, slabw, max_features, threads));
+      slab_cap, chunk, w_max, feature_size, slabw, max_features, threads));
   return launch_kernel(kernel_for(max_features, mode), p, num_tiles, threads,
                        smem, static_cast<cudaStream_t>(stream));
 }

@@ -65,9 +65,10 @@ import torch
 from .. import trace
 from ..data_types import RasterConfig
 from ..utils.cuda_build import (KernelPlan, acc_stride, block_threads,
-                                 check_smem, declare_plan_entries,
-                                 instantiation, launch_stream,
-                                 load_kernel_library)
+                                 blocks_by_smem, check_smem,
+                                 declare_plan_entries, instantiation,
+                                 launch_stream, load_kernel_library,
+                                 occupancy)
 from .kernels import (_NEG_BIG, _antialias_grads, _s_sig, footprint_reference,
                       quad_coeffs, thread_pixels, walk_mask, warp_rects)
 from .stream import (STRIP_SLACK, StreamMapping,
@@ -83,7 +84,10 @@ BWD_ABLATIONS = {"": 0, "skeleton": 1, "no_sort": 2, "no_grad": 3,
 ABLATION_ALIASES = {"no_mask": "no_sort"}
 
 # kernel launches per wrapper; only the wrapper's launch site adds to it
-launch_counts = {"stream_forward": 0, "stream_backward": 0, "halo_merge": 0,
+# (``stream_backward_chunked``: the K2 launches among ``stream_backward``'s
+# whose slabs take more than one chunk)
+launch_counts = {"stream_forward": 0, "stream_backward": 0,
+                 "stream_backward_chunked": 0, "halo_merge": 0,
                  "stream_descriptors": 0}
 # launches of the floor probe and the profiling modes, which lie on no path
 # of the system: ``stream_forward_<mode>``, ``stream_forward_counts`` (a
@@ -771,18 +775,51 @@ def stream_forward_plan(f: int, slab_cap: int, w_max: int,
   return KernelPlan(mf, threads, smem)
 
 
+# K2 aims at three blocks an SM: its register instantiations' 72-80
+# registers a thread allow three of 256 threads; a slab that does not fit
+# is staged in chunks of at least K5's 128 rows
+K2_BLOCKS = 3
+K2_MIN_CHUNK = 128
+
+
+def _backward_smem(f: int, slab_cap: int, chunk: int, w_max: int, slabw: int,
+                   threads: int, mf: int) -> int:
+  return 4 * (_sort_cap(slab_cap) + (12 + f) * chunk
+              + slabw * acc_stride(chunk) + 8 * w_max + 2
+              + (f * threads if mf == 0 else 0))
+
+
+@functools.cache
+def stream_backward_chunk(f: int, slab_cap: int, w_max: int, slabw: int,
+                          tile_area: int) -> int:
+  """Rows of a slab K2 stages at once: of the whole slab and the multiples
+  of 32 from ``K2_MIN_CHUNK`` below it, the largest whose shared memory
+  holds the most blocks an SM, up to ``K2_BLOCKS``.  So a slab that fits
+  three blocks is one chunk (the headline's 512 rows at F 3), and the
+  heavy scene's 1792 at F 3 goes in chunks of 576.  Where none fits one
+  block: the slab (``check_smem`` raises)."""
+  threads = block_threads(tile_area)
+  mf = instantiation(f, tile_area, K2_WIDTHS)
+
+  def blocks(chunk):
+    return min(K2_BLOCKS, blocks_by_smem(_backward_smem(
+        f, slab_cap, chunk, w_max, slabw, threads, mf)))
+  return max([slab_cap, *range(K2_MIN_CHUNK, slab_cap, 32)],
+             key=lambda c: (blocks(c), c))
+
+
 def stream_backward_plan(f: int, slab_cap: int, w_max: int, slabw: int,
                          tile_area: int) -> KernelPlan:
   """K2's instantiation, threads (the tile's pixels in whole warps) and
-  shared memory: rank keys, per-row coefficients and features, the
-  [column][slot] accumulator, window descriptors and, generic, every
+  shared memory: the slab's rank keys, per row of a chunk
+  (``stream_backward_chunk``) its coefficients and features and the
+  [column][row] accumulator, window descriptors and, generic, every
   thread's F image cotangents (``tpu_splat_stream_backward_smem``)."""
   threads = block_threads(tile_area)
   mf = instantiation(f, tile_area, K2_WIDTHS)
-  smem = 4 * (_sort_cap(slab_cap) + (12 + f) * slab_cap
-              + slabw * acc_stride(slab_cap) + 8 * w_max + 2
-              + (f * threads if mf == 0 else 0))
-  return KernelPlan(mf, threads, smem)
+  chunk = stream_backward_chunk(f, slab_cap, w_max, slabw, tile_area)
+  return KernelPlan(mf, threads, _backward_smem(f, slab_cap, chunk, w_max,
+                                                slabw, threads, mf))
 
 
 @functools.cache
@@ -935,9 +972,9 @@ def _bwd_kernel():
   lib = load_kernel_library("stream_backward.cu")
   lib.tpu_splat_stream_backward.restype = ctypes.c_int
   lib.tpu_splat_stream_backward.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21 + [ctypes.c_float] * 3
+      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 22 + [ctypes.c_float] * 3
       + [ctypes.c_void_p])
-  declare_plan_entries(lib, "tpu_splat_stream_backward", 6)
+  declare_plan_entries(lib, "tpu_splat_stream_backward", 7)
   lib.tpu_splat_halo_merge.restype = ctypes.c_int
   lib.tpu_splat_halo_merge.argtypes = (
       [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
@@ -978,8 +1015,9 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
   mode = _ablation(ablate, BWD_ABLATIONS, "stream_backward")
   f = mapping.feature_size
   slabw = slab_width(config, f)
-  plan = stream_backward_plan(f, mapping.slab_cap, mapping.w_max, slabw,
-                              config.tile_area)
+  shapes = (f, mapping.slab_cap, mapping.w_max, slabw, config.tile_area)
+  plan = stream_backward_plan(*shapes)
+  chunk = stream_backward_chunk(*shapes)
   if mode:
     _check_profile("stream_backward", band0, halo, plan.max_features,
                    K2_PROFILE_WIDTH)
@@ -1026,7 +1064,7 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
         mapping.strip_blk.data_ptr(), image_tiled.data_ptr(),
         g_image_tiled.data_ptr(), out.data_ptr(),
         t, mapping.tiles_wide, mapping.group_width, mapping.num_slabs,
-        mapping.w_max, mapping.strip_cap, mapping.slab_cap,
+        mapping.w_max, mapping.strip_cap, mapping.slab_cap, chunk,
         mapping.rows_per_block, w_pad, f, config.tile_size,
         int(config.antialias), mapping.run_cap, slabw, int(with_vis),
         int(heur), plan.max_features, plan.threads, band0, int(halo),
@@ -1039,7 +1077,17 @@ def stream_backward(mapping: StreamMapping, image_tiled: torch.Tensor,
     probe_launch_counts[f"stream_backward_{mode}"] += 1
   else:
     launch_counts["stream_backward"] += 1
+    launch_counts["stream_backward_chunked"] += chunk < mapping.slab_cap
+  trace.count(k2_chunks=-(-mapping.slab_cap // chunk),
+              k2_blocks_per_sm=lambda: _blocks_per_sm(plan))
   return out
+
+
+@functools.cache
+def _blocks_per_sm(plan: KernelPlan) -> int:
+  """K2's resident blocks an SM at ``plan``, from the CUDA runtime."""
+  return occupancy(_bwd_kernel(), "tpu_splat_stream_backward",
+                   plan)["blocks_per_sm"]
 
 
 def halo_merge_reference(buf: torch.Tensor, tiles_high: int, band_rows: int,

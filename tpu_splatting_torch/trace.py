@@ -36,7 +36,11 @@ Spans of the program: ``project``, ``sh``, ``map`` (with ``map.bounds``,
 gradient of the SH colours and of the projected splats on), and
 ``optimizer``.  Counts: ``map.wide_dup``'s ``wide`` (the mapping's wide
 splats, those that reach past the 3x3 tiles about their home) and
-``dup_rows`` (the duplicate rows it made for them).
+``dup_rows`` (the duplicate rows it made for them); K2's, in the span its
+launch falls in (``backward.raster`` in a training step), ``k2_chunks``
+(the chunks a full slab takes, ``ceil(slab_cap / chunk)``) and
+``k2_blocks_per_sm`` (its plan's resident blocks an SM), both host
+integers, summed over the launches.
 
 In one's own trainer::
 

@@ -40,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on Hopper
+SMEM_SM = 233472      # shared memory of one SM on Hopper (228 KiB)
+SMEM_RESERVED = 1024  # shared memory the runtime keeps for each block
 
 _locks_guard = threading.Lock()
 _locks = {}      # one lock per source: different sources build in parallel
@@ -155,6 +157,14 @@ def instantiation(f: int, tile_area: int, widths) -> int:
       if f <= w:
         return w
   return 0
+
+
+def blocks_by_smem(smem: int) -> int:
+  """Blocks of ``smem`` bytes of dynamic shared memory one SM holds (0 past
+  one block's limit); registers may allow fewer."""
+  if smem > SMEM_LIMIT:
+    return 0
+  return SMEM_SM // (smem + SMEM_RESERVED)
 
 
 def check_smem(name: str, plan: KernelPlan, shapes: str):
